@@ -1,0 +1,128 @@
+"""Typed runtime configuration — the port's subset of
+``byteps_tpu/common/config.py``.
+
+Only the knobs the paged serving slice reads are carried over, under the
+same ``BYTEPS_*`` environment names so one environment drives either
+package: the logging pair ``common/logging.py`` needs and the
+``BYTEPS_SERVE_*`` knobs ``serving/frontend.py:serve_from_env`` reads.
+Knobs naming features this slice does not port (prefix cache, int8
+pools, speculative decoding, checkpoints) are still parsed, so that the
+serve role can refuse a non-default value loudly instead of ignoring it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return int(v)
+
+
+def _env_opt_int(name: str) -> Optional[int]:
+    v = os.environ.get(name)
+    return None if v is None or v == "" else int(v)
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v.lower() not in ("0", "false", "no", "off", "")
+
+
+def _env_str(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return float(v)
+
+
+def _env_opt_float(name: str) -> Optional[float]:
+    v = os.environ.get(name)
+    return None if v is None or v == "" else float(v)
+
+
+@dataclasses.dataclass
+class Config:
+    """Snapshot of the port's knobs (defaults as in the JAX package)."""
+
+    # --- logging --------------------------------------------------------
+    log_level: str = "WARNING"
+    log_hide_time: bool = False
+
+    # --- serving (serving/frontend.py serve_from_env) ------------------
+    serve_port: int = 9000
+    serve_slots: int = 8          # slot pool capacity (decode batch)
+    serve_max_seq: int = 0        # 0 = model's max_seq_len
+    serve_max_queue: int = 64     # bounded admission queue
+    serve_prefill_credits: int = 0  # padded prefill tokens/tick; 0 = auto
+    serve_temperature: float = 0.0  # 0 = greedy (engine-static)
+    serve_top_k: Optional[int] = None
+    serve_top_p: Optional[float] = None
+    serve_eos_id: Optional[int] = None
+    serve_model: str = ""         # "k=v,..." TransformerConfig overrides
+    serve_checkpoint: str = ""    # not ported: refused when set
+    serve_chunk: int = 0          # chunked prefill size in tokens; 0 = off
+    serve_prefix_cache: bool = False  # not ported: refused when set
+    serve_paged: bool = False     # the port serves paged only
+    serve_block: int = 16         # KV block size in tokens
+    serve_kv_mb: int = 0          # KV pool budget (MiB); 0 = dense-equiv
+    serve_kv_dtype: str = ""      # "" only in this slice
+    serve_paged_kernel: str = "auto"  # auto/on = the kernel; off refused
+    serve_spec: bool = False      # not ported: refused when set
+    serve_client_timeout_ms: float = 300_000.0
+
+    @staticmethod
+    def from_env() -> "Config":
+        return Config(
+            log_level=_env_str("BYTEPS_LOG_LEVEL", "WARNING"),
+            log_hide_time=_env_bool("BYTEPS_LOG_HIDE_TIME"),
+            serve_port=_env_int("BYTEPS_SERVE_PORT", 9000),
+            serve_slots=_env_int("BYTEPS_SERVE_SLOTS", 8),
+            serve_max_seq=_env_int("BYTEPS_SERVE_MAX_SEQ", 0),
+            serve_max_queue=_env_int("BYTEPS_SERVE_MAX_QUEUE", 64),
+            serve_prefill_credits=_env_int(
+                "BYTEPS_SERVE_PREFILL_CREDITS", 0),
+            serve_temperature=_env_float("BYTEPS_SERVE_TEMPERATURE", 0.0),
+            serve_top_k=_env_opt_int("BYTEPS_SERVE_TOP_K"),
+            serve_top_p=_env_opt_float("BYTEPS_SERVE_TOP_P"),
+            serve_eos_id=_env_opt_int("BYTEPS_SERVE_EOS_ID"),
+            serve_model=_env_str("BYTEPS_SERVE_MODEL", ""),
+            serve_checkpoint=_env_str("BYTEPS_SERVE_CHECKPOINT", ""),
+            serve_chunk=_env_int("BYTEPS_SERVE_CHUNK", 0),
+            serve_prefix_cache=_env_bool("BYTEPS_SERVE_PREFIX_CACHE"),
+            serve_paged=_env_bool("BYTEPS_SERVE_PAGED"),
+            serve_block=_env_int("BYTEPS_SERVE_BLOCK", 16),
+            serve_kv_mb=_env_int("BYTEPS_SERVE_KV_MB", 0),
+            serve_kv_dtype=_env_str("BYTEPS_SERVE_KV_DTYPE", ""),
+            serve_paged_kernel=_env_str("BYTEPS_SERVE_PAGED_KERNEL",
+                                        "auto"),
+            serve_spec=_env_bool("BYTEPS_SERVE_SPEC"),
+            serve_client_timeout_ms=_env_float(
+                "BYTEPS_SERVE_CLIENT_TIMEOUT_MS", 300_000.0),
+        )
+
+
+_config: Optional[Config] = None
+
+
+def get_config() -> Config:
+    global _config
+    if _config is None:
+        _config = Config.from_env()
+    return _config
+
+
+def reset_config() -> None:
+    global _config
+    _config = None

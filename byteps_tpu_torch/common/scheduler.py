@@ -1,0 +1,115 @@
+"""Priority + credit scheduled queue — the port's copy of
+``ScheduledQueue`` (``byteps_tpu/common/scheduler.py``), the subset the
+serving scheduler builds on.
+
+Semantics of reference ``scheduled_queue.{h,cc}``:
+  * tasks kept sorted by (priority desc, key asc);
+  * ``get_task`` skips tasks whose length exceeds the remaining credits
+    and decrements credits on grant;
+  * ``report_finish`` returns credits;
+  * an unscheduled queue grants unlimited credit.
+
+A task is any object with ``.priority``, ``.key``, ``.length`` and
+``.name`` (the serving engine's ``PrefillTask``).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, Optional
+
+from . import logging as bps_log
+
+UNLIMITED_CREDIT = 34359738368  # 32 GB, reference scheduled_queue.cc:40-42
+
+
+class ScheduledQueue:
+    def __init__(self, scheduled: bool = False, credit_bytes: int = 0,
+                 name: str = ""):
+        self._is_scheduled = scheduled
+        self._credits = (credit_bytes if scheduled and credit_bytes > 0
+                         else UNLIMITED_CREDIT)
+        self._queue: List = []
+        self._lock = threading.Lock()
+        self.name = name
+
+    def add_task(self, task) -> None:
+        """Insert keeping (priority desc, key asc) order."""
+        with self._lock:
+            lo, hi = 0, len(self._queue)
+            k = (-task.priority, task.key)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                mk = (-self._queue[mid].priority, self._queue[mid].key)
+                if mk <= k:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            self._queue.insert(lo, task)
+            bps_log.trace("queue %s: added %s key %d prio %d (%d pending)",
+                          self.name, task.name, task.key, task.priority,
+                          len(self._queue))
+
+    def get_task(self):
+        """Grant the best task within the credit budget, or None."""
+        with self._lock:
+            for i, task in enumerate(self._queue):
+                if self._is_scheduled and task.length > self._credits:
+                    continue
+                if self._is_scheduled:
+                    self._credits -= task.length
+                del self._queue[i]
+                bps_log.trace("queue %s: granted %s key %d (credits "
+                              "left %d)", self.name, task.name, task.key,
+                              self._credits)
+                return task
+            return None
+
+    def drain(self) -> List:
+        """Remove and return every queued task, ignoring credits."""
+        with self._lock:
+            tasks, self._queue = list(self._queue), []
+            return tasks
+
+    def report_finish(self, task) -> None:
+        """Return a granted task's credits."""
+        with self._lock:
+            if self._is_scheduled:
+                self._credits += task.length
+
+    def try_debit(self, n: int) -> bool:
+        """Consume ``n`` credits for work granted outside the queue (a
+        chunked-prefill continuation); False, debiting nothing, when the
+        remaining credits cannot cover it."""
+        with self._lock:
+            if not self._is_scheduled:
+                return True
+            if n > self._credits:
+                return False
+            self._credits -= n
+            return True
+
+    def credit(self, n: int) -> None:
+        """Return ``n`` directly-debited credits."""
+        with self._lock:
+            if self._is_scheduled:
+                self._credits += n
+
+    def remove(self, task) -> bool:
+        """Remove a still-pending task without granting it; False when
+        it is no longer queued."""
+        with self._lock:
+            for i, queued in enumerate(self._queue):
+                if queued is task:
+                    del self._queue[i]
+                    return True
+            return False
+
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    @property
+    def credits(self) -> int:
+        with self._lock:
+            return self._credits

@@ -1,0 +1,39 @@
+"""Process launcher — the port's ``python -m byteps_tpu_torch.launcher``.
+
+This slice ports one role of ``byteps_tpu/launcher.py``:
+``DMLC_ROLE=serve`` builds the paged serving engine from
+``BYTEPS_SERVE_*`` and blocks on the TCP frontend
+(``serving/frontend.py:serve_from_env``), on the GPU.  The worker,
+parameter-server and router roles are later slices and exit non-zero
+with a notice.
+
+Usage::
+
+    DMLC_ROLE=serve BYTEPS_SERVE_PAGED=1 BYTEPS_SERVE_PORT=9000 \\
+        BYTEPS_SERVE_MODEL="num_heads=2" python -m byteps_tpu_torch.launcher
+
+(The default model has head_dim 32, which the kernel does not take;
+``num_heads=2`` at the default d_model 128 gives head_dim 64.)
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+
+def main() -> int:
+    env = dict(os.environ)
+    role = env.get("DMLC_ROLE", "worker")
+    if role == "serve":
+        from .serving.frontend import serve_from_env
+
+        return serve_from_env(env)
+    print(f"byteps_tpu_torch.launcher: role {role!r} is not ported yet; "
+          f"only DMLC_ROLE=serve runs in this package (use "
+          f"byteps_tpu.launcher for the others)", file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

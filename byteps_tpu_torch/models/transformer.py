@@ -1,0 +1,515 @@
+"""Decoder-only Transformer — the port of ``byteps_tpu/models/transformer.py``
+for the paged serving slice.
+
+What is carried over, by JAX counterpart:
+
+* ``TransformerConfig`` — the architecture fields (the mesh / attention
+  implementation axes of the JAX config belong to training and stay
+  behind);
+* ``apply_rope`` + ``_scaled_inv_freq`` — fp32 angles, HF half-split
+  rotation, llama3 / linear frequency rescale;
+* RMSNorm / LayerNorm with flax's numerics (statistics and the scale
+  multiply in fp32, fast variance for LayerNorm, result cast to the
+  model dtype);
+* ``MLP`` — swiglu, or gelu with the tanh approximation (flax's
+  ``nn.gelu`` default);
+* ``Attention`` — the fused paged branch (fresh K/V scattered into the
+  flat block pool at ``(wblk, woff)``, then the hand-written kernel of
+  ``ops/paged_attention.py``) and the dense cached branch
+  (``_group_q`` / ``_grouped_mask`` / ``_cached_attention``) that chunk
+  prefill runs, as the JAX engine does;
+* ``Transformer`` with ``decode``, ``prefill_chunk_paged``,
+  ``decode_paged_fused``, ``gather_paged_rows`` and ``logits`` (fp32
+  logits, the head accumulated in fp32 from model-dtype operands).
+
+PyTorch idiom where JAX was functional: the KV pools and cache rows are
+updated IN PLACE where the JAX code returns updated copies of donated
+buffers, and ``vmap`` over slots is a batch dimension written out.
+Weight layouts are ``nn.Linear``'s ``[out, in]``; ``models/convert.py``
+carries a JAX parameter tree across.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.paged_attention import paged_attention
+
+__all__ = ["TransformerConfig", "Transformer", "apply_rope",
+           "gather_paged_rows", "init_cache", "init_weights"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    num_layers: int = 4
+    num_heads: int = 8
+    # GQA/MQA: shared K/V heads (None = num_heads, i.e. MHA)
+    num_kv_heads: Optional[int] = None
+    d_model: int = 512
+    d_ff: int = 2048
+    max_seq_len: int = 2048
+    dtype: torch.dtype = torch.bfloat16
+    # causal sliding window (every attention path honors it)
+    attn_window: Optional[int] = None
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    norm_eps: float = 1e-6
+    use_bias: bool = False
+    tie_embeddings: bool = False
+    pos_emb: str = "learned"  # learned | rope | none
+    rope_theta: float = 10000.0
+    # HF rope_scaling as a tuple of sorted (key, value) pairs
+    rope_scaling: Optional[tuple] = None
+    head_dim: Optional[int] = None
+    mlp: str = "gelu"  # gelu | swiglu
+
+    @property
+    def d_head(self) -> int:
+        return (self.head_dim if self.head_dim is not None
+                else self.d_model // self.num_heads)
+
+    @property
+    def kv_heads(self) -> int:
+        kv = self.num_kv_heads
+        if kv is None:
+            return self.num_heads
+        if kv < 1 or self.num_heads % kv:
+            raise ValueError(
+                f"num_kv_heads {kv} must divide num_heads {self.num_heads}")
+        return kv
+
+
+# ------------------------------------------------------------------ rope
+
+
+def _scaled_inv_freq(inv_freq: torch.Tensor, scaling) -> torch.Tensor:
+    """Frequency rescaling for long-context RoPE variants (HF
+    ``_compute_llama3_parameters`` / linear scaling), in fp32."""
+    s = dict(scaling)
+    rt = s.get("rope_type", s.get("type", "default"))
+    if rt in (None, "default"):
+        return inv_freq
+    factor = float(s.get("factor", 1.0))
+    if rt == "linear":
+        return inv_freq / factor
+    if rt == "llama3":
+        low = float(s.get("low_freq_factor", 1.0))
+        high = float(s.get("high_freq_factor", 4.0))
+        orig = float(s.get("original_max_position_embeddings", 8192))
+        wavelen = 2.0 * math.pi / inv_freq
+        scaled = inv_freq / factor
+        smooth = (orig / wavelen - low) / (high - low)
+        smoothed = (1.0 - smooth) * scaled + smooth * inv_freq
+        return torch.where(
+            wavelen < orig / high, inv_freq,
+            torch.where(wavelen > orig / low, scaled, smoothed))
+    raise ValueError(f"unsupported rope_scaling type {rt!r}")
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0, scaling=None) -> torch.Tensor:
+    """Rotary embedding, HF half-split convention: ``x [B, T, H, D]``
+    rotated by ``pos / theta^(2i/D)``; ``positions`` is ``[T]`` or
+    ``[B, T]`` (per-slot cursors of the fused paged step).  Computed in
+    fp32 and cast back."""
+    D = x.shape[-1]
+    half = D // 2
+    inv_freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                             device=x.device) / half))
+    if scaling is not None:
+        inv_freq = _scaled_inv_freq(inv_freq, scaling)
+    ang = positions.to(torch.float32)[..., None] * inv_freq
+    if ang.ndim == 2:                      # [T, D/2] -> broadcast batch
+        ang = ang[None]
+    cos = torch.cos(ang)[:, :, None, :]    # [1|B, T, 1, D/2]
+    sin = torch.sin(ang)[:, :, None, :]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------ dense attention
+
+
+def _group_q(q: torch.Tensor, KV: int) -> torch.Tensor:
+    """``[B, tq, H, D] -> [B, KV, G*tq, D]`` (group-major, query-position
+    minor): cached GQA attention as two batched products against the
+    un-repeated cache."""
+    B, tq, H, D = q.shape
+    G = H // KV
+    return (q.reshape(B, tq, KV, G, D).permute(0, 2, 3, 1, 4)
+            .reshape(B, KV, G * tq, D))
+
+
+def _ungroup_o(o: torch.Tensor, tq: int) -> torch.Tensor:
+    """Inverse of ``_group_q``: ``[B, KV, G*tq, D] -> [B, tq, KV*G, D]``."""
+    B, KV, GT, D = o.shape
+    G = GT // tq
+    return (o.reshape(B, KV, G, tq, D).permute(0, 3, 1, 2, 4)
+            .reshape(B, tq, KV * G, D))
+
+
+def _grouped_mask(S: int, tq: int, G: int, pos: int,
+                  window: Optional[int], device) -> torch.Tensor:
+    """Causal (+ window) keep-mask ``[1, 1, G*tq, S]`` in ``_group_q``'s
+    row order."""
+    kidx = torch.arange(S, device=device)[None, None, None, :]
+    qidx = (pos + torch.arange(tq, device=device)).repeat(G)
+    qidx = qidx[None, None, :, None]
+    mask = kidx <= qidx
+    if window is not None:
+        mask = mask & (kidx > qidx - window)
+    return mask
+
+
+def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      pos: int, window: Optional[int] = None
+                      ) -> torch.Tensor:
+    """Dense attention of ``q [B, tq, H, D]`` at absolute offset ``pos``
+    against ``ck/cv [B, S, KV, D]`` (positions past ``pos + tq``
+    unwritten and masked).  Scores and softmax in fp32, probabilities
+    cast to the model dtype before the PV product — the JAX dense
+    path's rounding points.  A plain large product, as JAX leaves it to
+    XLA: this runs chunk prefill only; decode takes the kernel."""
+    B, tq, H, D = q.shape
+    KV = ck.shape[2]
+    qg = _group_q(q * D ** -0.5, KV)                     # [B, KV, GT, D]
+    kt = ck.permute(0, 2, 3, 1).to(torch.float32)        # [B, KV, D, S]
+    scores = torch.matmul(qg.to(torch.float32), kt)      # [B, KV, GT, S]
+    mask = _grouped_mask(ck.shape[1], tq, H // KV, pos, window, q.device)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.matmul(probs, cv.permute(0, 2, 1, 3))    # [B, KV, GT, D]
+    return _ungroup_o(out, tq)
+
+
+# -------------------------------------------------------------- modules
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float, dtype, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        mul = torch.rsqrt(ms + self.eps) * self.scale
+        return (xf * mul).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, eps: float, dtype, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(d, dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        # flax's fast variance: E[x^2] - E[x]^2, clipped at 0
+        var = torch.clamp(torch.mean(xf * xf, dim=-1, keepdim=True)
+                          - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean) * mul + self.bias).to(self.dtype)
+
+
+def _make_norm(cfg: TransformerConfig, device):
+    if cfg.norm == "layernorm":
+        return LayerNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
+    if cfg.norm != "rmsnorm":
+        raise ValueError(f"unknown norm {cfg.norm!r}")
+    return RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
+
+
+def _linear(cfg: TransformerConfig, n_in: int, n_out: int, device,
+            bias: Optional[bool] = None) -> nn.Linear:
+    return nn.Linear(n_in, n_out,
+                     bias=cfg.use_bias if bias is None else bias,
+                     device=device, dtype=cfg.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        H, KV, D = cfg.num_heads, cfg.kv_heads, cfg.d_head
+        self.q = _linear(cfg, cfg.d_model, H * D, device)
+        self.k = _linear(cfg, cfg.d_model, KV * D, device)
+        self.v = _linear(cfg, cfg.d_model, KV * D, device)
+        self.o = _linear(cfg, H * D, cfg.d_model, device)
+
+    def _qkv(self, x, rpos):
+        cfg = self.cfg
+        B, T, _ = x.shape
+        H, KV, D = cfg.num_heads, cfg.kv_heads, cfg.d_head
+        q = self.q(x).view(B, T, H, D)
+        k = self.k(x).view(B, T, KV, D)
+        v = self.v(x).view(B, T, KV, D)
+        if cfg.pos_emb == "rope":
+            # rotated before the cache write: cached K is stored rotated
+            q = apply_rope(q, rpos, cfg.rope_theta, cfg.rope_scaling)
+            k = apply_rope(k, rpos, cfg.rope_theta, cfg.rope_scaling)
+        return q, k, v
+
+    def forward_paged(self, x, cache, tables, pos, wblk, woff):
+        """Fused paged decode/verify: scatter the fresh K/V into the
+        SHARED flat block pool at the host-computed ``(wblk, woff)
+        [N, tq]`` targets (in place — JAX donates and returns the
+        pool), then the paged-attention kernel reads allocated,
+        position-covered blocks through the block table."""
+        B, T, _ = x.shape
+        rpos = pos[:, None] + torch.arange(T, device=x.device)[None, :]
+        q, k, v = self._qkv(x, rpos)
+        pk, pv = cache["k"], cache["v"]
+        pk[wblk, woff] = k.reshape(B, T, -1).to(pk.dtype)
+        pv[wblk, woff] = v.reshape(B, T, -1).to(pv.dtype)
+        out = paged_attention(q, pk, pv, tables, pos,
+                              window=self.cfg.attn_window)
+        return self.o(out.reshape(B, T, -1))
+
+    def forward_cached(self, x, row, pos: int):
+        """Dense cached attention against grouped rows ``row["k"/"v"]
+        [B, S, KV, D]``: the fresh K/V is written at ``[pos, pos+T)``
+        in place, then attended with the causal mask."""
+        B, T, _ = x.shape
+        rpos = pos + torch.arange(T, device=x.device)
+        q, k, v = self._qkv(x, rpos)
+        ck, cv = row["k"], row["v"]
+        if pos + T > ck.shape[1]:
+            raise ValueError(f"cache write [{pos}, {pos + T}) overruns "
+                             f"the {ck.shape[1]}-row cache")
+        ck[:, pos:pos + T] = k.to(ck.dtype)
+        cv[:, pos:pos + T] = v.to(cv.dtype)
+        out = _cached_attention(q, ck, cv, pos, window=self.cfg.attn_window)
+        return self.o(out.reshape(B, T, -1))
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.kind = cfg.mlp
+        if cfg.mlp == "swiglu":
+            self.gate = _linear(cfg, cfg.d_model, cfg.d_ff, device)
+        elif cfg.mlp != "gelu":
+            raise ValueError(f"unknown mlp {cfg.mlp!r}")
+        self.up = _linear(cfg, cfg.d_model, cfg.d_ff, device)
+        self.down = _linear(cfg, cfg.d_ff, cfg.d_model, device)
+
+    def forward(self, x):
+        if self.kind == "swiglu":
+            h = F.silu(self.gate(x)) * self.up(x)
+        else:
+            # flax nn.gelu defaults to the tanh approximation
+            h = F.gelu(self.up(x), approximate="tanh")
+        return self.down(h)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.ln1 = _make_norm(cfg, device)
+        self.attn = Attention(cfg, device)
+        self.ln2 = _make_norm(cfg, device)
+        self.mlp = MLP(cfg, device)
+
+    def _finish(self, x, attn_out):
+        x = x + attn_out
+        return x + self.mlp(self.ln2(x))
+
+    def forward_paged(self, x, cache, tables, pos, wblk, woff):
+        return self._finish(x, self.attn.forward_paged(
+            self.ln1(x), cache, tables, pos, wblk, woff))
+
+    def forward_cached(self, x, row, pos: int):
+        return self._finish(x, self.attn.forward_cached(
+            self.ln1(x), row, pos))
+
+
+class Transformer(nn.Module):
+    """Causal LM over per-layer KV caches: ``decode`` against dense rows,
+    ``prefill_chunk_paged`` / ``decode_paged_fused`` against the paged
+    block pool.  Logits are ``[B, T, vocab]`` fp32."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model,
+                                  device=device, dtype=cfg.dtype)
+        if cfg.pos_emb == "learned":
+            self.pos = nn.Embedding(cfg.max_seq_len, cfg.d_model,
+                                    device=device, dtype=cfg.dtype)
+        elif cfg.pos_emb not in ("rope", "none"):
+            raise ValueError(f"unknown pos_emb {cfg.pos_emb!r}")
+        self.blocks = nn.ModuleList(
+            Block(cfg, device) for _ in range(cfg.num_layers))
+        self.ln_f = _make_norm(cfg, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _linear(cfg, cfg.d_model, cfg.vocab_size,
+                                   device, bias=False)
+        self._head_f32 = None  # (weight key, fp32 copy); see logits
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.weight.device
+
+    def _embed(self, tokens, positions):
+        x = self.embed(tokens)
+        if self.cfg.pos_emb == "learned":
+            x = x + self.pos(positions)
+        return x
+
+    def _head_weight_f32(self) -> torch.Tensor:
+        """The head's weight in fp32.  A narrower weight is upcast once
+        and kept (for Llama-3.2-1B's tied head, 1 GB that would otherwise
+        be rewritten on every tick); the copy is remade when the weight
+        is replaced, moved or written in place (``load_state_dict``)."""
+        w = (self.embed.weight if self.cfg.tie_embeddings
+             else self.lm_head.weight)
+        if w.dtype == torch.float32:
+            return w
+        key = (w.data_ptr(), w.device, w._version)
+        if self._head_f32 is None or self._head_f32[0] != key:
+            self._head_f32 = (key, w.detach().to(torch.float32))
+        return self._head_f32[1]
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """LM head: model-dtype operands, fp32 accumulation and output
+        (the JAX head's ``preferred_element_type=float32``; a product of
+        two model-dtype values is exact in fp32).  The tied variant
+        multiplies by the input embedding table."""
+        cdt = self.cfg.dtype
+        return F.linear(h.to(cdt).to(torch.float32), self._head_weight_f32())
+
+    def _head(self, x, last_only: bool, last_idx: Optional[int]):
+        if last_only:
+            x = x[:, -1:]
+        elif last_idx is not None:
+            x = x[:, last_idx:last_idx + 1]
+        return self.logits(self.ln_f(x))
+
+    @torch.no_grad()
+    def decode(self, tokens: torch.Tensor, caches: Sequence[dict], pos: int,
+               last_only: bool = False, last_idx: Optional[int] = None):
+        """One step over ``tokens [B, tq]`` at absolute offset ``pos``
+        against dense per-layer rows ``{"k","v"} [B, S, KV, D]`` (see
+        ``init_cache``), written in place at ``[pos, pos + tq)``.
+        Returns ``(logits, caches)``.  Serves prefill (``pos=0``, the
+        prompt) and decode (``tq=1``) alike; ``last_idx`` narrows the
+        head to one chunk-local row (a right-padded chunk's true last
+        token)."""
+        T = tokens.shape[1]
+        x = self._embed(tokens, (pos + torch.arange(
+            T, device=tokens.device))[None, :])
+        for block, c in zip(self.blocks, caches):
+            x = block.forward_cached(x, c, pos)
+        return self._head(x, last_only, last_idx), caches
+
+    @torch.no_grad()
+    def prefill_chunk_paged(self, tokens: torch.Tensor, pools: Sequence[dict],
+                            table: torch.Tensor, pos: int, last_idx: int):
+        """Position-offset chunk prefill over the paged pool: gather the
+        slot's rows through ``table [max_blocks]`` (up to the chunk's
+        last block), run the dense chunk forward at ``[pos, pos + C)``,
+        and scatter the chunk's fresh K/V back into the pool through
+        the table (entries past the slot's grant are the null block, so
+        pad positions land there).  Returns ``[1, 1, vocab]`` logits at
+        chunk-local ``last_idx`` — the JAX engine's gather -> chunk ->
+        scatter (``_paged_chunk_fn``), with the scatter done here."""
+        cfg = self.cfg
+        C = tokens.shape[1]
+        bs = pools[0]["k"].shape[1]
+        nb = -(-(pos + C) // bs)
+        rows = gather_paged_rows(pools, table, hw_blocks=nb)
+        grouped = [{n: r[n].view(1, nb * bs, cfg.kv_heads, cfg.d_head)
+                    for n in r} for r in rows]
+        logits, _ = self.decode(tokens, grouped, pos, last_idx=last_idx)
+        p = torch.arange(pos, pos + C, device=table.device)
+        blk = table[p // bs].long()
+        off = p % bs
+        for pool, row in zip(pools, rows):
+            for n in pool:
+                pool[n][blk, off] = row[n][0, pos:pos + C]
+        return logits
+
+    @torch.no_grad()
+    def decode_paged_fused(self, tokens: torch.Tensor, pools: Sequence[dict],
+                           tables: torch.Tensor, pos: torch.Tensor,
+                           wblk: torch.Tensor, woff: torch.Tensor,
+                           last_only: bool = False) -> torch.Tensor:
+        """``decode`` against the paged pool WITHOUT a gather: every
+        layer scatters the fresh K/V into the pool at ``(wblk, woff)
+        [N, tq]`` and the paged-attention kernel reads the blocks in
+        place through ``tables [N, max_blocks]``; ``pos [N]`` holds
+        per-slot cursors.  Returns ``logits [N, tq|1, vocab]``; the
+        pools are updated in place."""
+        T = tokens.shape[1]
+        positions = pos[:, None] + torch.arange(T, device=pos.device)[None]
+        x = self._embed(tokens, positions)
+        wb, wo = wblk.long(), woff.long()
+        for block, c in zip(self.blocks, pools):
+            x = block.forward_paged(x, c, tables, pos, wb, wo)
+        return self._head(x, last_only, None)
+
+
+def gather_paged_rows(pools: Sequence[dict], table: torch.Tensor,
+                      hw_blocks: Optional[int] = None) -> List[dict]:
+    """One slot's contiguous view of flat per-layer pools ``[n_blocks,
+    block, X]`` through its table ``[max_blocks]`` ->
+    ``[1, hw_blocks * block, X]`` (a copy; ``hw_blocks`` caps the
+    gather at the slot's high-water block)."""
+    if hw_blocks is not None:
+        table = table[:hw_blocks]
+    idx = table.long()
+    out = []
+    for layer in pools:
+        row = {}
+        for name, c in layer.items():
+            g = c[idx]
+            row[name] = g.reshape((1, g.shape[0] * g.shape[1])
+                                  + tuple(g.shape[2:]))
+        out.append(row)
+    return out
+
+
+def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
+               device=None) -> List[dict]:
+    """Zeroed dense per-layer rows ``{"k","v"} [B, max_len, KV, D]`` for
+    ``Transformer.decode`` (the grouped layout)."""
+    if max_len > cfg.max_seq_len:
+        raise ValueError(
+            f"cache max_len {max_len} exceeds max_seq_len {cfg.max_seq_len}")
+    shape = (batch_size, max_len, cfg.kv_heads, cfg.d_head)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+            for _ in range(cfg.num_layers)]
+
+
+@torch.no_grad()
+def init_weights(model: Transformer, seed: int, std: float = 0.02) -> None:
+    """Random weights from ``seed`` on the model's own device: normal
+    ``std`` for matrices and embeddings, ones for norm scales, zeros
+    for biases.  The same seed gives the same weights on a device."""
+    g = torch.Generator(device=model.device)
+    g.manual_seed(int(seed))
+    for name, p in model.named_parameters():
+        if name.endswith(".scale"):
+            p.fill_(1.0)
+        elif name.endswith(".bias"):
+            p.zero_()
+        else:
+            p.normal_(0.0, std, generator=g)

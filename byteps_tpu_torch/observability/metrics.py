@@ -1,0 +1,193 @@
+"""Typed, thread-safe metrics registry — the port's subset of
+``byteps_tpu/observability/metrics.py`` that ``serving/metrics.py``
+needs: :class:`Counter`, :class:`Gauge`, :class:`Histogram` (fixed
+buckets plus a bounded reservoir for percentiles) and a get-or-create
+:class:`MetricsRegistry` with ``snapshot()``.
+
+The JAX package mirrors every bump onto its chrome-trace ``Tracer`` and
+serves a Prometheus scrape; neither is ported in this slice, so the
+registry here stores values only.  ``snapshot()`` keeps the JAX layout
+(``{"counters", "gauges", "histograms"}`` keyed by name), which the
+serve frontend's STATS reply carries unchanged.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Tuple
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "get_registry"]
+
+
+class Counter:
+    """Monotonic counter."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0
+
+    def inc(self, n: int = 1) -> int:
+        with self._lock:
+            self._value += n
+            return self._value
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Last-written value."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+_DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                    1.0, 2.5, 5.0, 10.0)
+
+
+def _nearest_rank(vals: List[float], q: float) -> float:
+    """Nearest-rank percentile of pre-sorted ``vals`` (the JAX
+    package's rank formula, so both packages report the same p50/p99
+    from the same samples)."""
+    if not vals:
+        return 0.0
+    k = max(0, min(len(vals) - 1, int(round(q / 100.0 * (len(vals) - 1)))))
+    return vals[k]
+
+
+class Histogram:
+    """Cumulative-bucket histogram + ring reservoir of the most recent
+    ``max_samples`` observations (percentiles come from the ring)."""
+
+    def __init__(self, name: str,
+                 buckets: Optional[Tuple[float, ...]] = None,
+                 max_samples: int = 4096):
+        self.name = name
+        self._lock = threading.Lock()
+        self.buckets = tuple(sorted(buckets or _DEFAULT_BUCKETS))
+        self._counts = [0] * (len(self.buckets) + 1)  # +inf bucket
+        self._count = 0
+        self._sum = 0.0
+        self._samples: List[float] = []
+        self._max_samples = max(1, int(max_samples))
+        self._next = 0
+
+    def observe(self, value: float) -> None:
+        value = float(value)
+        with self._lock:
+            self._count += 1
+            self._sum += value
+            i = len(self.buckets)
+            for j, b in enumerate(self.buckets):
+                if value <= b:
+                    i = j
+                    break
+            self._counts[i] += 1
+            if len(self._samples) < self._max_samples:
+                self._samples.append(value)
+            else:
+                self._samples[self._next] = value
+                self._next = (self._next + 1) % self._max_samples
+
+    def percentile(self, q: float) -> float:
+        with self._lock:
+            vals = sorted(self._samples)
+        return _nearest_rank(vals, q)
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def state(self) -> Dict[str, object]:
+        with self._lock:
+            counts = list(self._counts)
+            count, total = self._count, self._sum
+            vals = sorted(self._samples)
+        cum, acc = [], 0
+        for c in counts[:-1]:
+            acc += c
+            cum.append(acc)
+        return {"count": count, "sum": total,
+                "p50": _nearest_rank(vals, 50),
+                "p90": _nearest_rank(vals, 90),
+                "p99": _nearest_rank(vals, 99),
+                "buckets": {str(b): c for b, c in zip(self.buckets, cum)}}
+
+
+class MetricsRegistry:
+    """Get-or-create metric store; re-requesting a name as another type
+    raises."""
+
+    def __init__(self):
+        self._metrics: Dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_create(self, cls, name: str, **kw):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = cls(name, **kw)
+                self._metrics[name] = m
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r} already registered as "
+                    f"{type(m).__name__}, requested {cls.__name__}")
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get_or_create(Counter, name)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get_or_create(Gauge, name)
+
+    def histogram(self, name: str) -> Histogram:
+        return self._get_or_create(Histogram, name)
+
+    def get(self, name: str):
+        with self._lock:
+            return self._metrics.get(name)
+
+    def snapshot(self) -> Dict[str, Dict[str, object]]:
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out: Dict[str, Dict[str, object]] = {
+            "counters": {}, "gauges": {}, "histograms": {}}
+        for m in metrics:
+            if isinstance(m, Counter):
+                out["counters"][m.name] = m.value
+            elif isinstance(m, Gauge):
+                out["gauges"][m.name] = m.value
+            else:
+                out["histograms"][m.name] = m.state()
+        return out
+
+
+_registry: Optional[MetricsRegistry] = None
+_registry_lock = threading.Lock()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-global registry."""
+    global _registry
+    with _registry_lock:
+        if _registry is None:
+            _registry = MetricsRegistry()
+        return _registry
+

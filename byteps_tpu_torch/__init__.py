@@ -2,9 +2,12 @@
 
 A second package beside the JAX reference: it imports ``torch`` and
 never ``jax`` or ``byteps_tpu``, keeping its own copies of what it needs.
-This slice ports paged continuous-batching serving (``serving/``) with
-its decode attention as a hand-written CUDA kernel for Hopper
-(``ops/paged_attention.py``, ``csrc/paged_attention.cu``).  Entry points
+Ported so far: paged continuous-batching serving (``serving/``), its
+decode attention a hand-written CUDA kernel for Hopper
+(``ops/paged_attention.py``, ``csrc/paged_attention.cu``); and the
+single-process LM training step (``training/``, ``api.py``) with flash
+attention's forward and backward as hand-written kernels
+(``ops/flash_attention.py``, ``csrc/flash_attention.cu``).  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

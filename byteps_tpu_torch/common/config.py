@@ -1,13 +1,15 @@
 """Typed runtime configuration — the port's subset of
 ``byteps_tpu/common/config.py``.
 
-Only the knobs the paged serving slice reads are carried over, under the
-same ``BYTEPS_*`` environment names so one environment drives either
-package: the logging pair ``common/logging.py`` needs and the
-``BYTEPS_SERVE_*`` knobs ``serving/frontend.py:serve_from_env`` reads.
-Knobs naming features this slice does not port (prefix cache, int8
-pools, speculative decoding, checkpoints) are still parsed, so that the
-serve role can refuse a non-default value loudly instead of ignoring it.
+Only the knobs the ported slices read are carried over, under the same
+``BYTEPS_*`` / ``DMLC_*`` environment names so one environment drives
+either package: the logging pair ``common/logging.py`` needs, the
+``BYTEPS_SERVE_*`` knobs ``serving/frontend.py:serve_from_env`` reads,
+and the worker knobs ``api.init``, ``training.Trainer`` and
+``make_data_parallel_step`` read.  Knobs naming features the port does
+not have yet (prefix cache, int8 pools, speculative decoding,
+checkpoints, a multi-worker world, async PS) are still parsed, so that
+a non-default value is refused loudly instead of ignored.
 """
 
 from __future__ import annotations
@@ -60,6 +62,13 @@ class Config:
     log_level: str = "WARNING"
     log_hide_time: bool = False
 
+    # --- worker / training (api.py, training/) -------------------------
+    num_worker: int = 1            # DMLC_NUM_WORKER; > 1 refused (later)
+    local_rank: Optional[int] = None   # BYTEPS_LOCAL_RANK (launcher)
+    local_size: Optional[int] = None   # BYTEPS_LOCAL_SIZE (launcher)
+    partition_bytes: int = 4_096_000   # push_pull bucket bytes (world > 1)
+    enable_async: bool = False     # async PS mode; refused (later slice)
+
     # --- serving (serving/frontend.py serve_from_env) ------------------
     serve_port: int = 9000
     serve_slots: int = 8          # slot pool capacity (decode batch)
@@ -87,6 +96,11 @@ class Config:
         return Config(
             log_level=_env_str("BYTEPS_LOG_LEVEL", "WARNING"),
             log_hide_time=_env_bool("BYTEPS_LOG_HIDE_TIME"),
+            num_worker=_env_int("DMLC_NUM_WORKER", 1),
+            local_rank=_env_opt_int("BYTEPS_LOCAL_RANK"),
+            local_size=_env_opt_int("BYTEPS_LOCAL_SIZE"),
+            partition_bytes=_env_int("BYTEPS_PARTITION_BYTES", 4_096_000),
+            enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
             serve_port=_env_int("BYTEPS_SERVE_PORT", 9000),
             serve_slots=_env_int("BYTEPS_SERVE_SLOTS", 8),
             serve_max_seq=_env_int("BYTEPS_SERVE_MAX_SEQ", 0),

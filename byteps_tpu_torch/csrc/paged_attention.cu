@@ -72,20 +72,28 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch does
 }
 
+__device__ __forceinline__ bool lane_in(int d) {
+  return static_cast<int>(threadIdx.x & 31) < d;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// EPL = elements per lane; D = 32 * EPL (64 or 128).
-template <typename T, int EPL>
+// D = head dim (16, 32, 64 or 128); lane l holds elements e * 32 + l,
+// EPL = ceil(D / 32) of them.  At D = 16 lanes 16..31 hold none: they add
+// zeros to every dot product and write nothing.
+template <typename T, int D>
 __global__ void paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ ck,
     const T* __restrict__ cv, const int* __restrict__ table,
     const int* __restrict__ pos, T* __restrict__ out, int tq, int H, int KV,
     int bs, int max_blocks, int window, float scale) {
-  constexpr int D = 32 * EPL;
+  constexpr int EPL = (D + 31) / 32;
+  constexpr bool kFull = D % 32 == 0;
+  const bool lane_live = kFull || lane_in(D);
   const int g = blockIdx.x;  // KV head
   const int b = blockIdx.y;  // slot
   const int G = H / KV;
@@ -126,8 +134,9 @@ __global__ void paged_attention_kernel(
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
         // the TPU kernel's first rounding point: (q * scale) in q's dtype
-        qr[rr][e] = live ? to_f(from_f<T>(to_f(qrow[e * 32 + lane]) * scale))
-                         : 0.f;
+        qr[rr][e] = live && lane_live
+                        ? to_f(from_f<T>(to_f(qrow[e * 32 + lane]) * scale))
+                        : 0.f;
         acc[rr][e] = 0.f;
       }
       m[rr] = kNegInf;
@@ -155,7 +164,7 @@ __global__ void paged_attention_kernel(
           float s = 0.f;
 #pragma unroll
           for (int e = 0; e < EPL; ++e)
-            s += qr[rr][e] * to_f(ks[t * D + e * 32 + lane]);
+            if (lane_live) s += qr[rr][e] * to_f(ks[t * D + e * 32 + lane]);
           s = warp_sum(s);  // every lane holds the full dot
           const int c = j * bs + t;
           const bool valid =
@@ -176,7 +185,7 @@ __global__ void paged_attention_kernel(
           const float pr = to_f(from_f<T>(p));  // p in v's dtype for PV
 #pragma unroll
           for (int e = 0; e < EPL; ++e)
-            acc[rr][e] += pr * to_f(vs[t * D + e * 32 + lane]);
+            if (lane_live) acc[rr][e] += pr * to_f(vs[t * D + e * 32 + lane]);
         }
         l[rr] = l[rr] * alpha + psum;
         m[rr] = m_new;
@@ -193,20 +202,20 @@ __global__ void paged_attention_kernel(
       T* orow = out + ((static_cast<size_t>(b) * tq + i) * H + h) * D;
 #pragma unroll
       for (int e = 0; e < EPL; ++e)
-        orow[e * 32 + lane] = from_f<T>(acc[rr][e] / den);
+        if (lane_live) orow[e * 32 + lane] = from_f<T>(acc[rr][e] / den);
     }
   }
 }
 
-template <typename T, int EPL>
+template <typename T, int D>
 int launch(const void* q, const void* ck, const void* cv, const int* table,
            const int* pos, void* out, int B, int tq, int H, int KV, int bs,
            int max_blocks, int window, float scale, cudaStream_t stream) {
   const int R = (H / KV) * tq;
   const int nwarps = R < kMaxWarps ? R : kMaxWarps;
-  const size_t smem = 2 * static_cast<size_t>(bs) * 32 * EPL * sizeof(T) +
+  const size_t smem = 2 * static_cast<size_t>(bs) * D * sizeof(T) +
                       static_cast<size_t>(nwarps) * kMaxBlock * sizeof(float);
-  auto kern = paged_attention_kernel<T, EPL>;
+  auto kern = paged_attention_kernel<T, D>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,19 +243,23 @@ extern "C" int bps_paged_attention(const void* q, const void* ck,
                                    int max_blocks, int window, int dtype,
                                    float scale, void* stream) {
   if (B < 1 || tq < 1 || KV < 1 || H % KV != 0 || bs < 1 ||
-      bs > kMaxBlock || max_blocks < 1 || (D != 64 && D != 128) ||
+      bs > kMaxBlock || max_blocks < 1 ||
+      (D != 16 && D != 32 && D != 64 && D != 128) ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return D == 64 ? launch<float, 2>(q, ck, cv, table, pos, out, B, tq, H,
-                                      KV, bs, max_blocks, window, scale, s)
-                   : launch<float, 4>(q, ck, cv, table, pos, out, B, tq, H,
-                                      KV, bs, max_blocks, window, scale, s);
+#define BPS_PAGED_LAUNCH(TYPE, DIM)                                       \
+  return launch<TYPE, DIM>(q, ck, cv, table, pos, out, B, tq, H, KV, bs, \
+                           max_blocks, window, scale, s)
+#define BPS_PAGED_DIMS(TYPE)          \
+  switch (D) {                        \
+    case 16: BPS_PAGED_LAUNCH(TYPE, 16);  \
+    case 32: BPS_PAGED_LAUNCH(TYPE, 32);  \
+    case 64: BPS_PAGED_LAUNCH(TYPE, 64);  \
+    default: BPS_PAGED_LAUNCH(TYPE, 128); \
   }
-  return D == 64
-             ? launch<__nv_bfloat16, 2>(q, ck, cv, table, pos, out, B, tq, H,
-                                        KV, bs, max_blocks, window, scale, s)
-             : launch<__nv_bfloat16, 4>(q, ck, cv, table, pos, out, B, tq, H,
-                                        KV, bs, max_blocks, window, scale, s);
+  if (dtype == 0) BPS_PAGED_DIMS(float)
+  BPS_PAGED_DIMS(__nv_bfloat16)
+#undef BPS_PAGED_DIMS
+#undef BPS_PAGED_LAUNCH
 }

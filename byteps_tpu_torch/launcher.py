@@ -10,10 +10,10 @@ with a notice.
 Usage::
 
     DMLC_ROLE=serve BYTEPS_SERVE_PAGED=1 BYTEPS_SERVE_PORT=9000 \\
-        BYTEPS_SERVE_MODEL="num_heads=2" python -m byteps_tpu_torch.launcher
+        python -m byteps_tpu_torch.launcher
 
-(The default model has head_dim 32, which the kernel does not take;
-``num_heads=2`` at the default d_model 128 gives head_dim 64.)
+(``BYTEPS_SERVE_MODEL`` overrides the default model, d_model 128 over
+4 heads of 32, as in the JAX serve role.)
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
 """Carry a JAX ``Transformer`` parameter tree across to the port.
 
-``from_jax_params(params, cfg)`` takes the flax tree of
-``byteps_tpu.models.transformer.Transformer`` as numpy arrays (the
-``{"params": ...}`` wrapper optional) and returns a ``state_dict`` for
-:class:`byteps_tpu_torch.models.transformer.Transformer`.  It needs
+``from_jax_params(params, cfg, dtype=torch.float32)`` takes the flax
+tree of ``byteps_tpu.models.transformer.Transformer`` as numpy arrays
+(the ``{"params": ...}`` wrapper optional) and returns a ``state_dict``
+for :class:`byteps_tpu_torch.models.transformer.Transformer`, weights in
+``dtype`` (fp32, flax's parameter dtype, for training; ``cfg.dtype``
+for a model built with ``param_dtype=cfg.dtype``).  Every map is a
+linear re-layout, so a JAX *gradient* tree (the same structure)
+converts the same way, for comparing gradients leaf by leaf.  It needs
 numpy only, never jax.  Layouts (JAX -> ``nn.Linear``'s ``[out, in]``):
 
 * q/k/v kernels ``[d_model, H|KV, D]`` -> ``[H|KV * D, d_model]``;
@@ -31,7 +35,8 @@ from .transformer import TransformerConfig
 __all__ = ["from_jax_params"]
 
 
-def from_jax_params(params: dict, cfg: TransformerConfig
+def from_jax_params(params: dict, cfg: TransformerConfig,
+                    dtype: torch.dtype = torch.float32
                     ) -> Dict[str, torch.Tensor]:
     tree = params.get("params", params)
     used = set()
@@ -44,7 +49,7 @@ def from_jax_params(params: dict, cfg: TransformerConfig
         return np.asarray(node, dtype=np.float32)
 
     def w(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, np.float32)).to(cfg.dtype)
+        return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 
     def f32(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(a, np.float32))

@@ -1,11 +1,11 @@
 """Decoder-only Transformer — the port of ``byteps_tpu/models/transformer.py``
-for the paged serving slice.
+for paged serving and the single-process training step.
 
 What is carried over, by JAX counterpart:
 
-* ``TransformerConfig`` — the architecture fields (the mesh / attention
-  implementation axes of the JAX config belong to training and stay
-  behind);
+* ``TransformerConfig`` — the architecture fields plus ``causal`` and
+  ``attn_impl`` (``"local"`` or ``"flash"``; the mesh axes and the
+  ``"ring"``/``"ulysses"`` sequence-parallel impls are later slices);
 * ``apply_rope`` + ``_scaled_inv_freq`` — fp32 angles, HF half-split
   rotation, llama3 / linear frequency rescale;
 * RMSNorm / LayerNorm with flax's numerics (statistics and the scale
@@ -13,14 +13,26 @@ What is carried over, by JAX counterpart:
   model dtype);
 * ``MLP`` — swiglu, or gelu with the tanh approximation (flax's
   ``nn.gelu`` default);
-* ``Attention`` — the fused paged branch (fresh K/V scattered into the
-  flat block pool at ``(wblk, woff)``, then the hand-written kernel of
-  ``ops/paged_attention.py``) and the dense cached branch
+* ``Attention`` — the no-cache training branch (``"flash"``: the
+  hand-written kernels of ``ops/flash_attention.py``, a key mask riding
+  their segment ids; ``"local"``: :func:`local_attention`, the plain
+  masked softmax with GQA repeated), the fused paged branch (fresh K/V
+  scattered into the flat block pool at ``(wblk, woff)``, then the
+  kernel of ``ops/paged_attention.py``) and the dense cached branch
   (``_group_q`` / ``_grouped_mask`` / ``_cached_attention``) that chunk
   prefill runs, as the JAX engine does;
-* ``Transformer`` with ``decode``, ``prefill_chunk_paged``,
-  ``decode_paged_fused``, ``gather_paged_rows`` and ``logits`` (fp32
-  logits, the head accumulated in fp32 from model-dtype operands).
+* ``Transformer`` with ``hidden`` / ``forward`` (training), ``decode``,
+  ``prefill_chunk_paged``, ``decode_paged_fused``, ``gather_paged_rows``
+  and ``logits`` (fp32 logits, the head accumulated in fp32 from
+  model-dtype operands).
+
+Parameters are kept in ``param_dtype`` (fp32 by default, as flax's
+``param_dtype=float32``) and cast to ``cfg.dtype`` where they are used,
+so an optimizer updates fp32 weights while the products run in bf16.
+Serving may build the model with ``param_dtype=cfg.dtype``: the casts
+are then no-ops, the weights take half the memory, and the decode tick
+launches no cast kernels — the same numerics, since a bf16 weight cast
+to bf16 is itself.
 
 PyTorch idiom where JAX was functional: the KV pools and cache rows are
 updated IN PLACE where the JAX code returns updated copies of donated
@@ -39,10 +51,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
 
 __all__ = ["TransformerConfig", "Transformer", "apply_rope",
-           "gather_paged_rows", "init_cache", "init_weights"]
+           "gather_paged_rows", "init_cache", "init_weights",
+           "local_attention", "ATTN_IMPLS"]
+
+ATTN_IMPLS = ("local", "flash")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +72,11 @@ class TransformerConfig:
     d_ff: int = 2048
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # causal sliding window (every attention path honors it)
+    causal: bool = True  # False => bidirectional encoder (BERT-style)
+    # training attention: "local" (plain masked softmax) or "flash" (the
+    # hand-written kernels); "ring"/"ulysses" need the sp axis (later)
+    attn_impl: str = "local"
+    # causal sliding window (flash, paged and dense-cached paths)
     attn_window: Optional[int] = None
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     norm_eps: float = 1e-6
@@ -190,6 +210,28 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return _ungroup_o(out, tq)
 
 
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, scale: Optional[float] = None,
+                    key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain masked attention (``parallel/ring_attention.py
+    local_attention``) over ``[B, T, H, D]`` with as many K/V heads as
+    query heads: ``q * scale`` in q's dtype, fp32 scores, ``-inf`` masks
+    (causal; ``key_mask [B, S]`` 1 = attend), softmax with fully masked
+    rows set to 0, fp32 PV, cast to q's dtype.  Runs no kernel."""
+    D = q.shape[-1]
+    scale = D ** -0.5 if scale is None else scale
+    s = torch.einsum("bqhd,bkhd->bqhk", (q * scale).float(), k.float())
+    if causal:
+        T, S = q.shape[1], k.shape[1]
+        mask = (torch.arange(T, device=q.device)[:, None]
+                >= torch.arange(S, device=q.device)[None, :])
+        s = s.masked_fill(~mask[None, :, None, :], float("-inf"))
+    if key_mask is not None:
+        s = s.masked_fill(~key_mask.bool()[:, None, None, :], float("-inf"))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1))
+    return torch.einsum("bqhk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
 # -------------------------------------------------------------- modules
 
 
@@ -229,6 +271,8 @@ class LayerNorm(nn.Module):
 
 
 def _make_norm(cfg: TransformerConfig, device):
+    # norm scales (and biases) stay fp32 whatever the param dtype, as in
+    # flax, whose norms keep fp32 parameters
     if cfg.norm == "layernorm":
         return LayerNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
     if cfg.norm != "rmsnorm":
@@ -236,22 +280,38 @@ def _make_norm(cfg: TransformerConfig, device):
     return RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` whose parameters keep their own dtype and are cast
+    to the compute dtype at use (the JAX ``QuantDense``: operands in
+    ``dtype``, parameters in flax's fp32 ``param_dtype``)."""
+
+    def __init__(self, n_in: int, n_out: int, bias: bool, dtype,
+                 param_dtype, device=None):
+        super().__init__(n_in, n_out, bias=bias, device=device,
+                         dtype=param_dtype)
+        self.cdt = dtype
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.cdt)
+        return F.linear(x.to(self.cdt), self.weight.to(self.cdt), b)
+
+
 def _linear(cfg: TransformerConfig, n_in: int, n_out: int, device,
-            bias: Optional[bool] = None) -> nn.Linear:
-    return nn.Linear(n_in, n_out,
-                     bias=cfg.use_bias if bias is None else bias,
-                     device=device, dtype=cfg.dtype)
+            param_dtype, bias: Optional[bool] = None) -> Dense:
+    return Dense(n_in, n_out, cfg.use_bias if bias is None else bias,
+                 cfg.dtype, param_dtype, device)
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 param_dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
         H, KV, D = cfg.num_heads, cfg.kv_heads, cfg.d_head
-        self.q = _linear(cfg, cfg.d_model, H * D, device)
-        self.k = _linear(cfg, cfg.d_model, KV * D, device)
-        self.v = _linear(cfg, cfg.d_model, KV * D, device)
-        self.o = _linear(cfg, H * D, cfg.d_model, device)
+        self.q = _linear(cfg, cfg.d_model, H * D, device, param_dtype)
+        self.k = _linear(cfg, cfg.d_model, KV * D, device, param_dtype)
+        self.v = _linear(cfg, cfg.d_model, KV * D, device, param_dtype)
+        self.o = _linear(cfg, H * D, cfg.d_model, device, param_dtype)
 
     def _qkv(self, x, rpos):
         cfg = self.cfg
@@ -265,6 +325,31 @@ class Attention(nn.Module):
             q = apply_rope(q, rpos, cfg.rope_theta, cfg.rope_scaling)
             k = apply_rope(k, rpos, cfg.rope_theta, cfg.rope_scaling)
         return q, k, v
+
+    def forward(self, x, key_mask=None):
+        """The no-cache (training) branch over ``x [B, T, d_model]``:
+        ``"flash"`` runs the flash kernels on grouped K/V, ``key_mask
+        [B, T]`` riding their segment ids (pads see only pads, so valid
+        rows match the masked softmax); ``"local"`` repeats K/V to the
+        query heads and runs :func:`local_attention`."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        q, k, v = self._qkv(x, torch.arange(T, device=x.device))
+        if cfg.attn_impl == "flash":
+            out = flash_attention(q, k, v, causal=cfg.causal,
+                                  segment_ids=key_mask,
+                                  window=cfg.attn_window)
+        else:
+            if cfg.attn_window is not None:
+                raise ValueError("attn_window requires attn_impl='flash' "
+                                 f"(got {cfg.attn_impl!r})")
+            G = cfg.num_heads // cfg.kv_heads
+            if G > 1:
+                k = k.repeat_interleave(G, dim=2)
+                v = v.repeat_interleave(G, dim=2)
+            out = local_attention(q, k, v, causal=cfg.causal,
+                                  key_mask=key_mask)
+        return self.o(out.reshape(B, T, -1))
 
     def forward_paged(self, x, cache, tables, pos, wblk, woff):
         """Fused paged decode/verify: scatter the fresh K/V into the
@@ -300,15 +385,17 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 param_dtype=torch.float32):
         super().__init__()
         self.kind = cfg.mlp
         if cfg.mlp == "swiglu":
-            self.gate = _linear(cfg, cfg.d_model, cfg.d_ff, device)
+            self.gate = _linear(cfg, cfg.d_model, cfg.d_ff, device,
+                                param_dtype)
         elif cfg.mlp != "gelu":
             raise ValueError(f"unknown mlp {cfg.mlp!r}")
-        self.up = _linear(cfg, cfg.d_model, cfg.d_ff, device)
-        self.down = _linear(cfg, cfg.d_ff, cfg.d_model, device)
+        self.up = _linear(cfg, cfg.d_model, cfg.d_ff, device, param_dtype)
+        self.down = _linear(cfg, cfg.d_ff, cfg.d_model, device, param_dtype)
 
     def forward(self, x):
         if self.kind == "swiglu":
@@ -320,16 +407,20 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 param_dtype=torch.float32):
         super().__init__()
         self.ln1 = _make_norm(cfg, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, param_dtype)
         self.ln2 = _make_norm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, param_dtype)
 
     def _finish(self, x, attn_out):
         x = x + attn_out
         return x + self.mlp(self.ln2(x))
+
+    def forward(self, x, key_mask=None):
+        return self._finish(x, self.attn(self.ln1(x), key_mask))
 
     def forward_paged(self, x, cache, tables, pos, wblk, woff):
         return self._finish(x, self.attn.forward_paged(
@@ -341,26 +432,36 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Causal LM over per-layer KV caches: ``decode`` against dense rows,
+    """Causal LM.  ``forward(tokens [B, T])`` (training) and, over
+    per-layer KV caches, ``decode`` against dense rows,
     ``prefill_chunk_paged`` / ``decode_paged_fused`` against the paged
-    block pool.  Logits are ``[B, T, vocab]`` fp32."""
+    block pool.  Logits are ``[B, T, vocab]`` fp32.  ``param_dtype`` is
+    the dtype the weights are kept in (fp32 for training; see the module
+    docstring)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 param_dtype=torch.float32):
         super().__init__()
+        if cfg.attn_impl in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attn_impl={cfg.attn_impl!r} needs the sequence-parallel "
+                f"mesh, which the port does not have yet (ROADMAP A10)")
+        if cfg.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model,
-                                  device=device, dtype=cfg.dtype)
+                                  device=device, dtype=param_dtype)
         if cfg.pos_emb == "learned":
             self.pos = nn.Embedding(cfg.max_seq_len, cfg.d_model,
-                                    device=device, dtype=cfg.dtype)
+                                    device=device, dtype=param_dtype)
         elif cfg.pos_emb not in ("rope", "none"):
             raise ValueError(f"unknown pos_emb {cfg.pos_emb!r}")
         self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.num_layers))
+            Block(cfg, device, param_dtype) for _ in range(cfg.num_layers))
         self.ln_f = _make_norm(cfg, device)
         if not cfg.tie_embeddings:
             self.lm_head = _linear(cfg, cfg.d_model, cfg.vocab_size,
-                                   device, bias=False)
+                                   device, param_dtype, bias=False)
         self._head_f32 = None  # (weight key, fp32 copy); see logits
 
     @property
@@ -368,23 +469,33 @@ class Transformer(nn.Module):
         return self.embed.weight.device
 
     def _embed(self, tokens, positions):
-        x = self.embed(tokens)
+        # flax nn.Embed(dtype=...) casts the table, then looks up: the
+        # same values, and the gradient reaches the fp32 table
+        cdt = self.cfg.dtype
+        x = self.embed(tokens).to(cdt)
         if self.cfg.pos_emb == "learned":
-            x = x + self.pos(positions)
+            x = x + self.pos(positions).to(cdt)
         return x
 
     def _head_weight_f32(self) -> torch.Tensor:
-        """The head's weight in fp32.  A narrower weight is upcast once
-        and kept (for Llama-3.2-1B's tied head, 1 GB that would otherwise
-        be rewritten on every tick); the copy is remade when the weight
-        is replaced, moved or written in place (``load_state_dict``)."""
+        """The head's weight rounded to the model dtype, in fp32.  Under
+        autograd (training) it is computed from the parameter so the
+        gradient reaches it — for a tied head, the embedding table.
+        Otherwise (serving) a narrower copy is made once and kept (for
+        Llama-3.2-1B's tied head, 1 GB that would otherwise be rewritten
+        on every tick); the copy is remade when the weight is replaced,
+        moved or written in place (an optimizer step,
+        ``load_state_dict``)."""
         w = (self.embed.weight if self.cfg.tie_embeddings
              else self.lm_head.weight)
-        if w.dtype == torch.float32:
-            return w
+        cdt = self.cfg.dtype
+        if torch.is_grad_enabled() and w.requires_grad:
+            return w.to(cdt).to(torch.float32)
+        if w.dtype == torch.float32 and cdt == torch.float32:
+            return w.detach()
         key = (w.data_ptr(), w.device, w._version)
         if self._head_f32 is None or self._head_f32[0] != key:
-            self._head_f32 = (key, w.detach().to(torch.float32))
+            self._head_f32 = (key, w.detach().to(cdt).to(torch.float32))
         return self._head_f32[1]
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -394,6 +505,20 @@ class Transformer(nn.Module):
         multiplies by the input embedding table."""
         cdt = self.cfg.dtype
         return F.linear(h.to(cdt).to(torch.float32), self._head_weight_f32())
+
+    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Everything up to and including the final norm: ``[B, T] ->
+        [B, T, d_model]`` (no cache)."""
+        T = tokens.shape[1]
+        x = self._embed(tokens, torch.arange(T, device=tokens.device)[None])
+        for block in self.blocks:
+            x = block(x)
+        return self.ln_f(x)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Training forward: ``tokens [B, T]`` -> fp32 logits ``[B, T,
+        vocab]``."""
+        return self.logits(self.hidden(tokens))
 
     def _head(self, x, last_only: bool, last_idx: Optional[int]):
         if last_only:

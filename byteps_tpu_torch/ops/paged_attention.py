@@ -6,7 +6,7 @@ Replaces the TPU kernel ``byteps_tpu/ops/paged_attention.py:76``
 is hand-written CUDA C++ (``byteps_tpu_torch/csrc/paged_attention.cu``),
 compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/byteps_tpu_torch/`` as a shared library with a plain C
-interface, and bound here with ``ctypes``.
+interface (``ops/_build.py``), and bound here with ``ctypes``.
 
 What it computes (the counterpart of ``paged_decode_attention``):
 ``q [B, tq, H, D]`` against flat pools ``ck/cv [n_blocks, block, KV*D]``
@@ -39,80 +39,34 @@ Beside the kernel:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from . import _build
+
 __all__ = ["paged_attention", "paged_attention_reference", "build",
            "check_kernel_config", "kv_bytes_read", "launches",
-           "plain_calls"]
+           "plain_calls", "HEAD_DIMS"]
 
 launches = 0
 plain_calls = 0
 
 MAX_BLOCK = 64
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "paged_attention.cu"
-_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
-              / "byteps_tpu_torch")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_build_lock = threading.Lock()
+HEAD_DIMS = (16, 32, 64, 128)
 _lib = None
-build_log = ""  # nvcc's output (ptxas register / shared-memory report)
 
 
-def _nvcc() -> str:
-    cands = [os.path.join(os.environ[v], "bin", "nvcc")
-             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.exists(c):
-            return c
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME, /usr/local/cuda and "
-            "PATH): the paged-attention kernel is built at first use on "
-            "a machine with the CUDA toolkit")
-    return found
-
-
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path.  The file name carries a hash of the source and
-    flags, and the library is written under a temporary name and
-    renamed, so concurrent builders never load a partial file."""
-    global build_log
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD_DIR / f"libpaged_attention-{tag[:12]}.so"
-    with _build_lock:
-        if so.exists():
-            return so
-        nvcc = _nvcc()
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SRC}:\n"
-                f"{build_log}")
-        os.replace(tmp, so)
-        return so
+def build():
+    """Compile the kernel library if this source has not been built yet
+    (``ops/_build.py``); returns its path."""
+    return _build.build(["paged_attention"])["paged_attention"]
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.load("paged_attention")
         fn = lib.bps_paged_attention
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
@@ -151,8 +105,9 @@ def check_kernel_config(dtype: torch.dtype, head_dim: int,
     it at construction so an unsupported model fails before serving."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
-    if head_dim not in (64, 128):
-        raise ValueError(f"kernel takes head_dim 64 or 128, got {head_dim}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim {HEAD_DIMS}, got "
+                         f"{head_dim}")
     if not 1 <= block <= MAX_BLOCK:
         raise ValueError(f"kernel takes blocks of 1 to {MAX_BLOCK} "
                          f"tokens, got {block}")

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..common import logging as bps_log
+from ..common.device import resolve_device
 from ..inference import sample_logits, token_generator
 from ..models.transformer import Transformer
 from ..ops import paged_attention as _pa
@@ -62,23 +63,6 @@ from .metrics import ServeMetrics, get_serve_metrics
 from .scheduler import ServeScheduler
 
 __all__ = ["Request", "RequestState", "ServingEngine", "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller
-    names another.  No silent CPU fallback — without a GPU the caller
-    must ask for ``device="cpu"``."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; the port runs on the GPU "
-                "unless the caller passes device='cpu' explicitly")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA "
-                           f"device is available")
-    return dev
 
 
 class RequestState(enum.Enum):

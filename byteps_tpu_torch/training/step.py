@@ -1,0 +1,165 @@
+"""Train-step factories — the port of ``byteps_tpu/training/step.py`` for
+one worker.
+
+``make_data_parallel_step(loss_fn, optimizer)`` returns a step that runs
+the loss forward, ``backward()`` and ``optimizer.step()``.  This is the
+JAX factory's world-1 short-circuit (``step.py:142-152``): with one
+worker there is nothing to reduce, so the optimizer is used as it is.
+A larger world, wire compression and ``backward_passes_per_step > 1``
+need the port's push_pull (the collectives slice) and are refused.
+
+PyTorch idiom where JAX was functional: parameters live in the module
+and the optimizer (a ``torch.optim`` optimizer built by the caller over
+the module's parameters) updates them in place, so ``TrainState`` holds
+the module and the optimizer where the JAX state holds the parameter
+and optimizer-state trees.  ``loss_fn(model, model_state, batch) ->
+(loss, new_model_state)`` mirrors the JAX ``loss_fn(params,
+model_state, batch)``.
+
+Mind the optimizer defaults when matching a JAX run: ``optax.adamw``
+decays weights by 1e-4 by default and ``torch.optim.AdamW`` by 1e-2;
+pass the value explicitly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import api
+
+__all__ = ["TrainState", "TrainStep", "create_train_state",
+           "make_data_parallel_step", "lm_loss_fn"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters), the optimizer (its state), mutable
+    model collections, and the step counter."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    model_state: Dict[str, Any]
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                       model_state=None) -> TrainState:
+    """A state at step 0.  Every tensor the optimizer updates must be a
+    parameter of ``model``."""
+    own = {id(p) for p in model.parameters()}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if id(p) not in own:
+                raise ValueError("the optimizer updates a tensor that is "
+                                 "not a parameter of the model")
+    return TrainState(model, optimizer,
+                      model_state if model_state is not None else {}, 0)
+
+
+def _is_none_compression(compression) -> bool:
+    return compression is None or (isinstance(compression, str)
+                                   and compression == "none")
+
+
+class TrainStep:
+    """The step function plus the optimizer whose state it updates; use
+    ``init_state`` to build a matching :class:`TrainState`."""
+
+    def __init__(self, fn: Callable, optimizer: torch.optim.Optimizer):
+        self._fn = fn
+        self.optimizer = optimizer
+
+    def __call__(self, state: TrainState, batch):
+        return self._fn(state, batch)
+
+    def init_state(self, model: nn.Module, model_state=None) -> TrainState:
+        return create_train_state(model, self.optimizer, model_state)
+
+
+def make_data_parallel_step(loss_fn: Callable,
+                            optimizer: torch.optim.Optimizer,
+                            world_size: Optional[int] = None,
+                            compression: Any = None,
+                            partition_bytes: Optional[int] = None,
+                            backward_passes_per_step: int = 1) -> TrainStep:
+    """A train step ``step(state, batch) -> (state, {"loss": loss})`` for
+    a world of one worker (``world_size`` defaults to ``api.size()``).
+    The returned loss is the detached scalar; reading it synchronizes
+    with the device.  ``partition_bytes`` (default
+    ``BYTEPS_PARTITION_BYTES``) sizes the buckets of the multi-worker
+    push_pull and is unused by a world of one, as in the JAX step."""
+    world = api.size() if world_size is None else world_size
+    if world != 1:
+        raise NotImplementedError(
+            f"world size {world}: gradient push_pull is the port's "
+            f"collectives slice (ROADMAP A2/A3); one worker only for now")
+    if not _is_none_compression(compression):
+        raise NotImplementedError(
+            f"compression={compression!r}: wire compression is the port's "
+            f"compression slice (ROADMAP A7); only 'none' for now")
+    if backward_passes_per_step != 1:
+        raise NotImplementedError(
+            "backward_passes_per_step > 1 accumulates through the "
+            "DistributedOptimizer of the collectives slice (ROADMAP A4)")
+
+    def step(state: TrainState, batch):
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss, new_mstate = loss_fn(state.model, state.model_state, batch)
+        loss.backward()
+        opt.step()
+        return (TrainState(state.model, opt, new_mstate, state.step + 1),
+                {"loss": loss.detach()})
+
+    return TrainStep(step, optimizer)
+
+
+def lm_loss_fn(model: nn.Module, fused_head: bool = False,
+               block_n: Optional[int] = None, block_v: Optional[int] = None,
+               early_exit: Optional[tuple] = None) -> Callable:
+    """Next-token cross-entropy loss for a causal LM whose batch is
+    ``{"tokens": [B, T]}`` (plus optional HF ``"labels"`` with ``-100``
+    on ignored positions); fits :func:`make_data_parallel_step`.
+
+    Targets are the tokens (or labels) rolled left by one with ``-100``
+    at the wrap position; the loss is the mean over *valid* targets
+    only (``0 <= t < vocab``).  The plain head: fp32 logits from the
+    model's head, then cross-entropy in fp32 — the JAX
+    ``optax.softmax_cross_entropy_with_integer_labels`` branch.  The
+    last position's logits, whose target is always ignored, are not
+    computed (the JAX branch computes and drops them).
+
+    ``fused_head=True`` (the fused LM-head cross-entropy kernels) is port
+    slice 3; ``early_exit`` waits for ``inference.truncated_draft``.
+    ``model`` is the module the closure is for; the step passes the
+    state's module, normally the same object."""
+    if fused_head or block_n is not None or block_v is not None:
+        raise NotImplementedError(
+            "fused_head=True (and its block_n/block_v) is the fused LM-head "
+            "cross-entropy of port slice 3; use the plain head")
+    if early_exit is not None:
+        raise NotImplementedError(
+            "early_exit needs inference.truncated_draft, not ported yet")
+    del model
+
+    def loss_fn(m: nn.Module, model_state, batch):
+        tokens = batch["tokens"]
+        src = batch["labels"] if "labels" in batch else tokens
+        targets = torch.roll(src, -1, dims=1)
+        targets[:, -1] = -100  # ignore the wrap position
+        t = targets[:, :-1]
+        logits = m.logits(m.hidden(tokens)[:, :-1])   # [B, T-1, V] fp32
+        V = logits.shape[-1]
+        valid = (t >= 0) & (t < V)
+        per_tok = F.cross_entropy(
+            logits.reshape(-1, V), torch.where(valid, t, 0).reshape(-1).long(),
+            reduction="none").view_as(t)
+        per_tok = torch.where(valid, per_tok, 0.0)
+        return per_tok.sum() / valid.sum().clamp(min=1), model_state
+
+    return loss_fn

@@ -1,0 +1,95 @@
+"""High-level training loop — the port of ``byteps_tpu/training/
+trainer.py`` for one worker: owns the step function, the
+broadcast-at-start and the train loop, so user code is model + data.
+
+Example::
+
+    trainer = Trainer(lm_loss_fn(model),
+                      torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                        weight_decay=1e-4))
+    state = trainer.fit(model, {}, batches, steps=1000)
+
+Checkpoints, async-PS mode, ByteScheduler overlap and callbacks are
+refused until their slices land.  ``device`` defaults to ``cuda`` (no
+GPU: pass ``device="cpu"``); the model's parameters must already be
+there, and batches are moved there.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Iterable, Optional, Sequence
+
+import torch
+from torch import nn
+
+from .. import api
+from ..common import logging as bps_log
+from ..common.config import get_config
+from .step import TrainState, make_data_parallel_step
+
+__all__ = ["Trainer"]
+
+
+class Trainer:
+    def __init__(self, loss_fn: Callable,
+                 optimizer: torch.optim.Optimizer, compression=None,
+                 backward_passes_per_step: int = 1,
+                 checkpoint_dir: Optional[str] = None, log_every: int = 100,
+                 callbacks: Sequence[Callable] = (),
+                 async_mode: Optional[bool] = None, overlap: bool = False,
+                 device=None):
+        refused = [name for name, on in (
+            ("checkpoint_dir", checkpoint_dir is not None),
+            ("callbacks", bool(callbacks)),
+            ("overlap=True", overlap),
+            ("async_mode (or BYTEPS_ENABLE_ASYNC)",
+             get_config().enable_async if async_mode is None
+             else async_mode)) if on]
+        if refused:
+            raise NotImplementedError(
+                f"{refused}: not ported yet (ROADMAP A4 training, A8 PS "
+                f"tier); the port's Trainer runs the synchronous step")
+        api.init(device)
+        self.device = api.device()
+        self.step_fn = make_data_parallel_step(
+            loss_fn, optimizer, compression=compression,
+            backward_passes_per_step=backward_passes_per_step)
+        self.log_every = log_every
+        self.state: Optional[TrainState] = None
+        self.metrics: dict = {}  # the last step's {"loss": tensor}
+
+    def init_state(self, model: nn.Module, model_state=None,
+                   root_rank: int = 0) -> TrainState:
+        """Broadcast-consistent init (the identity with one worker)."""
+        wrong = {p.device for p in model.parameters()
+                 if p.device != self.device}
+        if wrong:
+            raise ValueError(f"model parameters on {wrong}, trainer on "
+                             f"{self.device}: move the model first")
+        model = api.broadcast_parameters(model, root_rank)
+        if model_state:
+            model_state = api.broadcast_parameters(model_state, root_rank)
+        return self.step_fn.init_state(model, model_state)
+
+    def fit(self, model: nn.Module, model_state, batches: Iterable,
+            steps: Optional[int] = None) -> TrainState:
+        """Run the step over ``batches`` (dicts of arrays or tensors), at
+        most ``steps`` of them; a later call continues from the state."""
+        state = self.state or self.init_state(model, model_state)
+        model.train()
+        t0 = time.time()
+        seen = 0
+        for i, batch in enumerate(batches):
+            if steps is not None and i >= steps:
+                break
+            batch = {k: torch.as_tensor(v).to(self.device)
+                     for k, v in batch.items()}
+            state, self.metrics = self.step_fn(state, batch)
+            seen += 1
+            if self.log_every and seen % self.log_every == 0:
+                bps_log.info("step %d loss %.4f (%.2f steps/s)", state.step,
+                             float(self.metrics["loss"]),
+                             seen / max(time.time() - t0, 1e-9))
+        self.state = state
+        return state

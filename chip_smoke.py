@@ -9,8 +9,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 1. Device — the ``nvidia-smi`` name / power-limit line, torch and CUDA
    versions.  Exits 1 at once when ``torch.cuda.is_available()`` is
    false.
-2. Build — compiles every kernel of the serving path from the sources in
-   the checkout (``nvcc``, ``sm_90a``) and prints the build seconds.
+2. Build — compiles every kernel of the serving and training paths from
+   the sources in the checkout (one ``nvcc`` per source, ``sm_90a``,
+   started together) and prints the build seconds.
 3. Reference — a small fp32 Llama-shaped model served greedily through
    the paged engine (the kernel decoding) must give exactly the tokens
    of a plain dense-cache greedy loop (``Transformer.decode``, no
@@ -40,7 +41,43 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    dense rows as a yardstick (never called by the port), with the L2
    cache flushed before every timed launch; the bound is the bytes the
    kernel must move over 3.35 TB/s (or its FLOPs over the dtype's peak
-   if larger).
+   if larger).  One more case per dtype at head_dim 32 (4 heads, MHA:
+   the serve role's default model).
+6. Serve role — ``serve_from_env`` with only ``BYTEPS_SERVE_PAGED=1``:
+   the default model (d_model 128, 4 heads, head_dim 32) on the GPU
+   answers two identical greedy requests identically, through the
+   kernel.
+7. Training reference — a small fp32 Llama-shaped model (2 layers,
+   d_model 256, 4 heads over 2 KV heads, head_dim 64, vocab 1024), B=2,
+   T=256: 3 ``Trainer.fit`` steps with ``attn_impl="flash"`` (the
+   kernels) and 3 from the same weights with ``"local"`` (no kernel),
+   SGD momentum 0.9.  Losses agree within 1e-5 relative; step-1
+   gradients within 1e-4 of each tensor's largest entry (fp32 sums in
+   other orders; Adam is not used here, as its m / sqrt(v) would turn
+   that rounding into updates of up to lr).
+8. Train (the main path of the training slice) — Llama-3.2-1B at full
+   width, bf16 compute on fp32 weights from ``--seed``, max_seq 2048;
+   B=4, T=2048, one fixed batch; ``Trainer.fit`` -> ``lm_loss_fn``
+   (plain head) -> ``Transformer`` with ``attn_impl="flash"``;
+   ``torch.optim.AdamW(lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+   weight_decay=1e-4, fused=True)``.  One warm-up step, 5 timed: every
+   loss finite, the last below the first, 16 launches of each flash
+   kernel per step, every parameter and optimizer state on the GPU.
+   The counts are set to 0 just before the timed steps, read after.
+9. Flash kernels — forward, dq and dk/dv against their plain versions at
+   the training shape (B=4, T=2048, H=32, KV=8, D=64, causal) in bf16
+   and fp32, plus non-causal, window 256, two packed documents, ALiBi,
+   MQA, head_dim 32 and 128, and T=2000.  fp32 within 1e-4 of the
+   largest reference magnitude, or absolute below magnitude 1 (dk/dv sum
+   G * T products: at MQA, 32 heads of 2048 rows); bf16 within 2e-2 of
+   the largest reference magnitude (p and ds are rounded to bf16 before
+   their products, and outputs once).  At the
+   training shape, times (L2 flushed) of each kernel, its plain
+   version, and as the yardstick ``F.scaled_dot_product_attention(...,
+   is_causal=True, enable_gqa=True)`` forward and its autograd backward
+   (dq + dk + dv in one), with the SDPA kernel that ran; the bound is
+   the kernel's FLOPs over the dtype's peak (or its bytes over 3.35
+   TB/s if larger).
 
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels":
 [...]}`` JSON object, and ``{"ok": true, "device": {...}}``.
@@ -70,6 +107,12 @@ BLOCK = 16
 N_SLOTS = 8
 PROMPT_LENS = (32, 96, 160, 224, 288, 352, 416, 512)
 NEW_TOKENS = 32
+TRAIN_REF = dict(vocab_size=1024, num_layers=2, num_heads=4, num_kv_heads=2,
+                 d_model=256, d_ff=1024, head_dim=64, max_seq_len=256)
+TRAIN_B = 4           # full-width training batch (x MAX_SEQ tokens)
+TRAIN_TIMED = 5       # timed steps after one warm-up step
+GRAD_TOL = 1e-4       # flash vs local step-1 gradients, of max |g|
+KERNEL_SOURCES = ("paged_attention", "flash_attention")
 
 
 def _smi() -> str:
@@ -168,7 +211,8 @@ def serve_phase(torch, seed: int):
     cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
                             dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    model = Transformer(cfg, device="cuda")
+    # serving keeps its weights in bf16 (no per-tick casts)
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
     init_weights(model, seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
@@ -272,8 +316,7 @@ def serve_phase(torch, seed: int):
 # ---------------------------------------------------------------- kernel
 
 
-def _kernel_case(torch, np, seed, pos, tq, dtype):
-    H, KV, D = 32, 8, 64
+def _kernel_case(torch, np, seed, pos, tq, dtype, H, KV, D):
     mb = MAX_SEQ // BLOCK
     n_blocks = N_SLOTS * mb + 1
     rng = np.random.RandomState(seed)
@@ -308,9 +351,9 @@ def _time_ms(torch, fn, flush, iters=20) -> float:
     return total / iters
 
 
-def _bound(pa, q, pos, tq, window, elt, dtype_name):
+def _bound(pa, q, pos, tq, window, elt, dtype_name, KV):
     B, _, H, D = q.shape
-    KVD = 8 * D
+    KVD = KV * D
     nbytes = (pa.kv_bytes_read(pos, tq, BLOCK, KVD, elt, window)
               + 2 * q.numel() * elt                      # q in, out
               + 4 * len(pos)                             # pos
@@ -327,14 +370,16 @@ def _bound(pa, q, pos, tq, window, elt, dtype_name):
                                  else "operations")
 
 
-def kernel_case(torch, np, name, pos, tq, window, dtype, seed, flush):
+def kernel_case(torch, np, name, pos, tq, window, dtype, seed, flush,
+                H=32, KV=8, D=64):
     import torch.nn.functional as F
 
     from byteps_tpu_torch.ops import paged_attention as pa
 
     dname = str(dtype).split(".")[-1]
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    q, ck, cv, table, posv = _kernel_case(torch, np, seed, pos, tq, dtype)
+    q, ck, cv, table, posv = _kernel_case(torch, np, seed, pos, tq, dtype,
+                                          H, KV, D)
     out = pa.paged_attention(q, ck, cv, table, posv, window=window)
     ref = pa.paged_attention_reference(q, ck, cv, table, posv,
                                        window=window)
@@ -347,8 +392,8 @@ def kernel_case(torch, np, name, pos, tq, window, dtype, seed, flush):
     nb = -(-(max(pos) + tq) // BLOCK)
     S = nb * BLOCK
     idx = table[:, :nb].long()
-    kd = ck[idx].reshape(B, S, 8, D).transpose(1, 2).contiguous()
-    vd = cv[idx].reshape(B, S, 8, D).transpose(1, 2).contiguous()
+    kd = ck[idx].reshape(B, S, KV, D).transpose(1, 2).contiguous()
+    vd = cv[idx].reshape(B, S, KV, D).transpose(1, 2).contiguous()
     qd = q.transpose(1, 2).contiguous()
     c = torch.arange(S, device="cuda")
     qpos = posv.long()[:, None] + torch.arange(tq, device="cuda")[None]
@@ -366,8 +411,9 @@ def kernel_case(torch, np, name, pos, tq, window, dtype, seed, flush):
     library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True), flush)
     bound_ms, bound_by = _bound(pa, q, pos, tq, window,
-                                q.element_size(), dname)
+                                q.element_size(), dname, KV)
     return {"case": name, "dtype": dname, "tq": tq, "window": window,
+            "heads": [H, KV, D],
             "max_err": err, "tolerance": tol, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_err": lib_err, "bound_ms": bound_ms,
@@ -394,10 +440,356 @@ def kernel_phase(torch, seed: int, final_pos):
             cases.append(kernel_case(torch, np, name, pos, tq, window,
                                      dtype, seed, flush))
             _line(cases[-1])
+        # the serve role's default model: 4 heads of 32, MHA
+        cases.append(kernel_case(torch, np, "serve_default_head_dim32",
+                                 ragged, 1, None, dtype, seed, flush,
+                                 H=4, KV=4, D=32))
+        _line(cases[-1])
     main = kernel_case(torch, np, "serve_last_tick", final_pos, 1, None,
                        torch.bfloat16, seed, flush)
     _line(main)
     return cases, main
+
+
+# ------------------------------------------------------------- serve role
+
+
+def serve_role_phase(torch) -> dict:
+    """``DMLC_ROLE=serve`` with its defaults: the head_dim-32 model on the
+    GPU, greedy reruns identical, decoding through the kernel."""
+    import os
+
+    import numpy as np
+
+    from byteps_tpu_torch.common.config import reset_config
+    from byteps_tpu_torch.ops import paged_attention as pa
+    from byteps_tpu_torch.serving import RemoteServeClient
+    from byteps_tpu_torch.serving.frontend import serve_from_env
+
+    os.environ.pop("BYTEPS_SERVE_MODEL", None)
+    pa.launches = 0
+    srv, thread = serve_from_env({"BYTEPS_SERVE_PAGED": "1"}, port=0,
+                                 in_thread=True)
+    try:
+        cfg = srv.engine.model.cfg
+        c = RemoteServeClient(f"127.0.0.1:{srv.server_address[1]}",
+                              timeout=300)
+        prompt = np.arange(1, 12, dtype=np.int32)
+        a, b = c.generate(prompt, 8), c.generate(prompt, 8)
+        st = c.stats()
+        c.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        os.environ.pop("BYTEPS_SERVE_PAGED", None)
+        reset_config()
+    torch.cuda.synchronize()
+    if cfg.d_head != 32 or not st["device"].startswith("cuda"):
+        raise AssertionError(f"serve role ran head_dim {cfg.d_head} on "
+                             f"{st['device']}")
+    if a.shape != (8,) or not np.array_equal(a, b) or pa.launches == 0:
+        raise AssertionError(f"serve role: {a} / {b}, {pa.launches} kernel "
+                             f"launches")
+    return {"phase": "serve_role", "head_dim": cfg.d_head,
+            "device": st["device"], "tokens_identical": True,
+            "paged_launches": pa.launches}
+
+
+# -------------------------------------------------------------- training
+
+
+def _flash_counts():
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    return (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+
+
+def _zero_flash_counts():
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = fa.plain_calls = 0
+
+
+def train_reference_phase(torch, seed: int) -> dict:
+    """3 fp32 steps with the flash kernels vs 3 with the plain local
+    attention, same weights and batch: losses and step-1 gradients."""
+    import numpy as np
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    toks = np.random.RandomState(seed).randint(
+        0, TRAIN_REF["vocab_size"], size=(2, TRAIN_REF["max_seq_len"]))
+    runs = {}
+    for impl in ("flash", "local"):
+        cfg = TransformerConfig(**{**LLAMA_3_2_1B, **TRAIN_REF},
+                                attn_impl=impl, dtype=torch.float32)
+        model = Transformer(cfg, device="cuda")
+        init_weights(model, seed)
+        trainer = Trainer(lm_loss_fn(model), torch.optim.SGD(
+            model.parameters(), lr=0.05, momentum=0.9), log_every=0)
+        _zero_flash_counts()
+        losses, grads = [], None
+        for step in range(3):
+            trainer.fit(model, {}, [{"tokens": toks}])
+            losses.append(trainer.metrics["loss"].item())
+            if step == 0:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+        runs[impl] = (losses, grads, _flash_counts())
+        api.shutdown()
+        del model, trainer
+    (lf, gf, nf), (ll, gl, nl) = runs["flash"], runs["local"]
+    want = 3 * TRAIN_REF["num_layers"]
+    if nf != (want, want, want) or nl != (0, 0, 0):
+        raise AssertionError(f"flash launches {nf} (want {want} each), "
+                             f"local {nl}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, ll))
+    if not all(np.isfinite(lf)) or loss_rel > 1e-5:
+        raise AssertionError(f"losses flash {lf} vs local {ll}")
+    grad_rel = max(((gf[n] - gl[n]).abs().max()
+                    / gl[n].abs().max().clamp(min=1e-30)).item() for n in gl)
+    if grad_rel > GRAD_TOL:
+        raise AssertionError(f"step-1 gradients differ by {grad_rel} of "
+                             f"their largest entry (> {GRAD_TOL})")
+    torch.cuda.empty_cache()
+    return {"phase": "train_reference", "losses_flash": lf,
+            "losses_local": ll, "loss_max_rel_diff": loss_rel,
+            "grad_max_rel_diff": grad_rel, "grad_tolerance": GRAD_TOL,
+            "flash_launches": nf}
+
+
+def train_phase(torch, seed: int):
+    """Full-width Llama-3.2-1B training through Trainer.fit (the main
+    path of the training slice)."""
+    import numpy as np
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16, attn_impl="flash")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda")            # fp32 weights
+    init_weights(model, seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4, fused=True)
+    trainer = Trainer(lm_loss_fn(model), opt, log_every=0)
+    toks = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(TRAIN_B, MAX_SEQ))
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(model, {}, [batch])                     # warm-up
+    losses = [trainer.metrics["loss"].item()]
+    _zero_flash_counts()
+    step_ms = []
+    for _ in range(TRAIN_TIMED):
+        before = _flash_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.fit(model, {}, [batch])
+        losses.append(trainer.metrics["loss"].item())   # synchronizes
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        per = tuple(a - b for a, b in zip(_flash_counts(), before))
+        if per != (cfg.num_layers,) * 3:
+            raise AssertionError(f"flash launches this step {per}, want "
+                                 f"{cfg.num_layers} of each kernel")
+    launches = _flash_counts()
+    if fa.plain_calls:
+        raise AssertionError(f"{fa.plain_calls} flash calls ran the plain "
+                             f"version on the CPU")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}: not finite and falling")
+    on_gpu = all(p.is_cuda for p in model.parameters()) and all(
+        t.is_cuda for st in opt.state.values() for t in st.values()
+        if torch.is_tensor(t))
+    if not on_gpu or len(opt.state) != len(list(model.parameters())):
+        raise AssertionError("a parameter or optimizer state is not on "
+                             "the GPU")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_B * MAX_SEQ
+    info = {"phase": "train", "model": "Llama-3.2-1B (random weights)",
+            "source": "meta-llama/Llama-3.2-1B config.json",
+            "reduced": {"max_seq": [131072, MAX_SEQ]},
+            "dtype": "bfloat16 compute, float32 weights",
+            "params": n_params, "batch": [TRAIN_B, MAX_SEQ],
+            "optimizer": "AdamW lr 1e-4 wd 1e-4 (fused)",
+            "setup_s": setup_s, "losses": losses,
+            "step_ms_p50": float(np.median(step_ms)),
+            "step_ms_max": float(np.max(step_ms)), "step_ms": step_ms,
+            "tokens_per_s": tokens / (float(np.median(step_ms)) / 1e3),
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "flash_launches": launches}
+    api.shutdown()
+    del model, opt, trainer, batch
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+# --------------------------------------------------------- flash kernels
+
+FLASH_MAIN = dict(B=TRAIN_B, T=MAX_SEQ, H=32, KV=8, D=64, causal=True,
+                  window=None, seg=False, alibi=False)
+FLASH_CASES = (("training_shape", {}), ("noncausal", {"causal": False}),
+               ("window256", {"window": 256}), ("two_documents", {"seg": True}),
+               ("alibi", {"alibi": True}), ("mqa", {"KV": 1}),
+               ("head_dim32", {"D": 32}), ("head_dim128", {"D": 128}),
+               ("t2000", {"T": 2000}))
+
+
+def _flash_inputs(torch, seed, c, dtype):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    B, T, H, KV, D = c["B"], c["T"], c["H"], c["KV"], c["D"]
+    q, k, v, do = t(B, T, H, D), t(B, T, KV, D), t(B, T, KV, D), t(B, T, H, D)
+    seg = None
+    if c["seg"]:
+        cut = torch.tensor([T // 3 + 97 * b for b in range(B)], device="cuda")
+        seg = (torch.arange(T, device="cuda")[None] >= cut[:, None]).to(
+            torch.int32)
+    slopes = (2.0 ** -torch.arange(1, H + 1, device="cuda").float()
+              if c["alibi"] else None)
+    return q, k, v, do, seg, slopes
+
+
+def _flash_bounds(fa, c, elt):
+    """Least time (ms) for each kernel: max(FLOPs / peak, bytes / HBM)."""
+    B, T, H, KV, D = c["B"], c["T"], c["H"], c["KV"], c["D"]
+    flops = fa.attention_flops(B, T, H, D, c["causal"], c["window"])
+    q_bytes, kv_bytes, row_bytes = B * T * H * D * elt, B * T * KV * D * elt, \
+        B * H * T * 4
+    nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,       # q k v o lse
+              "dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,    # q do dq k v
+              "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes}   # q do k v dk dv
+    peak = PEAK_FLOPS["bfloat16" if elt == 2 else "float32"]
+    out = {}
+    for n in flops:
+        t_ops, t_bytes = flops[n] / peak * 1e3, nbytes[n] / HBM_BYTES_PER_S * 1e3
+        out[n] = (max(t_ops, t_bytes),
+                  "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def _sdpa_kernels(torch, fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` ran, by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return [n[:80] for n, _ in sorted(times.items(), key=lambda kv: -kv[1])][:3]
+
+
+def flash_case(torch, name, over, dtype, seed, flush, timed):
+    import torch.nn.functional as F
+
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    c = {**FLASH_MAIN, **over}
+    dname = str(dtype).split(".")[-1]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    q, k, v, do, seg, slopes = _flash_inputs(torch, seed, c, dtype)
+    opts = (c["causal"], None, seg, c["window"], slopes)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, *opts)
+    delta = (do.float() * o_ref.float()).sum(-1).permute(0, 2, 1).contiguous()
+    bwd = (q, k, v, do, lse_ref, delta)
+    outs = {"fwd": fa.flash_forward(q, k, v, *opts),
+            "dq": (fa.flash_backward_dq(*bwd, *opts),),
+            "dkv": fa.flash_backward_dkv(*bwd, *opts)}
+    refs = {"fwd": (o_ref, lse_ref),
+            "dq": (fa.flash_backward_dq_reference(*bwd, *opts),),
+            "dkv": fa.flash_backward_dkv_reference(*bwd, *opts)}
+    torch.cuda.synchronize()
+    res = {"case": name, "dtype": dname,
+           "B_T_H_KV_D": [c["B"], c["T"], c["H"], c["KV"], c["D"]],
+           "causal": c["causal"], "window": c["window"], "segments": c["seg"],
+           "alibi": c["alibi"], "tolerance": tol}
+    for kname in ("fwd", "dq", "dkv"):
+        abs_err = rel_err = 0.0
+        for out, ref in zip(outs[kname], refs[kname]):
+            if not (torch.isfinite(out.float()).all()
+                    and torch.isfinite(ref.float()).all()):
+                raise AssertionError(f"flash {kname} {name} {dname}: "
+                                     f"non-finite output")
+            e = (out.float() - ref.float()).abs().max().item()
+            abs_err = max(abs_err, e)
+            top = ref.float().abs().max().item()
+            rel_err = max(rel_err, e / (max(top, 1e-6)
+                                        if out.dtype == torch.bfloat16
+                                        else max(top, 1.0)))
+        if rel_err > tol:
+            raise AssertionError(f"flash {kname} {name} {dname}: error "
+                                 f"{rel_err} > {tol}")
+        res[f"{kname}_max_abs_err"] = abs_err
+        res[f"{kname}_err"] = rel_err
+    if not timed:
+        return res
+    kern = {"fwd": lambda: fa.flash_forward(q, k, v, *opts),
+            "dq": lambda: fa.flash_backward_dq(*bwd, *opts),
+            "dkv": lambda: fa.flash_backward_dkv(*bwd, *opts)}
+    plain = {"fwd": lambda: fa.flash_forward_reference(q, k, v, *opts),
+             "dq": lambda: fa.flash_backward_dq_reference(*bwd, *opts),
+             "dkv": lambda: fa.flash_backward_dkv_reference(*bwd, *opts)}
+    bounds = _flash_bounds(fa, c, q.element_size())
+    for kname in kern:
+        res[f"{kname}_ms"] = _time_ms(torch, kern[kname], flush, iters=10)
+        res[f"{kname}_plain_ms"] = _time_ms(torch, plain[kname], flush,
+                                            iters=5)
+        res[f"{kname}_bound_ms"], res[f"{kname}_bound_by"] = bounds[kname]
+    # the yardstick: one PyTorch call for the same function
+    qd, kd, vd = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dod = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qd, kd, vd, is_causal=True,
+                                              enable_gqa=True)
+
+    out = sdpa()
+    res["library_fwd_ms"] = _time_ms(torch, sdpa, flush, iters=10)
+    res["library_bwd_ms"] = _time_ms(torch, lambda: torch.autograd.grad(
+        out, (qd, kd, vd), dod, retain_graph=True), flush, iters=10)
+    res["library_fwd_err"] = (out.detach().transpose(1, 2).float()
+                              - o_ref.float()).abs().max().item()
+    res["library_fwd_kernels"] = _sdpa_kernels(torch, sdpa)
+    res["library_bwd_kernels"] = _sdpa_kernels(torch, lambda: torch.autograd
+                                               .grad(out, (qd, kd, vd), dod,
+                                                     retain_graph=True))
+    return res
+
+
+def flash_kernel_phase(torch, seed: int):
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, over in FLASH_CASES:
+            r = flash_case(torch, name, over, dtype, seed, flush,
+                           timed=not over)
+            _line(r)
+            if not over and dtype == torch.bfloat16:
+                main = r
+            torch.cuda.empty_cache()
+    return main
+
 
 
 def main() -> int:
@@ -411,9 +803,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs a GPU",
               file=sys.stderr)
         return 1
-    from byteps_tpu_torch.ops import paged_attention as pa
+    from byteps_tpu_torch.ops import _build
 
-    # fp32 products in full fp32 for the reference phase (TF32 keeps
+    # fp32 products in full fp32 for the reference phases (TF32 keeps
     # three digits); stated and set, not assumed
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -423,26 +815,50 @@ def main() -> int:
            "device": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    so = pa.build()
-    _line({"phase": "build", "kernels": {"paged_attention": str(so)},
+    libs = _build.build(KERNEL_SOURCES)   # one nvcc per source, in parallel
+    _line({"phase": "build", "kernels": {n: str(p) for n, p in libs.items()},
            "seconds": time.perf_counter() - t0,
-           "ptxas": [ln.strip() for ln in pa.build_log.splitlines()
-                     if "registers" in ln or "smem" in ln]})
+           "ptxas": {n: [ln.strip() for ln in log.splitlines()
+                         if "registers" in ln or "spill" in ln]
+                     for n, log in _build.build_logs.items()}})
     _line(reference_phase(torch, args.seed))
-    serve_info, launches, final_pos = serve_phase(torch, args.seed)
+    serve_info, paged_launches, final_pos = serve_phase(torch, args.seed)
     serve_info["nvidia_smi"] = smi
     _line(serve_info)
-    _, main_case = kernel_phase(torch, args.seed, final_pos)
+    _, paged_main = kernel_phase(torch, args.seed, final_pos)
+    _line(serve_role_phase(torch))
+    _line(train_reference_phase(torch, args.seed))
+    train_info, flash_launches = train_phase(torch, args.seed)
+    train_info["nvidia_smi"] = _smi()
+    _line(train_info)
+    flash_main = flash_kernel_phase(torch, args.seed)
     print(_smi(), flush=True)
-    _line({"kernels": [{
+    kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "byteps_tpu_torch/csrc/paged_attention.cu",
         "replaces": "byteps_tpu/ops/paged_attention.py:76",
-        "launches": launches, "max_abs_err": main_case["max_err"],
-        "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+        "launches": paged_launches, "max_abs_err": paged_main["max_err"],
+        "ms": paged_main["kernel_ms"], "plain_ms": paged_main["plain_ms"],
+        "bound_ms": paged_main["bound_ms"],
+        "bound_by": paged_main["bound_by"],
+        "library_ms": paged_main["library_ms"]}]
+    for kname, line, n in (("fwd", 116, flash_launches[0]),
+                           ("dq", 374, flash_launches[1]),
+                           ("dkv", 444, flash_launches[2])):
+        kernels.append({
+            "name": f"flash_attention_{kname}", "route": "cuda",
+            "source": "byteps_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"byteps_tpu/ops/flash_attention.py:{line}",
+            "launches": n,
+            "max_abs_err": flash_main[f"{kname}_max_abs_err"],
+            "ms": flash_main[f"{kname}_ms"],
+            "plain_ms": flash_main[f"{kname}_plain_ms"],
+            "bound_ms": flash_main[f"{kname}_bound_ms"],
+            "bound_by": flash_main[f"{kname}_bound_by"],
+            # SDPA's backward computes dq, dk and dv in one call
+            "library_ms": flash_main["library_fwd_ms" if kname == "fwd"
+                                     else "library_bwd_ms"]})
+    _line({"kernels": kernels})
     _line({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

@@ -84,7 +84,7 @@ def main() -> int:
 
     cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=2048,
                             dtype=torch.bfloat16)
-    model = Transformer(cfg, device="cuda")
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
     init_weights(model, args.seed)
     eng = ServingEngine(model, n_slots=8, max_seq=2048, block=16,
                         device="cuda", metrics=ServeMetrics())

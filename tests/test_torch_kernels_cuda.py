@@ -4,16 +4,22 @@ runs on the card's machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Without a GPU every test here skips.  Tolerances: fp32 1e-4 (online vs
-dense softmax accumulation order); bf16 2e-2 (p is rounded to bf16
-before the PV product, so a bf16 ulp of a probability reaches the
-output).
+Without a GPU every test here skips.  Paged attention: fp32 1e-4
+absolute (online vs dense softmax accumulation order); bf16 2e-2 (p is
+rounded to bf16 before the PV product, so a bf16 ulp of a probability
+reaches the output).  Flash attention (forward, dq, dk/dv): fp32 1e-4
+of the largest reference magnitude, absolute below magnitude 1 (dk/dv
+sum over the whole head group); bf16 2e-2 of the largest reference
+magnitude (p and ds are rounded to bf16 before their products, at
+other running maxima in the online forward than in the dense plain
+version, and every output is rounded to bf16 once).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from byteps_tpu_torch.ops import flash_attention as fa
 from byteps_tpu_torch.ops import paged_attention as pa
 
 
@@ -42,7 +48,8 @@ def _case(seed, B, tq, H, KV, D, blk, mb, pos, dtype):
 # (32, 1, 64, 16): G * tq reaches 128 query rows per CTA, past the 64 one
 # pass of 16 warps x 4 rows holds, so the kernel walks the blocks twice
 @pytest.mark.parametrize("H,KV,D,blk", [(32, 8, 64, 16), (8, 2, 128, 64),
-                                        (4, 4, 64, 8), (32, 1, 64, 16)])
+                                        (4, 4, 64, 8), (32, 1, 64, 16),
+                                        (4, 2, 32, 16), (8, 4, 16, 8)])
 def test_paged_attention_kernel_matches_plain_version(dtype, tol, tq, window,
                                                       H, KV, D, blk):
     if not torch.cuda.is_available():
@@ -58,3 +65,96 @@ def test_paged_attention_kernel_matches_plain_version(dtype, tol, tq, window,
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out.float()).all()
     assert err <= tol, err
+
+
+def _flash_inputs(seed, B, T, H, KV, D, dtype, seg, alibi):
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+
+    q, k, v, do = t(B, T, H, D), t(B, T, KV, D), t(B, T, KV, D), t(B, T, H, D)
+    segment_ids = None
+    if seg:  # two packed documents per row, split at different points
+        cut = np.arange(B) * 7 % T // 2 + T // 4
+        segment_ids = torch.from_numpy(
+            (np.arange(T)[None] >= cut[:, None]).astype(np.int32)).to(dev)
+    slopes = (torch.from_numpy(2.0 ** -np.arange(1, H + 1, dtype=np.float32))
+              .to(dev) if alibi else None)
+    return q, k, v, do, segment_ids, slopes
+
+
+def _rel_err(out, ref, dtype):
+    err = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    return err / (max(top, 1e-6) if dtype == torch.bfloat16
+                  else max(top, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,H,KV,D,causal,window,seg,alibi", [
+    (128, 4, 2, 64, True, None, False, False),     # GQA causal
+    (128, 4, 4, 64, False, None, False, False),    # MHA, non-causal
+    (200, 4, 1, 64, True, None, False, False),     # MQA, T % 64 != 0
+    (256, 4, 2, 64, True, 48, False, False),       # sliding window
+    (160, 4, 2, 64, True, None, True, False),      # packed documents
+    (96, 4, 2, 64, False, None, True, False),      # segments, non-causal
+    (128, 4, 2, 64, True, None, False, True),      # ALiBi
+    (100, 2, 1, 16, True, None, False, False),     # head_dim 16
+    (77, 4, 2, 32, True, 20, True, True),          # head_dim 32, all options
+    (130, 4, 2, 128, True, None, False, False),    # head_dim 128
+])
+def test_flash_kernels_match_plain_versions(dtype, tol, T, H, KV, D, causal,
+                                            window, seg, alibi):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do, seg_ids, slopes = _flash_inputs(
+        7, 2, T, H, KV, D, dtype, seg, alibi)
+    args = (causal, None, seg_ids, window, slopes)
+    n0 = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    o, lse = fa.flash_forward(q, k, v, *args)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, *args)
+    delta = (do.float() * o_ref.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq = fa.flash_backward_dq(q, k, v, do, lse_ref, delta, *args)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta, *args)
+    dq_ref = fa.flash_backward_dq_reference(q, k, v, do, lse_ref, delta, *args)
+    dk_ref, dv_ref = fa.flash_backward_dkv_reference(q, k, v, do, lse_ref,
+                                                     delta, *args)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in n0)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    for name, out, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
+                           ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype, name
+        assert torch.isfinite(out.float()).all(), name
+        assert torch.isfinite(ref.float()).all(), name
+        err = _rel_err(out, ref, dtype)
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_the_card_matches_the_cpu_function():
+    """The same Function on CUDA tensors (the kernels) and on CPU tensors
+    (the plain versions), fp32, GQA, causal, lse variant with a nonzero
+    lse cotangent; reruns on the card are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do, _, _ = _flash_inputs(3, 2, 150, 8, 2, 64, torch.float32,
+                                      False, False)
+    dlse = torch.randn(2, 150, 8, device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu", "cuda"):
+        qq, kk, vv = (t.detach().to(dev).requires_grad_() for t in (q, k, v))
+        o, lse = fa.flash_attention_with_lse(qq, kk, vv, causal=True)
+        torch.autograd.backward((o, lse), (do.to(dev), dlse.to(dev)))
+        grads.append([t.cpu() for t in (o.detach(), lse.detach(), qq.grad,
+                                        kk.grad, vv.grad)])
+    for a, b in zip(grads[0], grads[1]):
+        assert (a - b).abs().max().item() <= 1e-4
+    for a, b in zip(grads[0], grads[2]):
+        assert torch.equal(a, b)

@@ -100,12 +100,13 @@ def test_wrapper_rejects_non_cpu_non_cuda_and_bad_shapes():
 
 @pytest.mark.parametrize("dtype,head_dim,block,match", [
     (torch.float16, 64, 16, "float32 or bfloat16"),
-    (torch.float32, 32, 16, "head_dim"),
+    (torch.float32, 48, 16, "head_dim"),
     (torch.bfloat16, 128, 65, "blocks"),
 ])
 def test_kernel_config_refuses_what_the_kernel_does_not_take(
         dtype, head_dim, block, match):
-    pa.check_kernel_config(torch.bfloat16, 64, 16)
+    for d in (16, 32, 64, 128):  # 16 and 32: the serve role's defaults
+        pa.check_kernel_config(torch.bfloat16, d, 16)
     pa.check_kernel_config(torch.float32, 128, 64)
     with pytest.raises(ValueError, match=match):
         pa.check_kernel_config(dtype, head_dim, block)

@@ -1,6 +1,7 @@
 """Token sampling — the port of ``byteps_tpu/inference.py:192``
 ``sample_logits`` (temperature, top-k, top-p), plus the port's own
-sampling-noise chain.
+sampling-noise chain — and ``truncated_draft`` (``:578``), the LayerSkip
+self-draft that ``lm_loss_fn(early_exit=...)`` trains.
 
 JAX draws from ``jax.random`` keys; PyTorch's generators give other
 numbers from the same seed, so sampled streams of the two packages
@@ -14,12 +15,16 @@ on preemption and resume — resuming after ``k`` tokens needs only ``k``.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from typing import Optional
 
 import torch
+from torch import nn
 
-__all__ = ["sample_logits", "token_generator"]
+from .models.transformer import Transformer
+
+__all__ = ["sample_logits", "token_generator", "truncated_draft"]
 
 
 def token_generator(seed: int, k: int) -> torch.Generator:
@@ -64,3 +69,27 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
     u = u.clamp_(min=torch.finfo(torch.float32).tiny)
     gumbel = -torch.log(-torch.log(u)).to(logits.device)
     return torch.argmax(logits + gumbel, dim=-1)
+
+
+def truncated_draft(model: Transformer, num_layers: int) -> Transformer:
+    """LayerSkip-style self-draft: a ``Transformer`` whose config has
+    ``num_layers`` and whose embeddings, first ``num_layers`` blocks,
+    final norm and head are the target's own modules — the same
+    ``nn.Parameter`` objects, so nothing is copied and a gradient through
+    the draft reaches the target's weights (the JAX version returns the
+    same arrays in a filtered tree)."""
+    cfg = model.cfg
+    if not 1 <= num_layers <= cfg.num_layers:
+        raise ValueError(
+            f"draft num_layers {num_layers} not in [1, {cfg.num_layers}]")
+    # built on the meta device (no memory), then given the target's modules
+    draft = Transformer(dataclasses.replace(cfg, num_layers=num_layers),
+                        device="meta")
+    draft.embed = model.embed
+    if cfg.pos_emb == "learned":
+        draft.pos = model.pos
+    draft.blocks = nn.ModuleList(model.blocks[:num_layers])
+    draft.ln_f = model.ln_f
+    if not cfg.tie_embeddings:
+        draft.lm_head = model.lm_head
+    return draft

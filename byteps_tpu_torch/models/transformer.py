@@ -22,9 +22,10 @@ What is carried over, by JAX counterpart:
   (``_group_q`` / ``_grouped_mask`` / ``_cached_attention``) that chunk
   prefill runs, as the JAX engine does;
 * ``Transformer`` with ``hidden`` / ``forward`` (training), ``decode``,
-  ``prefill_chunk_paged``, ``decode_paged_fused``, ``gather_paged_rows``
-  and ``logits`` (fp32 logits, the head accumulated in fp32 from
-  model-dtype operands).
+  ``prefill_chunk_paged``, ``decode_paged_fused``, ``gather_paged_rows``,
+  ``logits`` (fp32 logits, the head accumulated in fp32 from
+  model-dtype operands) and ``head_weight`` (the head in the model dtype,
+  for the fused LM-head cross-entropy).
 
 Parameters are kept in ``param_dtype`` (fp32 by default, as flax's
 ``param_dtype=float32``) and cast to ``cfg.dtype`` where they are used,
@@ -497,6 +498,17 @@ class Transformer(nn.Module):
         if self._head_f32 is None or self._head_f32[0] != key:
             self._head_f32 = (key, w.detach().to(cdt).to(torch.float32))
         return self._head_f32[1]
+
+    def head_weight(self) -> torch.Tensor:
+        """The head's ``[vocab, d_model]`` weight cast to ``cfg.dtype``
+        under autograd — the embedding table for a tied head,
+        ``lm_head.weight`` otherwise — for the fused LM-head
+        cross-entropy (the JAX ``_head_weight``, ``emb.T.astype(h.dtype)``,
+        transposed back by the caller's ``.t()``).  The gradient reaches
+        the parameter; no fp32 copy is made."""
+        w = (self.embed.weight if self.cfg.tie_embeddings
+             else self.lm_head.weight)
+        return w.to(self.cfg.dtype)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """LM head: model-dtype operands, fp32 accumulation and output

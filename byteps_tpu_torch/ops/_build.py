@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels, and the dispatch
+rule their wrappers share (:func:`on_cuda`, :func:`wide_dtype`).
 
 Every kernel source under ``byteps_tpu_torch/csrc/`` has a plain C
 interface.  At first use it is compiled with ``nvcc`` for ``sm_90a``
@@ -19,7 +20,9 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["build", "load", "build_logs", "CSRC"]
+import torch
+
+__all__ = ["build", "load", "build_logs", "on_cuda", "wide_dtype", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -92,3 +95,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _libs[name] = lib
     return lib
+
+
+def on_cuda(what: str, *tensors) -> bool:
+    """False when every tensor lies on the CPU (the plain version runs),
+    True when all lie on one CUDA device (the kernel runs); anything
+    else raises.  ``None`` entries are skipped."""
+    devices = {t.device for t in tensors if t is not None}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{what} needs every tensor on one CUDA device "
+                         f"(or all on the CPU), got {devices}")
+    return True
+
+
+def wide_dtype(*tensors) -> torch.dtype:
+    """The accumulation dtype of the plain versions: fp32, or fp64 when
+    an input is fp64 (so ``torch.autograd.gradcheck`` can run them)."""
+    out = torch.float32
+    for t in tensors:
+        out = torch.promote_types(out, t.dtype)
+    return out

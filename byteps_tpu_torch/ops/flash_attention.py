@@ -119,18 +119,6 @@ def _check(q, k, v, causal, window, segment_ids, alibi_slopes):
     return B, T, H, KV, D
 
 
-def _on_cuda(*tensors) -> bool:
-    """False when every tensor lies on the CPU, True when all lie on one
-    CUDA device; anything else raises."""
-    devices = {t.device for t in tensors if t is not None}
-    if all(d.type == "cpu" for d in devices):
-        return False
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"flash attention needs every tensor on one CUDA "
-                         f"device (or all on the CPU), got {devices}")
-    return True
-
-
 def _kernel_args(q, k, v, *more, segment_ids=None, alibi_slopes=None):
     """Check what the kernels take and return contiguous, 16-byte
     aligned operands plus int32 segment ids and fp32 slopes."""
@@ -168,15 +156,6 @@ def _raise_on(rc: int, what: str) -> None:
 # ------------------------------------------------------ plain versions
 
 
-def _wide(*tensors) -> torch.dtype:
-    """The accumulation dtype of the plain versions: fp32, or fp64 when
-    an input is fp64 (so ``torch.autograd.gradcheck`` can run them)."""
-    out = torch.float32
-    for t in tensors:
-        out = torch.promote_types(out, t.dtype)
-    return out
-
-
 def _grouped(x, KV):
     """``[B, T, H, D] -> [B, KV, G, T, D]`` (head ``h = kv * G + g``)."""
     B, T, H, D = x.shape
@@ -194,7 +173,7 @@ def _scores(q, k, causal, scale, segment_ids, window, alibi_slopes):
     the keep-mask (broadcastable to them)."""
     B, T, H, D = q.shape
     KV = k.shape[2]
-    wt = _wide(q, k)
+    wt = _build.wide_dtype(q, k)
     qg = _grouped(q.to(wt), KV)
     kg = k.to(wt).permute(0, 2, 1, 3)[:, :, None]       # [B, KV, 1, T, D]
     s = torch.matmul(qg, kg.transpose(-1, -2)) * scale
@@ -230,7 +209,7 @@ def flash_forward_reference(q, k, v, causal: bool = False,
     B, T, H, KV, D = _check(q, k, v, causal, window, segment_ids,
                             alibi_slopes)
     scale = D ** -0.5 if scale is None else scale
-    wt = _wide(q, k, v)
+    wt = _build.wide_dtype(q, k, v)
     s, valid = _scores(q, k, causal, scale, segment_ids, window,
                        alibi_slopes)
     m = s.amax(dim=-1, keepdim=True)
@@ -254,7 +233,7 @@ def flash_backward_dq_reference(q, k, v, do, lse, delta, causal: bool = False,
     B, T, H, KV, D = _check(q, k, v, causal, window, segment_ids,
                             alibi_slopes)
     scale = D ** -0.5 if scale is None else scale
-    wt = _wide(q, k, v)
+    wt = _build.wide_dtype(q, k, v)
     s, valid = _scores(q, k, causal, scale, segment_ids, window,
                        alibi_slopes)
     p = _probs(s, valid, lse, KV)
@@ -279,7 +258,7 @@ def flash_backward_dkv_reference(q, k, v, do, lse, delta,
     B, T, H, KV, D = _check(q, k, v, causal, window, segment_ids,
                             alibi_slopes)
     scale = D ** -0.5 if scale is None else scale
-    wt = _wide(q, k, v)
+    wt = _build.wide_dtype(q, k, v)
     s, valid = _scores(q, k, causal, scale, segment_ids, window,
                        alibi_slopes)
     p = _probs(s, valid, lse, KV)
@@ -306,7 +285,8 @@ def flash_forward(q, k, v, causal: bool = False,
     B, T, H, KV, D = _check(q, k, v, causal, window, segment_ids,
                             alibi_slopes)
     scale = D ** -0.5 if scale is None else scale
-    if not _on_cuda(q, k, v, segment_ids, alibi_slopes):
+    if not _build.on_cuda("flash attention", q, k, v, segment_ids,
+                          alibi_slopes):
         plain_calls += 1
         return flash_forward_reference(q, k, v, causal, scale, segment_ids,
                                        window, alibi_slopes)
@@ -332,7 +312,8 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = False,
     B, T, H, KV, D = _check(q, k, v, causal, window, segment_ids,
                             alibi_slopes)
     scale = D ** -0.5 if scale is None else scale
-    if not _on_cuda(q, k, v, do, lse, delta, segment_ids, alibi_slopes):
+    if not _build.on_cuda("flash attention", q, k, v, do, lse, delta,
+                          segment_ids, alibi_slopes):
         plain_calls += 1
         return flash_backward_dq_reference(q, k, v, do, lse, delta, causal,
                                            scale, segment_ids, window,
@@ -363,7 +344,8 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = False,
     B, T, H, KV, D = _check(q, k, v, causal, window, segment_ids,
                             alibi_slopes)
     scale = D ** -0.5 if scale is None else scale
-    if not _on_cuda(q, k, v, do, lse, delta, segment_ids, alibi_slopes):
+    if not _build.on_cuda("flash attention", q, k, v, do, lse, delta,
+                          segment_ids, alibi_slopes):
         plain_calls += 1
         return flash_backward_dkv_reference(q, k, v, do, lse, delta, causal,
                                             scale, segment_ids, window,
@@ -428,7 +410,7 @@ class FlashAttention(torch.autograd.Function):
         B, T, H, _ = o.shape
         # delta = rowsum(dO * o) [B, H, T], the softmax-jacobian term; the
         # lse cotangent folds in as delta - dlse (d lse / d s = p)
-        wt = _wide(o, do)
+        wt = _build.wide_dtype(o, do)
         delta = (do.to(wt) * o.to(wt)).sum(-1).permute(0, 2, 1)
         if dlse is not None:
             delta = delta - dlse.to(wt)

@@ -1,5 +1,6 @@
 """Training — the port of ``byteps_tpu/training`` for one worker: the LM
-loss, the train step and the ``Trainer`` loop."""
+loss (plain or fused head, optional early-exit term), the train step
+and the ``Trainer`` loop with ``fit`` and ``evaluate``."""
 
 from .step import (TrainState, TrainStep, create_train_state, lm_loss_fn,
                    make_data_parallel_step)

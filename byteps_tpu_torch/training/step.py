@@ -128,30 +128,43 @@ def lm_loss_fn(model: nn.Module, fused_head: bool = False,
 
     Targets are the tokens (or labels) rolled left by one with ``-100``
     at the wrap position; the loss is the mean over *valid* targets
-    only (``0 <= t < vocab``).  The plain head: fp32 logits from the
-    model's head, then cross-entropy in fp32 — the JAX
-    ``optax.softmax_cross_entropy_with_integer_labels`` branch.  The
-    last position's logits, whose target is always ignored, are not
-    computed (the JAX branch computes and drops them).
+    only (``0 <= t < vocab``), in both heads.
 
-    ``fused_head=True`` (the fused LM-head cross-entropy kernels) is port
-    slice 3; ``early_exit`` waits for ``inference.truncated_draft``.
-    ``model`` is the module the closure is for; the step passes the
-    state's module, normally the same object."""
-    if fused_head or block_n is not None or block_v is not None:
-        raise NotImplementedError(
-            "fused_head=True (and its block_n/block_v) is the fused LM-head "
-            "cross-entropy of port slice 3; use the plain head")
-    if early_exit is not None:
-        raise NotImplementedError(
-            "early_exit needs inference.truncated_draft, not ported yet")
+    * The plain head: fp32 logits from the model's head, then
+      cross-entropy in fp32 — the JAX
+      ``optax.softmax_cross_entropy_with_integer_labels`` branch.  The
+      last position's logits, whose target is always ignored, are not
+      computed (the JAX branch computes and drops them).
+    * ``fused_head=True``: the JAX ``_fused_ce`` — ``hidden`` over all
+      ``B*T`` rows and the head weight in the model dtype
+      (``Transformer.head_weight``) go to ``fused_linear_cross_entropy``
+      (``ops/fused_cross_entropy.py``, the fused LM-head kernels), so the ``[B, T, vocab]`` logits never
+      exist; the wrap position rides the kernels' ignore-index rule.
+      ``block_n``/``block_v`` pass through and do not change the result.
+
+    ``early_exit=(layers, weight)`` adds the LayerSkip auxiliary loss
+    ``weight * CE`` of the model's first ``layers`` blocks read out by
+    its own final norm and head — the truncation
+    :func:`~byteps_tpu_torch.inference.truncated_draft` builds, sharing
+    the model's parameters — with the same head.  ``model`` is the
+    module the closure is for; the step passes the state's module,
+    normally the same object."""
+    from ..inference import truncated_draft
+    from ..ops.fused_cross_entropy import fused_linear_cross_entropy
+
     del model
 
-    def loss_fn(m: nn.Module, model_state, batch):
-        tokens = batch["tokens"]
-        src = batch["labels"] if "labels" in batch else tokens
-        targets = torch.roll(src, -1, dims=1)
-        targets[:, -1] = -100  # ignore the wrap position
+    def fused_ce(m: nn.Module, tokens, targets):
+        h = m.hidden(tokens)                           # [B, T, d] cfg.dtype
+        flat_t = targets.reshape(-1)
+        per_row = fused_linear_cross_entropy(
+            h.reshape(-1, h.shape[-1]), m.head_weight().t(), flat_t,
+            block_n, block_v)
+        V = m.cfg.vocab_size
+        valid = (flat_t >= 0) & (flat_t < V)
+        return per_row.sum() / valid.sum().clamp(min=1)
+
+    def plain_ce(m: nn.Module, tokens, targets):
         t = targets[:, :-1]
         logits = m.logits(m.hidden(tokens)[:, :-1])   # [B, T-1, V] fp32
         V = logits.shape[-1]
@@ -160,6 +173,20 @@ def lm_loss_fn(model: nn.Module, fused_head: bool = False,
             logits.reshape(-1, V), torch.where(valid, t, 0).reshape(-1).long(),
             reduction="none").view_as(t)
         per_tok = torch.where(valid, per_tok, 0.0)
-        return per_tok.sum() / valid.sum().clamp(min=1), model_state
+        return per_tok.sum() / valid.sum().clamp(min=1)
+
+    ce = fused_ce if fused_head else plain_ce
+
+    def loss_fn(m: nn.Module, model_state, batch):
+        tokens = batch["tokens"]
+        src = batch["labels"] if "labels" in batch else tokens
+        targets = torch.roll(src, -1, dims=1)
+        targets[:, -1] = -100  # ignore the wrap position
+        loss = ce(m, tokens, targets)
+        if early_exit is not None:
+            layers, weight = early_exit
+            loss = loss + weight * ce(truncated_draft(m, layers), tokens,
+                                      targets)
+        return loss, model_state
 
     return loss_fn

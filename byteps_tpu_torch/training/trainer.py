@@ -9,8 +9,10 @@ Example::
                                         weight_decay=1e-4))
     state = trainer.fit(model, {}, batches, steps=1000)
 
-Checkpoints, async-PS mode, ByteScheduler overlap and callbacks are
-refused until their slices land.  ``device`` defaults to ``cuda`` (no
+``evaluate(eval_fn, batches)`` averages metrics over batches without
+gradients.  Checkpoints, async-PS mode, ByteScheduler overlap and
+callbacks are refused until their slices land.  ``device`` defaults to
+``cuda`` (no
 GPU: pass ``device="cpu"``); the model's parameters must already be
 there, and batches are moved there.
 """
@@ -18,7 +20,7 @@ there, and batches are moved there.
 from __future__ import annotations
 
 import time
-from typing import Callable, Iterable, Optional, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -29,6 +31,9 @@ from ..common.config import get_config
 from .step import TrainState, make_data_parallel_step
 
 __all__ = ["Trainer"]
+
+# eval steps in flight before a host read (the JAX trainer's window)
+_INFLIGHT_WINDOW = 4
 
 
 class Trainer:
@@ -93,3 +98,43 @@ class Trainer:
                              seen / max(time.time() - t0, 1e-9))
         self.state = state
         return state
+
+    def evaluate(self, eval_fn: Callable,
+                 batches: Iterable) -> Dict[str, float]:
+        """Average ``eval_fn(state, batch) -> {metric: scalar}`` over
+        ``batches`` (moved to the trainer's device), under
+        ``torch.no_grad()`` with the model in eval mode; with one worker
+        the average across workers is the identity.  Host reads lag
+        :data:`_INFLIGHT_WINDOW` batches behind, so the device is not
+        synchronized batch by batch (the JAX ``Trainer.evaluate``).
+        Needs a state: call :meth:`fit` first, or set ``self.state`` from
+        :meth:`init_state`."""
+        if self.state is None:
+            raise ValueError("no train state: call fit() or set "
+                             "trainer.state = trainer.init_state(model)")
+        model = self.state.model
+        was_training = model.training
+        sums: Dict[str, float] = {}
+        n = 0
+        inflight: list = []
+
+        def drain(out):
+            nonlocal n
+            for k, v in out.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+
+        model.eval()
+        try:
+            with torch.no_grad():
+                for batch in batches:
+                    batch = {k: torch.as_tensor(v).to(self.device)
+                             for k, v in batch.items()}
+                    inflight.append(eval_fn(self.state, batch))
+                    if len(inflight) > _INFLIGHT_WINDOW:
+                        drain(inflight.pop(0))
+                for out in inflight:
+                    drain(out)
+        finally:
+            model.train(was_training)
+        return {k: v / max(n, 1) for k, v in sums.items()}

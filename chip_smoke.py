@@ -78,6 +78,37 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (dq + dk + dv in one), with the SDPA kernel that ran; the bound is
    the kernel's FLOPs over the dtype's peak (or its bytes over 3.35
    TB/s if larger).
+10. Fused-head reference — the phase-7 model, 3 SGD-momentum steps with
+   ``lm_loss_fn(fused_head=True)`` (the fused LM-head CE kernels) and 3
+   from the same weights with the plain head; again with
+   ``early_exit=(1, 0.5)``.  Losses within 1e-5 relative, step-1
+   gradients within 1e-4 of each tensor's largest entry; one forward
+   launch and one dx and one dW launch per vocabulary chunk per CE call.
+11. Fused-head train (the main path of the fused-CE slice) — phase 8's
+   model, seed, batch and AdamW with ``lm_loss_fn(fused_head=True)``:
+   one warm-up step, 5 timed; every loss finite, the last below the
+   first; the warm-up loss equal to phase 8's within 1e-3 relative (the
+   same bf16 operands, fp32 sums in other orders); per step 1 forward,
+   16 dx and 16 dW launches of the fused-CE kernels (16 vocabulary
+   chunks) and 16 of each flash kernel; no plain version called.
+12. Evaluation — ``Trainer.evaluate`` of phase 11's trained model with
+   the fused-head loss on 2 fresh batches: only the fused forward kernel
+   (and the flash forward) launches; the mean loss equals the plain
+   head's under ``no_grad`` within 1e-3 relative; the perplexity.
+13. Fused-CE kernels — forward, dlogits + dx and dW against their plain
+   versions at the training shape (N=8192, H=2048, V=128256, w the tied
+   ``[V, H]`` table's transpose view) in bf16 and fp32, and at N=8188,
+   V=50257 (both edges ragged); a quarter of the targets -100, a
+   non-uniform loss cotangent.  fp32: lse and loss within 1e-5 relative,
+   dx and dW within 1e-4 of the largest reference magnitude; bf16 within
+   2e-2 of it (dlogits rounded to bf16 before each product on both
+   sides).  At the training shape in bf16, times with the L2 flushed:
+   the forward with CUDA events, the backward's kernels by device time
+   under ``torch.profiler``, the plain versions, and as yardsticks the
+   cuBLAS GEMM of each product alone (``x @ W^T``, ``dlogits @ W``,
+   ``dlogits^T @ x``; never called by the port); the bound is the
+   kernel's FLOPs over 989 TFLOP/s (or its bytes over 3.35 TB/s if
+   larger).
 
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels":
 [...]}`` JSON object, and ``{"ok": true, "device": {...}}``.
@@ -112,7 +143,8 @@ TRAIN_REF = dict(vocab_size=1024, num_layers=2, num_heads=4, num_kv_heads=2,
 TRAIN_B = 4           # full-width training batch (x MAX_SEQ tokens)
 TRAIN_TIMED = 5       # timed steps after one warm-up step
 GRAD_TOL = 1e-4       # flash vs local step-1 gradients, of max |g|
-KERNEL_SOURCES = ("paged_attention", "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_cross_entropy")
+EVAL_TOL = 1e-3       # fused vs plain head at full width, bf16, relative
 
 
 def _smi() -> str:
@@ -507,8 +539,17 @@ def _flash_counts():
 
 def _zero_flash_counts():
     from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
 
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = fa.plain_calls = 0
+    fce.fwd_launches = fce.dx_launches = fce.dw_launches = 0
+    fce.plain_calls = 0
+
+
+def _fce_counts():
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
+
+    return (fce.fwd_launches, fce.dx_launches, fce.dw_launches)
 
 
 def train_reference_phase(torch, seed: int) -> dict:
@@ -563,9 +604,75 @@ def train_reference_phase(torch, seed: int) -> dict:
             "flash_launches": nf}
 
 
-def train_phase(torch, seed: int):
-    """Full-width Llama-3.2-1B training through Trainer.fit (the main
-    path of the training slice)."""
+def fused_reference_phase(torch, seed: int) -> dict:
+    """3 fp32 steps with the fused LM-head CE kernels vs 3 with the plain
+    head from the same weights, then both again with the early-exit
+    term: losses and step-1 gradients."""
+    import numpy as np
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    toks = np.random.RandomState(seed).randint(
+        0, TRAIN_REF["vocab_size"], size=(2, TRAIN_REF["max_seq_len"]))
+    cfg = TransformerConfig(**{**LLAMA_3_2_1B, **TRAIN_REF},
+                            attn_impl="flash", dtype=torch.float32)
+    nc = fce.vocab_chunks(cfg.vocab_size)
+    info = {"phase": "fused_reference"}
+    for early_exit in (None, (1, 0.5)):
+        runs = {}
+        for fused in (True, False):
+            model = Transformer(cfg, device="cuda")
+            init_weights(model, seed)
+            trainer = Trainer(
+                lm_loss_fn(model, fused_head=fused, early_exit=early_exit),
+                torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+                log_every=0)
+            _zero_flash_counts()
+            losses, grads = [], None
+            for step in range(3):
+                trainer.fit(model, {}, [{"tokens": toks}])
+                losses.append(trainer.metrics["loss"].item())
+                if step == 0:
+                    grads = {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}
+            runs[fused] = (losses, grads, _fce_counts(), fce.plain_calls)
+            api.shutdown()
+            del model, trainer
+        (lf, gf, nf, pf), (lp, gp, np_, pp) = runs[True], runs[False]
+        calls = 3 * (1 if early_exit is None else 2)  # CE calls in 3 steps
+        if nf != (calls, calls * nc, calls * nc) or np_ != (0, 0, 0) \
+                or pf or pp:
+            raise AssertionError(f"fused-CE launches {nf} (want {calls}, "
+                                 f"{calls * nc} x2), plain head {np_}, "
+                                 f"plain calls {pf}/{pp}")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, lp))
+        if not all(np.isfinite(lf)) or loss_rel > 1e-5:
+            raise AssertionError(f"losses fused {lf} vs plain {lp}")
+        grad_rel = max(((gf[n] - gp[n]).abs().max()
+                        / gp[n].abs().max().clamp(min=1e-30)).item()
+                       for n in gp)
+        if grad_rel > GRAD_TOL:
+            raise AssertionError(f"step-1 gradients differ by {grad_rel} "
+                                 f"of their largest entry (> {GRAD_TOL})")
+        tag = "" if early_exit is None else "early_exit_"
+        info.update({f"{tag}losses_fused": lf, f"{tag}losses_plain": lp,
+                     f"{tag}loss_max_rel_diff": loss_rel,
+                     f"{tag}grad_max_rel_diff": grad_rel,
+                     f"{tag}fce_launches": nf})
+    torch.cuda.empty_cache()
+    return info
+
+
+def train_phase(torch, seed: int, fused_head: bool = False, then=None):
+    """Full-width Llama-3.2-1B training through Trainer.fit: the main
+    path of the training slice, or with ``fused_head`` that of the
+    fused-CE slice.  ``then(trainer, model)``, if given, runs on the
+    trained model before it is freed; its result is returned third."""
     import numpy as np
 
     from byteps_tpu_torch import api
@@ -573,16 +680,20 @@ def train_phase(torch, seed: int):
                                                      TransformerConfig,
                                                      init_weights)
     from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
     from byteps_tpu_torch.training import Trainer, lm_loss_fn
 
     cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
                             dtype=torch.bfloat16, attn_impl="flash")
+    nc = fce.vocab_chunks(cfg.vocab_size)
+    want = (cfg.num_layers,) * 3 + ((1, nc, nc) if fused_head else (0, 0, 0))
     t0 = time.perf_counter()
     model = Transformer(cfg, device="cuda")            # fp32 weights
     init_weights(model, seed)
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=1e-4, fused=True)
-    trainer = Trainer(lm_loss_fn(model), opt, log_every=0)
+    trainer = Trainer(lm_loss_fn(model, fused_head=fused_head), opt,
+                      log_every=0)
     toks = np.random.RandomState(seed).randint(
         0, cfg.vocab_size, size=(TRAIN_B, MAX_SEQ))
     batch = {"tokens": torch.from_numpy(toks).cuda()}
@@ -594,20 +705,21 @@ def train_phase(torch, seed: int):
     _zero_flash_counts()
     step_ms = []
     for _ in range(TRAIN_TIMED):
-        before = _flash_counts()
+        before = _flash_counts() + _fce_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         trainer.fit(model, {}, [batch])
         losses.append(trainer.metrics["loss"].item())   # synchronizes
         step_ms.append((time.perf_counter() - t1) * 1e3)
-        per = tuple(a - b for a, b in zip(_flash_counts(), before))
-        if per != (cfg.num_layers,) * 3:
-            raise AssertionError(f"flash launches this step {per}, want "
-                                 f"{cfg.num_layers} of each kernel")
-    launches = _flash_counts()
-    if fa.plain_calls:
-        raise AssertionError(f"{fa.plain_calls} flash calls ran the plain "
-                             f"version on the CPU")
+        per = tuple(a - b for a, b in zip(_flash_counts() + _fce_counts(),
+                                          before))
+        if per != want:
+            raise AssertionError(f"launches this step (flash fwd/dq/dkv, "
+                                 f"fused CE fwd/dx/dw) {per}, want {want}")
+    launches = _flash_counts() + _fce_counts()
+    if fa.plain_calls or fce.plain_calls:
+        raise AssertionError(f"{fa.plain_calls} flash and {fce.plain_calls} "
+                             f"fused-CE calls ran the plain version")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses {losses}: not finite and falling")
     on_gpu = all(p.is_cuda for p in model.parameters()) and all(
@@ -618,7 +730,8 @@ def train_phase(torch, seed: int):
                              "the GPU")
     n_params = sum(p.numel() for p in model.parameters())
     tokens = TRAIN_B * MAX_SEQ
-    info = {"phase": "train", "model": "Llama-3.2-1B (random weights)",
+    info = {"phase": "train_fused_head" if fused_head else "train",
+            "model": "Llama-3.2-1B (random weights)",
             "source": "meta-llama/Llama-3.2-1B config.json",
             "reduced": {"max_seq": [131072, MAX_SEQ]},
             "dtype": "bfloat16 compute, float32 weights",
@@ -629,11 +742,52 @@ def train_phase(torch, seed: int):
             "step_ms_max": float(np.max(step_ms)), "step_ms": step_ms,
             "tokens_per_s": tokens / (float(np.median(step_ms)) / 1e3),
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "flash_launches": launches}
+            "flash_launches": launches[:3], "fce_launches": launches[3:]}
+    extra = then(trainer, model) if then is not None else None
     api.shutdown()
     del model, opt, trainer, batch
     torch.cuda.empty_cache()
-    return info, launches
+    return info, launches, extra
+
+
+def eval_phase(torch, seed: int, trainer, model) -> dict:
+    """Trainer.evaluate with the fused-head loss on 2 fresh full-width
+    batches: the forward kernel only, the plain head's mean loss."""
+    import numpy as np
+
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
+    from byteps_tpu_torch.training import lm_loss_fn
+
+    rng = np.random.RandomState(seed + 1)
+    batches = [{"tokens": rng.randint(0, model.cfg.vocab_size,
+                                      size=(TRAIN_B, MAX_SEQ))}
+               for _ in range(2)]
+    fused = lm_loss_fn(model, fused_head=True)
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    out = trainer.evaluate(
+        lambda st, b: {"loss": fused(st.model, {}, b)[0]}, batches)
+    eval_s = time.perf_counter() - t0
+    counts = _flash_counts() + _fce_counts()
+    want = (2 * model.cfg.num_layers, 0, 0, 2, 0, 0)  # forward kernels only
+    if counts != want or fa.plain_calls or fce.plain_calls:
+        raise AssertionError(f"evaluate launched (flash fwd/dq/dkv, fused CE "
+                             f"fwd/dx/dw) {counts}, want {want}")
+    plain = lm_loss_fn(model)
+    with torch.no_grad():
+        want = float(np.mean([plain(model, {}, {
+            "tokens": torch.from_numpy(b["tokens"]).cuda()})[0].item()
+            for b in batches]))
+    rel = abs(out["loss"] - want) / abs(want)
+    if not np.isfinite(out["loss"]) or rel > EVAL_TOL:
+        raise AssertionError(f"evaluate loss {out['loss']} vs plain head "
+                             f"{want}: {rel} > {EVAL_TOL}")
+    return {"phase": "evaluate", "batches": len(batches),
+            "loss_fused": out["loss"], "loss_plain_head": want,
+            "rel_diff": rel, "tolerance": EVAL_TOL,
+            "perplexity": float(np.exp(out["loss"])), "seconds": eval_s,
+            "launches": counts}
 
 
 # --------------------------------------------------------- flash kernels
@@ -666,6 +820,19 @@ def _flash_inputs(torch, seed, c, dtype):
     return q, k, v, do, seg, slopes
 
 
+def _bounds(flops, nbytes, elt):
+    """Least time (ms) of each kernel: max(FLOPs / the dtype's peak,
+    bytes / HBM rate), and which of the two it is."""
+    peak = PEAK_FLOPS["bfloat16" if elt == 2 else "float32"]
+    out = {}
+    for n in flops:
+        t_ops = flops[n] / peak * 1e3
+        t_bytes = nbytes[n] / HBM_BYTES_PER_S * 1e3
+        out[n] = (max(t_ops, t_bytes),
+                  "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
 def _flash_bounds(fa, c, elt):
     """Least time (ms) for each kernel: max(FLOPs / peak, bytes / HBM)."""
     B, T, H, KV, D = c["B"], c["T"], c["H"], c["KV"], c["D"]
@@ -675,27 +842,31 @@ def _flash_bounds(fa, c, elt):
     nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,       # q k v o lse
               "dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,    # q do dq k v
               "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes}   # q do k v dk dv
-    peak = PEAK_FLOPS["bfloat16" if elt == 2 else "float32"]
-    out = {}
-    for n in flops:
-        t_ops, t_bytes = flops[n] / peak * 1e3, nbytes[n] / HBM_BYTES_PER_S * 1e3
-        out[n] = (max(t_ops, t_bytes),
-                  "operations" if t_ops >= t_bytes else "bytes")
-    return out
+    return _bounds(flops, nbytes, elt)
 
 
-def _sdpa_kernels(torch, fn) -> list:
-    """Names of the CUDA kernels one call of ``fn`` ran, by device time."""
+def _kernel_us(torch, fn, flush=None, reps=1) -> dict:
+    """Device microseconds per call of ``fn`` by CUDA kernel name, under
+    torch.profiler (the L2 flushed before each call if ``flush``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
         torch.cuda.synchronize()
     times = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return {n: t / reps for n, t in times.items()}
+
+
+def _sdpa_kernels(torch, fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` ran, by device time."""
+    times = _kernel_us(torch, fn)
     return [n[:80] for n, _ in sorted(times.items(), key=lambda kv: -kv[1])][:3]
 
 
@@ -791,6 +962,135 @@ def flash_kernel_phase(torch, seed: int):
     return main
 
 
+# ------------------------------------------------------- fused-CE kernels
+
+FCE_MAIN = dict(N=TRAIN_B * MAX_SEQ, H=2048, V=128256)
+FCE_CASES = (("training_shape", {}),
+             ("ragged_8188_50257", {"N": 8188, "V": 50257}))
+FCE_KERNELS = ("fce_dlogits_kernel", "fce_dx_kernel", "fce_dw_kernel")
+
+
+def _fce_inputs(torch, seed, c, dtype):
+    """x [N, H], the head table [V, H] (w is its transpose view), targets
+    with every 4th row -100, a non-uniform cotangent zero on those."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    N, H, V = c["N"], c["H"], c["V"]
+    x = torch.randn((N, H), generator=g, device="cuda").to(dtype)
+    table = (torch.randn((V, H), generator=g, device="cuda") * 0.02).to(dtype)
+    t = torch.randint(0, V, (N,), generator=g, device="cuda")
+    t[::4] = -100
+    dl = (torch.rand((N,), generator=g, device="cuda") + 0.5) / N * (t >= 0)
+    return x, table, t, dl
+
+
+def _fce_bounds(fce, c, elt):
+    """Least time (ms) of each kernel; bytes: x, W, int64 targets, and
+    per kernel lse / tl out (forward), lse, dl in and dx out (dx), lse,
+    dl in and dW out (dW)."""
+    N, H, V = c["N"], c["H"], c["V"]
+    x_b, w_b = N * H * elt, V * H * elt
+    base = x_b + w_b + 8 * N + 8 * N
+    nbytes = {"fwd": base, "dx": base + x_b, "dw": base + w_b}
+    return _bounds(fce.fce_flops(N, H, V), nbytes, elt)
+
+
+def _device_ms(torch, fn, names, flush, reps=3) -> dict:
+    """Device ms per call of ``fn`` of the kernels whose names contain
+    each of ``names`` (L2 flushed before each call)."""
+    fn()
+    times = _kernel_us(torch, fn, flush, reps)
+    ms = {n: sum(t for k, t in times.items() if n in k) / 1e3 for n in names}
+    if not all(ms.values()):
+        raise AssertionError(f"the profiler saw no device time for {ms}")
+    return ms
+
+
+def fce_case(torch, name, over, dtype, seed, flush, timed):
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
+
+    c = {**FCE_MAIN, **over}
+    dname = str(dtype).split(".")[-1]
+    x, table, t, dl = _fce_inputs(torch, seed, c, dtype)
+    w = table.t()                     # the tied head's [H, V] view
+    valid = t >= 0
+    lse, tl = fce.fce_forward(x, w, t)
+    lse_r, tl_r = fce.fce_forward_reference(x, w, t)
+    dx, dw = fce.fce_backward(x, w, t, lse_r, dl)
+    dx_r = fce.fce_backward_dx_reference(x, w, t, lse_r, dl)
+    dw_r = fce.fce_backward_dw_reference(x, w, t, lse_r, dl)
+    torch.cuda.synchronize()
+    outs = {"fwd": ((lse, lse_r), (torch.where(valid, lse - tl, 0.0),
+                                   torch.where(valid, lse_r - tl_r, 0.0))),
+            "dx": ((dx, dx_r),), "dw": ((dw, dw_r),)}
+    fp32 = dtype == torch.float32
+    res = {"case": name, "dtype": dname, "N_H_V": [c["N"], c["H"], c["V"]],
+           "ignored_rows": int((~valid).sum().item())}
+    for kname, pairs in outs.items():
+        tol = (1e-5 if kname == "fwd" else 1e-4) if fp32 else 2e-2
+        abs_err = rel_err = 0.0
+        for out, ref in pairs:
+            if not (torch.isfinite(out.float()).all()
+                    and torch.isfinite(ref.float()).all()):
+                raise AssertionError(f"fused CE {kname} {name} {dname}: "
+                                     f"non-finite output")
+            e = (out.float() - ref.float()).abs().max().item()
+            abs_err = max(abs_err, e)
+            rel_err = max(rel_err, e / max(ref.float().abs().max().item(),
+                                           1e-30))
+        if rel_err > tol:
+            raise AssertionError(f"fused CE {kname} {name} {dname}: error "
+                                 f"{rel_err} of the largest magnitude > {tol}")
+        res.update({f"{kname}_max_abs_err": abs_err, f"{kname}_err": rel_err,
+                    f"{kname}_tolerance": tol})
+    if (dx[~valid] != 0).any():
+        raise AssertionError("an ignored row got a gradient")
+    del dx_r, dw_r
+    if not timed:
+        return res
+    bwd = (x, w, t, lse_r, dl)
+    res["fwd_ms"] = _time_ms(torch, lambda: fce.fce_forward(x, w, t), flush,
+                             iters=10)
+    dev = _device_ms(torch, lambda: fce.fce_backward(*bwd), FCE_KERNELS,
+                     flush)
+    res["dlogits_ms"] = dev["fce_dlogits_kernel"]
+    res["dx_ms"] = dev["fce_dlogits_kernel"] + dev["fce_dx_kernel"]
+    res["dw_ms"] = dev["fce_dw_kernel"]
+    res["backward_event_ms"] = _time_ms(
+        torch, lambda: fce.fce_backward(*bwd), flush, iters=3)
+    res["fwd_plain_ms"] = _time_ms(
+        torch, lambda: fce.fce_forward_reference(x, w, t), flush, iters=3)
+    res["dx_plain_ms"] = _time_ms(
+        torch, lambda: fce.fce_backward_dx_reference(*bwd), flush, iters=2)
+    res["dw_plain_ms"] = _time_ms(
+        torch, lambda: fce.fce_backward_dw_reference(*bwd), flush, iters=2)
+    # the yardsticks: cuBLAS's GEMM of each product alone
+    d = torch.randn((c["N"], c["V"]), device="cuda").to(dtype)
+    res["fwd_library_ms"] = _time_ms(torch, lambda: torch.matmul(x, w),
+                                     flush, iters=5)
+    res["dx_library_ms"] = _time_ms(torch, lambda: torch.matmul(d, table),
+                                    flush, iters=5)
+    res["dw_library_ms"] = _time_ms(torch, lambda: torch.matmul(d.t(), x),
+                                    flush, iters=5)
+    del d
+    for kname, (b, by) in _fce_bounds(fce, c, x.element_size()).items():
+        res[f"{kname}_bound_ms"], res[f"{kname}_bound_by"] = b, by
+    return res
+
+
+def fce_kernel_phase(torch, seed: int):
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, over in FCE_CASES:
+            timed = not over and dtype == torch.bfloat16
+            r = fce_case(torch, name, over, dtype, seed, flush, timed)
+            _line(r)
+            if timed:
+                main = r
+            torch.cuda.empty_cache()
+    return main
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -828,10 +1128,25 @@ def main() -> int:
     _, paged_main = kernel_phase(torch, args.seed, final_pos)
     _line(serve_role_phase(torch))
     _line(train_reference_phase(torch, args.seed))
-    train_info, flash_launches = train_phase(torch, args.seed)
+    train_info, flash_launches, _ = train_phase(torch, args.seed)
     train_info["nvidia_smi"] = _smi()
     _line(train_info)
     flash_main = flash_kernel_phase(torch, args.seed)
+    _line(fused_reference_phase(torch, args.seed))
+    fused_info, fce_launches, eval_info = train_phase(
+        torch, args.seed, fused_head=True,
+        then=lambda tr, m: eval_phase(torch, args.seed, tr, m))
+    warm_rel = (abs(fused_info["losses"][0] - train_info["losses"][0])
+                / abs(train_info["losses"][0]))
+    if warm_rel > EVAL_TOL:
+        raise AssertionError(f"fused-head warm-up loss "
+                             f"{fused_info['losses'][0]} vs plain head "
+                             f"{train_info['losses'][0]}: {warm_rel}")
+    fused_info["warmup_loss_rel_diff_vs_plain_head"] = warm_rel
+    fused_info["nvidia_smi"] = _smi()
+    _line(fused_info)
+    _line(eval_info)
+    fce_main = fce_kernel_phase(torch, args.seed)
     print(_smi(), flush=True)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -858,6 +1173,19 @@ def main() -> int:
             # SDPA's backward computes dq, dk and dv in one call
             "library_ms": flash_main["library_fwd_ms" if kname == "fwd"
                                      else "library_bwd_ms"]})
+    for kname, line, n in (("fwd", 77, fce_launches[3]),
+                           ("dx", 115, fce_launches[4]),
+                           ("dw", 144, fce_launches[5])):
+        kernels.append({
+            "name": f"fused_cross_entropy_{kname}", "route": "cuda",
+            "source": "byteps_tpu_torch/csrc/fused_cross_entropy.cu",
+            "replaces": f"byteps_tpu/ops/fused_cross_entropy.py:{line}",
+            "launches": n, "max_abs_err": fce_main[f"{kname}_max_abs_err"],
+            "ms": fce_main[f"{kname}_ms"],
+            "plain_ms": fce_main[f"{kname}_plain_ms"],
+            "bound_ms": fce_main[f"{kname}_bound_ms"],
+            "bound_by": fce_main[f"{kname}_bound_by"],
+            "library_ms": fce_main[f"{kname}_library_ms"]})
     _line({"kernels": kernels})
     _line({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where a training step of the port (byteps_tpu_torch) spends its time on
 the GPU: Llama-3.2-1B at full width, bf16 compute on fp32 weights,
-random weights, ``attn_impl="flash"``, the plain LM head, fused AdamW.
+random weights, ``attn_impl="flash"``, the plain LM head (or, with
+``--fused-head``, the fused LM-head cross-entropy kernels), fused AdamW.
 
-    python3 scripts/torch_train_profile.py [--steps 3] [--batch 4] [--seed 0]
+    python3 scripts/torch_train_profile.py [--fused-head] [--steps 3]
+        [--batch 4] [--seed 0] [--out FILE]
 
 The same configuration as ``chip_smoke.py``'s training phase (T=2048,
 one fixed batch of random tokens).  After one warm-up step it measures:
@@ -13,8 +15,10 @@ one fixed batch of random tokens).  After one warm-up step it measures:
 * ``torch.profiler`` over the same number of steps: device busy and
   idle share of the wall (union of kernel intervals / profiled wall),
   kernel launches per step, and device time per step of the three
-  flash kernels, the bf16 GEMMs, the LM head's fp32 GEMMs, the softmax /
-  cross-entropy kernels, the optimizer, and the top kernels by name;
+  flash kernels, the fused-CE kernels (forward with its combine,
+  dlogits, dx, dW), the bf16 GEMMs, the plain LM head's fp32 GEMMs, the
+  softmax / cross-entropy kernels, the optimizer, and the top kernels
+  by name;
 * CUDA events around the parts of one step, driven piece by piece as
   ``lm_loss_fn`` composes them: the trunk forward (``hidden``), the
   head and cross-entropy forward, the whole backward, and the
@@ -47,7 +51,11 @@ LLAMA_3_2_1B = dict(
                   ("rope_type", "llama3")))
 SEQ = 2048
 # kernel-name classes, first match wins
-CLASSES = (("flash_fwd", re.compile(r"flash_fwd_kernel")),
+CLASSES = (("fce_fwd", re.compile(r"fce_fwd")),
+           ("fce_dlogits", re.compile(r"fce_dlogits_kernel")),
+           ("fce_dx", re.compile(r"fce_dx_kernel")),
+           ("fce_dw", re.compile(r"fce_dw_kernel")),
+           ("flash_fwd", re.compile(r"flash_fwd_kernel")),
            ("flash_dq", re.compile(r"flash_bwd_dq_kernel")),
            ("flash_dkv", re.compile(r"flash_bwd_dkv_kernel")),
            ("optimizer", re.compile(r"adam", re.I)),
@@ -76,6 +84,8 @@ def _busy_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--fused-head", action="store_true",
+                    help="lm_loss_fn(fused_head=True): the fused CE kernels")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
@@ -93,6 +103,8 @@ def main() -> int:
     from byteps_tpu_torch.models.transformer import (Transformer,
                                                      TransformerConfig,
                                                      init_weights)
+    from byteps_tpu_torch.ops.fused_cross_entropy import \
+        fused_linear_cross_entropy
     from byteps_tpu_torch.training import Trainer, lm_loss_fn
 
     rows = []
@@ -111,7 +123,8 @@ def main() -> int:
     init_weights(model, args.seed)
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=1e-4, fused=True)
-    trainer = Trainer(lm_loss_fn(model), opt, log_every=0)
+    trainer = Trainer(lm_loss_fn(model, fused_head=args.fused_head), opt,
+                      log_every=0)
     toks = np.random.RandomState(args.seed).randint(
         0, cfg.vocab_size, size=(args.batch, SEQ))
     batch = {"tokens": torch.from_numpy(toks).cuda()}
@@ -125,7 +138,8 @@ def main() -> int:
         trainer.fit(model, {}, [batch])
         trainer.metrics["loss"].item()
         walls.append((time.perf_counter() - t0) * 1e3)
-    emit({"measure": "step_wall_ms", "steps": args.steps,
+    emit({"measure": "step_wall_ms", "fused_head": args.fused_head,
+          "steps": args.steps,
           "batch": [args.batch, SEQ], "p50": float(np.median(walls)),
           "min": float(np.min(walls)), "max": float(np.max(walls)),
           "tokens_per_s": args.batch * SEQ / (float(np.median(walls)) / 1e3)})
@@ -174,15 +188,23 @@ def main() -> int:
 
     # one step piece by piece, as lm_loss_fn composes it
     tokens = batch["tokens"]
-    t = torch.roll(tokens, -1, dims=1)[:, :-1]
+    t = torch.roll(tokens, -1, dims=1)
+    t[:, -1] = -100
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     opt.zero_grad(set_to_none=True)
     ev[0].record()
-    h = model.hidden(tokens)[:, :-1]
-    ev[1].record()
-    logits = model.logits(h)
-    loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
-                           t.reshape(-1).long())
+    if args.fused_head:
+        h = model.hidden(tokens)
+        ev[1].record()
+        per_row = fused_linear_cross_entropy(
+            h.reshape(-1, cfg.d_model), model.head_weight().t(), t.reshape(-1))
+        loss = per_row.sum() / (t >= 0).sum()
+    else:
+        h = model.hidden(tokens)[:, :-1]
+        ev[1].record()
+        logits = model.logits(h)
+        loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                               t[:, :-1].reshape(-1).long())
     ev[2].record()
     loss.backward()
     ev[3].record()

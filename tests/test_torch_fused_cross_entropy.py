@@ -1,0 +1,170 @@
+"""The port's fused LM-head cross-entropy (byteps_tpu_torch/ops/
+fused_cross_entropy.py) held against the JAX Pallas kernels of
+byteps_tpu/ops/fused_cross_entropy.py.
+
+On the CPU the port's wrapper runs its plain versions; the JAX kernels
+run in interpret mode with explicit blocks (16 rows, 32 vocabulary
+columns), as tests/test_fused_cross_entropy.py runs them.  Inputs come
+from numpy with a fixed seed and go through both.  The loss and the
+gradients of x and w (``jax.vjp`` with a non-uniform cotangent) compare
+in fp32 within 1e-5: the two sum the same fp32 products in other orders
+(blockwise online logsumexp vs chunked logsumexp), which moves results by
+~1e-7.  bf16 inputs compare within 2e-2 (dlogits is rounded to bf16
+before each product on both sides; the products sum in other orders).
+
+Also: ignored (-100) rows give loss 0 and zero gradient; a vocabulary
+the Pallas ``fit_block`` refuses (61) against dense ``F.cross_entropy``;
+the autograd Function against dense autograd; ``gradcheck`` in fp64; the
+chunked plain versions equal to one chunk.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from byteps_tpu.ops.fused_cross_entropy import \
+    fused_linear_cross_entropy as jax_fce
+from byteps_tpu_torch.ops import fused_cross_entropy as fce
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These CPU tests run tiny torch ops beside other test workers: one
+    intra-op thread each keeps them from oversubscribing the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+TOL = 1e-5
+
+
+def _inputs(seed, N, H, V, ignore):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(N, H).astype(np.float32)
+    w = (rng.randn(H, V) * 0.1).astype(np.float32)
+    t = rng.randint(0, V, size=N).astype(np.int32)
+    if ignore:
+        t[::4] = -100
+    dl = np.linspace(0.1, 1.0, N).astype(np.float32)
+    return x, w, t, dl
+
+
+def _jax(x, w, t, dl, dtype=jnp.float32):
+    loss, vjp = jax.vjp(lambda a, b: jax_fce(a, b, jnp.asarray(t), 16, 32),
+                        jnp.asarray(x, dtype), jnp.asarray(w, dtype))
+    dx, dw = vjp(jnp.asarray(dl))
+    return loss, dx, dw
+
+
+def _port(x, w, t, dl, dtype=torch.float32):
+    xx = torch.from_numpy(x).to(dtype).requires_grad_()
+    ww = torch.from_numpy(w).to(dtype).requires_grad_()
+    loss = fce.fused_linear_cross_entropy(xx, ww, torch.from_numpy(t))
+    loss.backward(torch.from_numpy(dl))
+    return loss.detach(), xx.grad, ww.grad
+
+
+def _np(a):
+    return np.asarray(jnp.asarray(a, jnp.float32)) if isinstance(
+        a, jax.Array) else a.float().numpy()
+
+
+@pytest.mark.parametrize("ignore", [False, True])
+@pytest.mark.parametrize("N,H,V", [(32, 16, 64), (40, 24, 96)])
+def test_plain_versions_match_the_jax_kernels(N, H, V, ignore):
+    x, w, t, dl = _inputs(N + V, N, H, V, ignore)
+    jl, jdx, jdw = _jax(x, w, t, dl)
+    pl, pdx, pdw = _port(x, w, t, dl)
+    for name, a, b in (("loss", pl, jl), ("dx", pdx, jdx), ("dw", pdw, jdw)):
+        np.testing.assert_allclose(_np(a), _np(b), atol=TOL, rtol=0,
+                                   err_msg=name)
+    if ignore:  # loss 0 and no gradient on the ignored rows
+        assert (pl[t < 0] == 0).all() and (pdx[t < 0] == 0).all()
+
+
+def test_bf16_inputs_match_jax_with_its_output_dtypes():
+    N, H, V = 32, 32, 128
+    x, w, t, dl = _inputs(5, N, H, V, True)
+    jl, jdx, jdw = _jax(x, w, t, dl, jnp.bfloat16)
+    pl, pdx, pdw = _port(x, w, t, dl, torch.bfloat16)
+    assert jdx.dtype == jnp.bfloat16 and jdw.dtype == jnp.bfloat16
+    assert pdx.dtype == torch.bfloat16 and pdw.dtype == torch.bfloat16
+    assert pl.dtype == torch.float32 and jl.dtype == jnp.float32
+    for name, a, b in (("loss", pl, jl), ("dx", pdx, jdx), ("dw", pdw, jdw)):
+        a, b = _np(a), _np(b)
+        assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max(), name
+
+
+def test_a_vocabulary_pallas_refuses_against_dense_cross_entropy():
+    """V = 61 has no Pallas block (gcd with 32 is 1); the port takes it.
+    Held against ``F.cross_entropy`` with dense autograd."""
+    N, H, V = 40, 24, 61
+    x, w, t, dl = _inputs(9, N, H, V, True)
+    with pytest.raises(ValueError, match="no usable block"):
+        _jax(x, w, t, dl)
+    pl, pdx, pdw = _port(x, w, t, dl)
+    xx = torch.from_numpy(x).requires_grad_()
+    ww = torch.from_numpy(w).requires_grad_()
+    tt = torch.from_numpy(t).long()
+    dense = F.cross_entropy(xx @ ww, tt.clamp(min=0), reduction="none")
+    dense = torch.where(tt >= 0, dense, 0.0)
+    dense.backward(torch.from_numpy(dl))
+    for name, a, b in (("loss", pl, dense.detach()), ("dx", pdx, xx.grad),
+                       ("dw", pdw, ww.grad)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL, rtol=0,
+                                   err_msg=name)
+
+
+def test_autograd_function_matches_dense_autograd_on_a_tied_view():
+    """``w`` as the ``[H, V]`` transpose view of a ``[V, H]`` table (the
+    tied head): the gradient reaches the table."""
+    N, H, V = 24, 16, 50
+    x, w, t, dl = _inputs(2, N, H, V, True)
+    grads = []
+    for fused in (True, False):
+        xx = torch.from_numpy(x).requires_grad_()
+        tab = torch.from_numpy(np.ascontiguousarray(w.T)).requires_grad_()
+        tt = torch.from_numpy(t)
+        if fused:
+            loss = fce.fused_linear_cross_entropy(xx, tab.t(), tt)
+        else:
+            loss = torch.where(tt >= 0, F.cross_entropy(
+                xx @ tab.t(), tt.long().clamp(min=0), reduction="none"), 0.0)
+        (loss * torch.from_numpy(dl)).sum().backward()
+        grads.append((loss.detach(), xx.grad, tab.grad))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL, rtol=0)
+
+
+def test_gradcheck_fp64():
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(6, 5)).requires_grad_()
+    w = torch.from_numpy(rng.randn(5, 7) * 0.3).requires_grad_()
+    t = torch.tensor([0, 6, -100, 3, 3, 1])
+    assert torch.autograd.gradcheck(
+        lambda a, b: fce.fused_linear_cross_entropy(a, b, t), (x, w))
+
+
+def test_chunked_plain_versions_equal_one_chunk_and_blocks_change_nothing():
+    N, H, V = 20, 8, 45
+    x, w, t, dl = (torch.from_numpy(a) for a in _inputs(6, N, H, V, True))
+    dl = dl * (t >= 0)
+    lse1, tl1 = fce.fce_forward_reference(x, w, t)
+    lse7, tl7 = fce.fce_forward_reference(x, w, t, chunk=7)
+    np.testing.assert_allclose(lse7.numpy(), lse1.numpy(), atol=TOL, rtol=0)
+    assert torch.equal(tl7, tl1)
+    for ref in (fce.fce_backward_dx_reference, fce.fce_backward_dw_reference):
+        np.testing.assert_allclose(ref(x, w, t, lse1, dl, chunk=7).numpy(),
+                                   ref(x, w, t, lse1, dl).numpy(), atol=TOL,
+                                   rtol=0)
+    a = fce.fused_linear_cross_entropy(x, w, t)
+    b = fce.fused_linear_cross_entropy(x, w, t, block_n=8, block_v=16)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="positive"):
+        fce.fused_linear_cross_entropy(x, w, t, block_n=0)
+    assert fce.vocab_chunks(128256) == 16 and fce.vocab_chunks(61) == 1

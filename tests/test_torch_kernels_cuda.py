@@ -12,7 +12,12 @@ of the largest reference magnitude, absolute below magnitude 1 (dk/dv
 sum over the whole head group); bf16 2e-2 of the largest reference
 magnitude (p and ds are rounded to bf16 before their products, at
 other running maxima in the online forward than in the dense plain
-version, and every output is rounded to bf16 once).
+version, and every output is rounded to bf16 once).  Fused LM-head
+cross-entropy (forward, dlogits + dx, dW): fp32 lse and target logit
+within 1e-5 relative, dx and dW within 1e-4 of the largest reference
+magnitude (fp32 sums of H or N products in other orders); bf16 within
+2e-2 of the largest reference magnitude (dlogits is rounded to bf16
+before each product, in both).
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ import pytest
 import torch
 
 from byteps_tpu_torch.ops import flash_attention as fa
+from byteps_tpu_torch.ops import fused_cross_entropy as fce
 from byteps_tpu_torch.ops import paged_attention as pa
 
 
@@ -157,4 +163,78 @@ def test_flash_autograd_on_the_card_matches_the_cpu_function():
     for a, b in zip(grads[0], grads[1]):
         assert (a - b).abs().max().item() <= 1e-4
     for a, b in zip(grads[0], grads[2]):
+        assert torch.equal(a, b)
+
+
+def _fce_inputs(seed, N, H, V, dtype, tgt_dtype=torch.int64, table=True):
+    """x [N, H], w [H, V] (the transpose view of a [V, H] table, or a
+    [H, V] tensor), targets with every 4th row -100, a non-uniform
+    cotangent zero on those rows."""
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.randn(N, H).astype(np.float32)).to(dev, dtype)
+    tab = torch.from_numpy((rng.randn(V, H) * 0.05).astype(np.float32))
+    w = tab.to(dev, dtype).t() if table else \
+        tab.t().contiguous().to(dev, dtype)
+    t = rng.randint(0, V, size=N)
+    t[::4] = -100
+    dl = rng.uniform(0.5, 1.5, size=N).astype(np.float32) * (t >= 0)
+    return (x, w, torch.from_numpy(t).to(dev, tgt_dtype),
+            torch.from_numpy(dl).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N,H,V,tgt_dtype,table", [
+    (512, 256, 9000, torch.int64, True),    # two vocabulary chunks
+    (300, 72, 1000, torch.int32, True),     # ragged rows and columns
+    (77, 36, 300, torch.int64, True),       # H % 8 != 0: scalar loads
+    (130, 64, 8192, torch.int64, False),    # w laid out [H, V] itself
+])
+def test_fused_ce_kernels_match_plain_versions(dtype, tol, N, H, V, tgt_dtype,
+                                               table):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, w, t, dl = _fce_inputs(11, N, H, V, dtype, tgt_dtype, table)
+    n0 = (fce.fwd_launches, fce.dx_launches, fce.dw_launches)
+    lse, tl = fce.fce_forward(x, w, t)
+    lse_r, tl_r = fce.fce_forward_reference(x, w, t)
+    dx, dw = fce.fce_backward(x, w, t, lse_r, dl)
+    dx_r = fce.fce_backward_dx_reference(x, w, t, lse_r, dl)
+    dw_r = fce.fce_backward_dw_reference(x, w, t, lse_r, dl)
+    torch.cuda.synchronize()
+    nc = fce.vocab_chunks(V)
+    assert (fce.fwd_launches, fce.dx_launches, fce.dw_launches) == (
+        n0[0] + 1, n0[1] + nc, n0[2] + nc)
+    for name, out, ref in (("lse", lse, lse_r), ("tl", tl, tl_r)):
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        assert err <= 1e-5, (name, err)
+    for name, out, ref in (("dx", dx, dx_r), ("dw", dw, dw_r)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype, name
+        assert torch.isfinite(out.float()).all(), name
+        err = _rel_err(out, ref, torch.bfloat16)  # of the largest magnitude
+        assert err <= tol, (name, err)
+    assert (dx[t < 0] == 0).all()  # ignored rows get no gradient
+
+
+@pytest.mark.cuda
+def test_fused_ce_autograd_on_the_card_matches_the_cpu_function():
+    """The same Function on CUDA tensors (the kernels) and on CPU tensors
+    (the plain versions), fp32, two vocabulary chunks; reruns on the card
+    are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, w, t, dl = _fce_inputs(4, 256, 128, 9000, torch.float32)
+    runs = []
+    for dev in ("cuda", "cpu", "cuda"):
+        xx = x.detach().to(dev).requires_grad_()
+        tab = w.t().detach().to(dev).requires_grad_()
+        loss = fce.fused_linear_cross_entropy(xx, tab.t(), t.to(dev))
+        (loss * dl.to(dev)).sum().backward()
+        runs.append([a.cpu() for a in (loss.detach(), xx.grad, tab.grad)])
+    for a, b in zip(runs[0], runs[1]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            b.abs().max().item(), 1.0)
+    for a, b in zip(runs[0], runs[2]):
         assert torch.equal(a, b)

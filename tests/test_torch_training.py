@@ -12,7 +12,11 @@ Tokens come from numpy with a fixed seed.  Two tiny fp32 configs
 
 Both sides run ``attn_impl="flash"``: the JAX Pallas kernels in
 interpret mode, the port's flash autograd Function with its plain
-versions.  Tolerances: 1e-5 on losses, gradients and weights after
+versions.  The fused LM head (``fused_head=True``) likewise: the JAX
+fused cross-entropy kernels in interpret mode, jitted, with
+``block_n=B*T, block_v=vocab`` so their grid is one block, against the
+port's fused Function with its plain versions; also with -100 labels
+and with the ``early_exit`` term under both heads.  Tolerances: 1e-5 on losses, gradients and weights after
 three SGD-momentum steps (fp32 sums in other orders move them by
 ~1e-7); 1e-6 on one AdamW step from identical given gradients (no
 model in the loop — Adam divides by sqrt(v), which turns rounding of a
@@ -34,8 +38,10 @@ from byteps_tpu.training.step import \
     make_data_parallel_step as jax_make_step
 from byteps_tpu_torch import api
 from byteps_tpu_torch.common.config import reset_config
+from byteps_tpu_torch.inference import truncated_draft
 from byteps_tpu_torch.models import transformer as pt
 from byteps_tpu_torch.models.convert import from_jax_params
+from byteps_tpu_torch.ops import fused_cross_entropy as fce
 from byteps_tpu_torch.training import (Trainer, lm_loss_fn,
                                        make_data_parallel_step)
 
@@ -90,18 +96,27 @@ class Pair:
                                          attn_impl="flash", **kw)
         self.sd = from_jax_params(jax.tree_util.tree_map(
             np.asarray, self.params), self.pcfg)
-        lf = jax_lm_loss_fn(self.jmodel)
-        # the batch is an argument: one compile per batch structure
-        self._vg = jax.jit(jax.value_and_grad(lambda p, b: lf(p, {}, b)[0]))
+        self._vgs = {}
 
     def port_model(self):
         m = pt.Transformer(self.pcfg)
         m.load_state_dict(self.sd, strict=True)
         return m
 
-    def jax_value_and_grad(self, batch):
-        return self._vg(self.params,
-                        {k: jnp.asarray(v) for k, v in batch.items()})
+    def jax_value_and_grad(self, batch, **loss_kw):
+        """JAX loss and gradients of ``lm_loss_fn(model, **loss_kw)``; the
+        batch is an argument: one compile per options and batch
+        structure.  The fused head gets one block over all B*T rows and
+        the whole vocabulary."""
+        key = tuple(sorted(loss_kw.items()))
+        if key not in self._vgs:
+            if loss_kw.get("fused_head"):
+                loss_kw = {**loss_kw, "block_n": 2 * T, "block_v": V}
+            lf = jax_lm_loss_fn(self.jmodel, **loss_kw)
+            self._vgs[key] = jax.jit(jax.value_and_grad(
+                lambda p, b: lf(p, {}, b)[0]))
+        return self._vgs[key](self.params,
+                              {k: jnp.asarray(v) for k, v in batch.items()})
 
 
 _PAIRS = {}
@@ -169,8 +184,8 @@ def jax_sgd(pair):
     return losses, jax.tree_util.tree_map(np.asarray, jstate.params)
 
 
-def _port_loss_and_grads(model, batch):
-    loss, _ = lm_loss_fn(model)(
+def _port_loss_and_grads(model, batch, **loss_kw):
+    loss, _ = lm_loss_fn(model, **loss_kw)(
         model, {}, {k: torch.from_numpy(v) for k, v in batch.items()})
     loss.backward()
     return loss, {n: p.grad for n, p in model.named_parameters()}
@@ -342,10 +357,16 @@ def test_trainer_fit_runs_on_cpu_and_refuses_what_is_not_ported(monkeypatch):
                 backward_passes_per_step=2)
     with pytest.raises(NotImplementedError, match="world size"):
         make_data_parallel_step(lm_loss_fn(model), opt, world_size=2)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        lm_loss_fn(model, fused_head=True)
-    with pytest.raises(NotImplementedError, match="truncated_draft"):
-        lm_loss_fn(model, early_exit=(1, 0.5))
+    # the fused head and the early-exit term, refused before their slice,
+    # give the plain head's loss and the sum of the two exits
+    batch = {"tokens": torch.from_numpy(_tokens(6))}
+    with torch.no_grad():
+        plain = lm_loss_fn(model)(model, {}, batch)[0]
+        fused = lm_loss_fn(model, fused_head=True)(model, {}, batch)[0]
+        both = lm_loss_fn(model, early_exit=(1, 0.5))(model, {}, batch)[0]
+        exit1 = lm_loss_fn(model)(truncated_draft(model, 1), {}, batch)[0]
+    assert abs(fused.item() - plain.item()) <= TOL
+    assert abs(both.item() - (plain + 0.5 * exit1).item()) <= TOL
     with pytest.raises(NotImplementedError, match="sequence-parallel"):
         pt.Transformer(pt.TransformerConfig(**CONFIGS["gpt2"],
                                             attn_impl="ring"))
@@ -362,3 +383,89 @@ def test_trainer_fit_runs_on_cpu_and_refuses_what_is_not_ported(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             api.init()
+
+
+@pytest.fixture(scope="module")
+def jax_fused(pair):
+    """JAX losses and gradients with the fused head (set-up: the jitted
+    compiles are the slow part): a plain batch, -100 labels, and the
+    early-exit term under both heads."""
+    return {"plain": pair.jax_value_and_grad({"tokens": _tokens(0)},
+                                             fused_head=True),
+            "labels": pair.jax_value_and_grad(_labels_batch(),
+                                              fused_head=True),
+            "exit_fused": pair.jax_value_and_grad(
+                {"tokens": _tokens(0)}, fused_head=True, early_exit=(1, 0.5)),
+            "exit_plain": pair.jax_value_and_grad(
+                {"tokens": _tokens(0)}, early_exit=(1, 0.5))}
+
+
+@pytest.mark.parametrize("kind", ["plain", "labels"])
+def test_fused_head_loss_and_grads_match_jax(pair, jax_fused, kind):
+    """``fused_head=True``, tied (LLaMA) and untied (GPT-2) heads, with
+    and without -100 labels: loss and every gradient within 1e-5."""
+    batch = {"tokens": _tokens(0)} if kind == "plain" else _labels_batch()
+    jloss, jgrads = jax_fused[kind]
+    model = pair.port_model()
+    calls = fce.plain_calls
+    loss, grads = _port_loss_and_grads(model, batch, fused_head=True)
+    assert fce.plain_calls == calls + 2  # the forward and the backward
+    assert abs(loss.item() - float(jloss)) <= TOL
+    _assert_grads_match(pair, grads, jgrads)
+
+
+@pytest.mark.parametrize("fused_head", [False, True])
+def test_early_exit_matches_jax(pair, jax_fused, fused_head):
+    """The LayerSkip term ``0.5 * CE(first layer)`` under both heads."""
+    jloss, jgrads = jax_fused["exit_fused" if fused_head else "exit_plain"]
+    model = pair.port_model()
+    loss, grads = _port_loss_and_grads(model, {"tokens": _tokens(0)},
+                                       fused_head=fused_head,
+                                       early_exit=(1, 0.5))
+    assert abs(loss.item() - float(jloss)) <= TOL
+    _assert_grads_match(pair, grads, jgrads)
+
+
+def test_truncated_draft_shares_the_target_parameters(pair):
+    model = pair.port_model()
+    draft = truncated_draft(model, 1)
+    assert draft.cfg.num_layers == 1 and len(draft.blocks) == 1
+    own = {id(p) for p in model.parameters()}
+    shared = list(draft.parameters())
+    assert shared and all(id(p) in own for p in shared)
+    assert draft.embed.weight is model.embed.weight
+    assert draft.blocks[0] is model.blocks[0] and draft.ln_f is model.ln_f
+    # the draft's loss trains the target's weights
+    lm_loss_fn(draft)(draft, {}, {"tokens": torch.from_numpy(
+        _tokens(1))})[0].backward()
+    assert model.blocks[0].attn.q.weight.grad is not None
+    assert model.blocks[1].attn.q.weight.grad is None
+    for bad in (0, model.cfg.num_layers + 1):
+        with pytest.raises(ValueError, match="num_layers"):
+            truncated_draft(model, bad)
+
+
+def test_trainer_evaluate_is_the_mean_of_the_batch_losses(llama):
+    """``Trainer.evaluate`` with the fused-head loss: the mean of the
+    per-batch losses, no gradient, the forward only, the model back in
+    train mode."""
+    model = llama.port_model()
+    trainer = Trainer(lm_loss_fn(model, fused_head=True), torch.optim.SGD(
+        model.parameters(), lr=0.1), device="cpu", log_every=0)
+    with pytest.raises(ValueError, match="fit"):
+        trainer.evaluate(lambda st, b: {}, [])
+    trainer.fit(model, {}, [{"tokens": _tokens(2)}])
+    lf = lm_loss_fn(model, fused_head=True)
+    batches = [{"tokens": _tokens(s)} for s in (3, 4, 5, 6, 7, 8)]
+    calls = fce.plain_calls
+    out = trainer.evaluate(
+        lambda st, b: {"loss": lf(st.model, {}, b)[0],
+                       "one": torch.tensor(1.0)}, batches)
+    assert fce.plain_calls == calls + len(batches)  # forward only
+    with torch.no_grad():
+        want = np.mean([lf(model, {}, {"tokens": torch.from_numpy(
+            b["tokens"])})[0].item() for b in batches])
+    assert abs(out["loss"] - want) <= TOL and out["one"] == 1.0
+    assert model.training
+    assert all(p.grad is None or not p.grad.requires_grad
+               for p in model.parameters())

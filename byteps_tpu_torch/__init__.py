@@ -7,8 +7,12 @@ decode attention a hand-written CUDA kernel for Hopper
 (``ops/paged_attention.py``, ``csrc/paged_attention.cu``); and the
 single-process LM training step (``training/``, ``api.py``) with flash
 attention's forward and backward as hand-written kernels
-(``ops/flash_attention.py``, ``csrc/flash_attention.cu``).  Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+(``ops/flash_attention.py``, ``csrc/flash_attention.cu``) and the fused
+LM-head cross-entropy (``ops/fused_cross_entropy.py``); and cached
+generation (``inference.generate``) with its decode attention and int8
+weight-only product as hand-written kernels (``ops/decode_attention.py``,
+``ops/quant_dot.py``).  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

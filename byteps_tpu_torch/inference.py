@@ -1,7 +1,20 @@
-"""Token sampling — the port of ``byteps_tpu/inference.py:192``
-``sample_logits`` (temperature, top-k, top-p), plus the port's own
-sampling-noise chain — and ``truncated_draft`` (``:578``), the LayerSkip
-self-draft that ``lm_loss_fn(early_exit=...)`` trains.
+"""Cached generation — the port of ``byteps_tpu/inference.py``:
+``make_generate_fn`` / ``generate`` (``:231``, ``:443``) over the flat or
+grouped, fp or int8 KV caches of ``models.transformer.init_cache``;
+``quantize_params`` (``:136``), the int8 weight-only model;
+``classify_divergence`` (``:39``); ``sample_logits`` (``:192``,
+temperature, top-k, top-p) with the port's own sampling-noise chain; and
+``truncated_draft`` (``:578``), the LayerSkip self-draft that
+``lm_loss_fn(early_exit=...)`` trains.
+
+Generation runs where the model's weights live (``Transformer(cfg,
+device=...)``): prefill is one ``Transformer.decode`` over the prompt at
+``pos = 0`` (the flash forward under ``attn_impl="flash"``), then one
+``decode`` per token (on a flat cache the decode-attention kernel; with
+``quantize_params`` every projection through the int8 product kernel).
+PyTorch runs the loop eagerly, so the JAX ``lax.scan`` and
+``_layout_aware_jit`` / ``_AutoLayoutCache`` (XLA entry-layout
+machinery for int8 trees) have no counterpart.
 
 JAX draws from ``jax.random`` keys; PyTorch's generators give other
 numbers from the same seed, so sampled streams of the two packages
@@ -15,16 +28,20 @@ on preemption and resume — resuming after ``k`` tokens needs only ``k``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from .models.transformer import Transformer
+from .models.transformer import Dense, Transformer, init_cache
 
-__all__ = ["sample_logits", "token_generator", "truncated_draft"]
+__all__ = ["make_generate_fn", "generate", "sample_logits",
+           "quantize_params", "classify_divergence", "token_generator",
+           "truncated_draft"]
 
 
 def token_generator(seed: int, k: int) -> torch.Generator:
@@ -93,3 +110,169 @@ def truncated_draft(model: Transformer, num_layers: int) -> Transformer:
     if not cfg.tie_embeddings:
         draft.lm_head = model.lm_head
     return draft
+
+
+def quantize_params(model: Transformer, inplace: bool = True) -> Transformer:
+    """Int8 weight-only quantization of every projection (``Dense``: q, k,
+    v, o, the MLP, an untied head): symmetric per-output-channel int8
+    weights plus fp32 scales, absmax over the contraction dims / 127 —
+    the JAX ``quantize_params``, bit for bit on the same float weights.
+    Embeddings and norms are untouched.  The forward then runs the int8
+    product kernel (``ops/quant_dot.py``) with ``QuantDense``'s rounding.
+    ``inplace=False`` quantizes a deep copy and leaves ``model`` as is."""
+    if not inplace:
+        model = copy.deepcopy(model)
+    for m in model.modules():
+        if isinstance(m, Dense):
+            m.quantize()
+    return model
+
+
+def _sampling_generator(temperature: float, seed: Optional[int], k: int):
+    return None if temperature == 0 else token_generator(seed, k)
+
+
+def make_generate_fn(model: Transformer, max_new_tokens: int, *,
+                     temperature: float = 1.0, top_k: Optional[int] = None,
+                     top_p: Optional[float] = None,
+                     eos_id: Optional[int] = None, pad_id: int = 0,
+                     kv_quant: bool = False, cache_len: Optional[int] = None,
+                     cache_layout: str = "auto"):
+    """``fn(prompt [B, T], seed=None, on_step=None) -> {"tokens": [B,
+    max_new_tokens], "done": [B]}``: appends ``max_new_tokens`` sampled
+    tokens to each fully valid prompt row, on the model's device.
+
+    As the JAX ``make_generate_fn``: rows that emit ``eos_id`` are frozen
+    to ``pad_id`` for the remaining steps; ``kv_quant`` decodes against an
+    int8 KV cache; ``cache_len`` over-allocates the cache beyond ``T +
+    max_new_tokens`` (smaller raises); ``cache_layout`` forwards to
+    ``init_cache`` (``"auto"``: flat on a CUDA device where the kernel's
+    gate passes, else grouped); prefill applies the head to the last
+    position only.  ``temperature > 0`` draws the ``k``-th token from
+    :func:`token_generator` ``(seed, k)`` and needs a ``seed``.
+    ``on_step(i)``, if given, is called after the prefill (``i = 0``) and
+    after each decode step (``i`` = tokens so far), for timing."""
+    cfg = model.cfg
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+
+    @torch.no_grad()
+    def run(prompt, seed: Optional[int] = None,
+            on_step: Optional[Callable[[int], None]] = None):
+        if temperature != 0 and seed is None:
+            raise ValueError("temperature > 0 samples stochastically: pass "
+                             "seed= (each seed gives a distinct sample)")
+        dev = model.device
+        prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(
+            prompt) else prompt).to(dev, torch.long)
+        B, T = prompt.shape
+        need = T + max_new_tokens
+        if cache_len is not None and cache_len < need:
+            raise ValueError(f"cache_len={cache_len} < prompt + "
+                             f"max_new_tokens ({need})")
+        caches = init_cache(cfg, B, cache_len or need, quantized=kv_quant,
+                            layout=cache_layout, device=dev)
+        logits, _ = model.decode(prompt, caches, 0, last_only=True)
+        tok = sample_logits(logits[:, -1],
+                            _sampling_generator(temperature, seed, 0),
+                            temperature, top_k, top_p)
+        done = (tok == eos_id if eos_id is not None
+                else torch.zeros(B, dtype=torch.bool, device=dev))
+        toks = [tok]
+        if on_step is not None:
+            on_step(0)
+        for i in range(max_new_tokens - 1):
+            logits, _ = model.decode(tok[:, None], caches, T + i)
+            nxt = sample_logits(logits[:, -1],
+                                _sampling_generator(temperature, seed, i + 1),
+                                temperature, top_k, top_p)
+            nxt = nxt.masked_fill(done, pad_id)
+            if eos_id is not None:
+                done = done | (nxt == eos_id)
+            tok = nxt
+            toks.append(tok)
+            if on_step is not None:
+                on_step(i + 1)
+        return {"tokens": torch.stack(toks, dim=1), "done": done}
+
+    return run
+
+
+def generate(model: Transformer, prompt, max_new_tokens: int, *,
+             temperature: float = 1.0, top_k: Optional[int] = None,
+             top_p: Optional[float] = None, eos_id: Optional[int] = None,
+             pad_id: int = 0, seed: Optional[int] = None,
+             kv_quant: bool = False, cache_len: Optional[int] = None,
+             cache_layout: str = "auto") -> dict:
+    """One call of :func:`make_generate_fn`.  Sampling (``temperature >
+    0``) requires a ``seed`` — a silent default would return the same
+    "sample" every call; greedy (``temperature=0``) needs none."""
+    fn = make_generate_fn(model, max_new_tokens, temperature=temperature,
+                          top_k=top_k, top_p=top_p, eos_id=eos_id,
+                          pad_id=pad_id, kv_quant=kv_quant,
+                          cache_len=cache_len, cache_layout=cache_layout)
+    return fn(prompt, seed)
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+@torch.no_grad()
+def classify_divergence(model: Transformer, prompt, tokens_a, tokens_b, *,
+                        tie_rtol: float = 0.02, tie_atol: float = 0.05):
+    """Diagnose the first disagreement between two greedy decodes of the
+    same model (the JAX ``classify_divergence``): path A's tokens are
+    teacher-forced through one full forward, and at each row's first
+    divergent position ``d`` the logits of the two chosen tokens are
+    compared — within ``tie_rtol * max|logit| + tie_atol`` is ``"tie"``
+    (a near-tie argmax flipped by rounding), beyond it ``"real"`` (path B
+    chose a token the model scores clearly lower); identical decodes are
+    ``"none"``.  Returns the worst row's verdict with ``agreement``,
+    ``first_div_pos``, ``delta_logit``, ``tie_threshold``, and the position
+    profile ``first_div_positions`` / ``div_frac_by_quarter``."""
+    toks_a, toks_b = _numpy(tokens_a), _numpy(tokens_b)
+    assert toks_a.shape == toks_b.shape
+    B, N = toks_a.shape
+    agree = float((toks_a == toks_b).mean())
+    if (toks_a == toks_b).all():
+        return {"divergence": "none", "agreement": 1.0,
+                "first_div_pos": -1, "delta_logit": 0.0,
+                "tie_threshold": 0.0, "first_div_positions": [-1] * B,
+                "div_frac_by_quarter": ([0.0] * 4 if N >= 4 else [])}
+    neq = toks_a != toks_b
+    first_divs = [int(np.nonzero(neq[b])[0][0]) if neq[b].any() else -1
+                  for b in range(B)]
+    quarters = [round(float(neq[:, i * N // 4:(i + 1) * N // 4].mean()), 4)
+                for i in range(4)] if N >= 4 else []
+    prompt = _numpy(prompt)
+    T = prompt.shape[1]
+    full_a = torch.from_numpy(np.concatenate([prompt, toks_a], axis=1)).to(
+        model.device, torch.long)
+    # the head at the rows that produced each first divergent token only
+    # (the full [B, T + N, vocab] logits are the same there)
+    h = model.hidden(full_a)
+    worst = {"divergence": "none", "agreement": agree,
+             "first_div_pos": -1, "delta_logit": 0.0, "tie_threshold": 0.0,
+             "first_div_positions": first_divs,
+             "div_frac_by_quarter": quarters}
+    rank = {"none": 0, "tie": 1, "real": 2}
+    for b in range(B):
+        d = first_divs[b]
+        if d < 0:
+            continue
+        # logits that produced generated token d live at sequence
+        # position T + d - 1 (the previous token's output)
+        row = model.logits(h[b:b + 1, T + d - 1])[0].float().cpu().numpy()
+        la, lb = float(row[toks_a[b, d]]), float(row[toks_b[b, d]])
+        thr = tie_rtol * float(np.abs(row).max()) + tie_atol
+        kind = "tie" if abs(la - lb) <= thr else "real"
+        if rank[kind] > rank[worst["divergence"]] or (
+                kind == worst["divergence"]
+                and abs(la - lb) > abs(worst["delta_logit"])):
+            worst = {"divergence": kind, "agreement": agree,
+                     "first_div_pos": d, "delta_logit": round(la - lb, 4),
+                     "tie_threshold": round(thr, 4),
+                     "first_div_positions": first_divs,
+                     "div_frac_by_quarter": quarters}
+    return worst

@@ -19,8 +19,16 @@ numpy only, never jax.  Layouts (JAX -> ``nn.Linear``'s ``[out, in]``):
 * norms carry ``scale`` (and ``bias`` for layernorm), kept fp32;
 * ``lm_head`` ``[d_model, V]`` transposed, absent when tied.
 
-Every array in the tree must be consumed: a leftover (an int8 ``scale``
-of a quantized tree, an unknown module) raises.
+A tree quantized by JAX ``inference.quantize_params`` carries across
+too: each int8 ``kernel`` is re-laid out as its float counterpart and
+stays int8, and its fp32 ``scale`` becomes the ``Dense``'s ``scale``
+buffer, flattened to ``[out]`` (q/k/v ``[H|KV, D]`` -> ``[H*D]``; o
+``[d_model]``; MLP ``[d_ff]`` / ``[d_model]``; head ``[V]``).  Load it
+into a model quantized first (``byteps_tpu_torch.inference
+.quantize_params``), which has those int8 weights and buffers.
+
+Every array in the tree must be consumed: a leftover (an unknown module,
+a config mismatch) raises.
 """
 
 from __future__ import annotations
@@ -41,12 +49,18 @@ def from_jax_params(params: dict, cfg: TransformerConfig,
     tree = params.get("params", params)
     used = set()
 
-    def take(*path) -> np.ndarray:
+    def at(*path):
         node = tree
         for p in path:
             node = node[p]
+        return node
+
+    def raw(*path) -> np.ndarray:
         used.add(path)
-        return np.asarray(node, dtype=np.float32)
+        return np.asarray(at(*path))
+
+    def take(*path) -> np.ndarray:
+        return raw(*path).astype(np.float32)
 
     def w(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(a, np.float32)).to(dtype)
@@ -65,9 +79,14 @@ def from_jax_params(params: dict, cfg: TransformerConfig,
         if cfg.norm == "layernorm":
             sd[f"{prefix}.bias"] = f32(take(*path, "bias"))
 
-    def dense(prefix, path, kernel_fn):
-        sd[f"{prefix}.weight"] = w(kernel_fn(take(*path, "kernel")))
-        if cfg.use_bias:
+    def dense(prefix, path, kernel_fn, bias=cfg.use_bias):
+        if "scale" in at(*path):   # int8 kernel + fp32 per-output scale
+            k = kernel_fn(raw(*path, "kernel"))
+            sd[f"{prefix}.weight"] = torch.from_numpy(np.array(k, np.int8))
+            sd[f"{prefix}.scale"] = f32(take(*path, "scale").reshape(-1))
+        else:
+            sd[f"{prefix}.weight"] = w(kernel_fn(take(*path, "kernel")))
+        if bias:
             sd[f"{prefix}.bias"] = w(take(*path, "bias").reshape(-1))
 
     for i in range(cfg.num_layers):
@@ -86,7 +105,7 @@ def from_jax_params(params: dict, cfg: TransformerConfig,
             dense(f"{pre}.mlp.{n}", (blk, "mlp", n), lambda k: k.T)
     norm("ln_f", "ln_f")
     if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = w(take("lm_head", "kernel").T)
+        dense("lm_head", ("lm_head",), lambda k: k.T, bias=False)
 
     leaves = []
 
@@ -101,5 +120,5 @@ def from_jax_params(params: dict, cfg: TransformerConfig,
     left = [p for p in leaves if p not in used]
     if left:
         raise ValueError(f"JAX parameters not carried across: {left} "
-                         f"(a quantized tree, or a config mismatch)")
+                         f"(a config mismatch?)")
     return sd

@@ -1,5 +1,6 @@
 """Decoder-only Transformer — the port of ``byteps_tpu/models/transformer.py``
-for paged serving and the single-process training step.
+for paged serving, cached generation and the single-process training
+step.
 
 What is carried over, by JAX counterpart:
 
@@ -13,14 +14,19 @@ What is carried over, by JAX counterpart:
   model dtype);
 * ``MLP`` — swiglu, or gelu with the tanh approximation (flax's
   ``nn.gelu`` default);
+* ``QuantDense`` as :class:`Dense`: float weights cast at use, or after
+  ``inference.quantize_params`` int8 weights with fp32 scales through
+  the int8 product kernel of ``ops/quant_dot.py``;
 * ``Attention`` — the no-cache training branch (``"flash"``: the
   hand-written kernels of ``ops/flash_attention.py``, a key mask riding
   their segment ids; ``"local"``: :func:`local_attention`, the plain
   masked softmax with GQA repeated), the fused paged branch (fresh K/V
   scattered into the flat block pool at ``(wblk, woff)``, then the
-  kernel of ``ops/paged_attention.py``) and the dense cached branch
-  (``_group_q`` / ``_grouped_mask`` / ``_cached_attention``) that chunk
-  prefill runs, as the JAX engine does;
+  kernel of ``ops/paged_attention.py``) and the cached branch over
+  ``init_cache``'s flat or grouped, fp or int8 caches (``_quantize_kv``;
+  decode through the kernel of ``ops/decode_attention.py`` on a flat
+  cache; flash prefill; ``_cached_attention`` / ``_cached_attention_q8``
+  otherwise), dispatched as the JAX ``Attention``;
 * ``Transformer`` with ``hidden`` / ``forward`` (training), ``decode``,
   ``prefill_chunk_paged``, ``decode_paged_fused``, ``gather_paged_rows``,
   ``logits`` (fp32 logits, the head accumulated in fp32 from
@@ -52,14 +58,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.decode_attention import decode_attention, decode_attention_usable
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
+from ..ops.quant_dot import quant_linear, quantize_weight
 
 __all__ = ["TransformerConfig", "Transformer", "apply_rope",
            "gather_paged_rows", "init_cache", "init_weights",
-           "local_attention", "ATTN_IMPLS"]
+           "local_attention", "ATTN_IMPLS", "CACHE_LAYOUTS"]
 
 ATTN_IMPLS = ("local", "flash")
+CACHE_LAYOUTS = ("auto", "flat", "grouped")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,6 +220,45 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return _ungroup_o(out, tq)
 
 
+def _quantize_kv(x: torch.Tensor):
+    """Per-(position, head) symmetric int8 quantization of K or V ``[B,
+    t, H, D]`` -> (int8 values, fp32 scales ``[B, t, H]``): ``scale =
+    absmax / 127`` (1 where the row is zero), values rounded half to even
+    and clipped to +-127 — the JAX ``_quantize_kv``, bit for bit."""
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _cached_attention_q8(q: torch.Tensor, ck: torch.Tensor,
+                         ck_scale: torch.Tensor, cv: torch.Tensor,
+                         cv_scale: torch.Tensor, pos: int,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Dense cached attention against an int8 grouped cache ``ck/cv [B, S,
+    KV, D]`` with fp32 scales ``[B, S, KV]`` — the JAX
+    ``_cached_attention_q8``'s rounding points: scores of the int8 values
+    rounded to q's dtype, then times the K scale in fp32; fp32 softmax;
+    probabilities times the V scale rounded to q's dtype; the PV product
+    in q's dtype.  The int8 values are widened to q's dtype, which is
+    exact (|q| <= 127).  A plain product: GQA int8 caches and tq > 1 take
+    it; the flat int8 cache decodes through the kernel."""
+    B, tq, H, D = q.shape
+    KV = ck.shape[2]
+    cdt = q.dtype
+    qg = _group_q((q * D ** -0.5).to(cdt), KV)               # [B, KV, GT, D]
+    scores = torch.matmul(qg, ck.permute(0, 2, 3, 1).to(cdt))
+    scores = (scores.to(torch.float32)
+              * ck_scale.permute(0, 2, 1)[:, :, None, :])
+    mask = _grouped_mask(ck.shape[1], tq, H // KV, pos, window, q.device)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    probs = (probs * cv_scale.permute(0, 2, 1)[:, :, None, :]).to(cdt)
+    out = torch.matmul(probs, cv.permute(0, 2, 1, 3).to(cdt))
+    return _ungroup_o(out, tq)
+
+
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -284,15 +332,40 @@ def _make_norm(cfg: TransformerConfig, device):
 class Dense(nn.Linear):
     """``nn.Linear`` whose parameters keep their own dtype and are cast
     to the compute dtype at use (the JAX ``QuantDense``: operands in
-    ``dtype``, parameters in flax's fp32 ``param_dtype``)."""
+    ``dtype``, parameters in flax's fp32 ``param_dtype``).
+
+    After :meth:`quantize` (``inference.quantize_params``) the weight is
+    int8 ``[out, in]`` with an fp32 ``scale`` buffer ``[out]`` (the JAX
+    ``scale`` leaf), and the forward is the int8 weight-only product of
+    ``ops/quant_dot.py`` with ``QuantDense``'s rounding."""
 
     def __init__(self, n_in: int, n_out: int, bias: bool, dtype,
                  param_dtype, device=None):
         super().__init__(n_in, n_out, bias=bias, device=device,
                          dtype=param_dtype)
         self.cdt = dtype
+        self.register_buffer("scale", None)
 
-    def forward(self, x):
+    @property
+    def quantized(self) -> bool:
+        return self.weight.dtype == torch.int8
+
+    @torch.no_grad()
+    def quantize(self) -> None:
+        """Replace the weight by its per-output-channel int8 values and
+        register their scales (``ops.quant_dot.quantize_weight``)."""
+        if self.quantized:
+            return
+        q, scale = quantize_weight(self.weight)
+        self.weight = nn.Parameter(q, requires_grad=False)
+        self.scale = scale
+
+    def forward(self, x, out_dtype=None):
+        """``out_dtype`` (the quantized head's fp32) applies to the int8
+        product only."""
+        if self.quantized:
+            return quant_linear(x.to(self.cdt), self.weight, self.scale,
+                                self.bias, out_dtype or self.cdt)
         b = None if self.bias is None else self.bias.to(self.cdt)
         return F.linear(x.to(self.cdt), self.weight.to(self.cdt), b)
 
@@ -369,19 +442,56 @@ class Attention(nn.Module):
         return self.o(out.reshape(B, T, -1))
 
     def forward_cached(self, x, row, pos: int):
-        """Dense cached attention against grouped rows ``row["k"/"v"]
-        [B, S, KV, D]``: the fresh K/V is written at ``[pos, pos+T)``
-        in place, then attended with the causal mask."""
+        """Cached attention at the absolute offset ``pos``: the fresh K/V
+        is written into ``row`` at ``[pos, pos+T)`` in place (quantized at
+        write for an int8 cache), then attended, dispatched as the JAX
+        ``Attention`` (``transformer.py:571-724``) on the cache's layout
+        (``init_cache``): a flat ``[B, S, KV*D]`` cache decodes (T = 1)
+        through the decode-attention kernel; a prompt at ``pos = 0``
+        passing the gcd gate (``attn_impl="flash"``) takes the flash
+        forward on the fresh K/V; other prompts at ``pos = 0`` on a flat
+        or int8 cache attend the fresh, unquantized K/V densely; the rest
+        is dense on the grouped ``[B, S, KV, D]`` view
+        (``_cached_attention`` / ``_cached_attention_q8``)."""
+        cfg = self.cfg
+        if not cfg.causal:
+            raise ValueError("KV-cache decode requires causal=True")
         B, T, _ = x.shape
-        rpos = pos + torch.arange(T, device=x.device)
-        q, k, v = self._qkv(x, rpos)
+        KV, D, w = cfg.kv_heads, cfg.d_head, cfg.attn_window
+        q, k, v = self._qkv(x, pos + torch.arange(T, device=x.device))
         ck, cv = row["k"], row["v"]
-        if pos + T > ck.shape[1]:
+        S = ck.shape[1]
+        if pos + T > S:
             raise ValueError(f"cache write [{pos}, {pos + T}) overruns "
-                             f"the {ck.shape[1]}-row cache")
-        ck[:, pos:pos + T] = k.to(ck.dtype)
-        cv[:, pos:pos + T] = v.to(cv.dtype)
-        out = _cached_attention(q, ck, cv, pos, window=self.cfg.attn_window)
+                             f"the {S}-row cache")
+        quant = ck.dtype == torch.int8
+        flat = ck.ndim == 3
+        kw, vw = k, v
+        if quant:
+            (kw, ks), (vw, vs) = _quantize_kv(k), _quantize_kv(v)
+            row["k_scale"][:, pos:pos + T] = ks
+            row["v_scale"][:, pos:pos + T] = vs
+        ck[:, pos:pos + T] = kw.reshape(B, T, *ck.shape[2:])
+        cv[:, pos:pos + T] = vw.reshape(B, T, *cv.shape[2:])
+        scales = (row["k_scale"], row["v_scale"]) if quant else (None, None)
+        if (pos == 0 and T > 1 and cfg.attn_impl == "flash"
+                and math.gcd(T, 1024) >= 128):
+            # prefill: the valid keys are exactly the fresh k/v (an int8
+            # cache's prompt attends them unquantized, as in JAX)
+            out = flash_attention(q, k, v, causal=True, window=w)
+        elif flat and T == 1:
+            out = decode_attention(q, ck, cv, pos, k_scale=scales[0],
+                                   v_scale=scales[1], window=w)
+        elif pos == 0 and (flat or quant):
+            out = _cached_attention(q, k, v, 0, window=w)
+        else:
+            gk = ck.view(B, S, KV, D) if flat else ck
+            gv = cv.view(B, S, KV, D) if flat else cv
+            if quant:
+                out = _cached_attention_q8(q, gk, scales[0], gv, scales[1],
+                                           pos, window=w)
+            else:
+                out = _cached_attention(q, gk, gv, pos, window=w)
         return self.o(out.reshape(B, T, -1))
 
 
@@ -508,6 +618,9 @@ class Transformer(nn.Module):
         the parameter; no fp32 copy is made."""
         w = (self.embed.weight if self.cfg.tie_embeddings
              else self.lm_head.weight)
+        if w.dtype == torch.int8:
+            raise ValueError("the head is int8-quantized: the fused LM-head "
+                             "cross-entropy trains float weights")
         return w.to(self.cfg.dtype)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -516,6 +629,9 @@ class Transformer(nn.Module):
         two model-dtype values is exact in fp32).  The tied variant
         multiplies by the input embedding table."""
         cdt = self.cfg.dtype
+        if not self.cfg.tie_embeddings and self.lm_head.quantized:
+            # the JAX QuantDense head: product in cdt, scaled in fp32
+            return self.lm_head(h, out_dtype=torch.float32)
         return F.linear(h.to(cdt).to(torch.float32), self._head_weight_f32())
 
     def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -543,8 +659,8 @@ class Transformer(nn.Module):
     def decode(self, tokens: torch.Tensor, caches: Sequence[dict], pos: int,
                last_only: bool = False, last_idx: Optional[int] = None):
         """One step over ``tokens [B, tq]`` at absolute offset ``pos``
-        against dense per-layer rows ``{"k","v"} [B, S, KV, D]`` (see
-        ``init_cache``), written in place at ``[pos, pos + tq)``.
+        against per-layer caches from ``init_cache`` (flat or grouped, fp
+        or int8), written in place at ``[pos, pos + tq)``.
         Returns ``(logits, caches)``.  Serves prefill (``pos=0``, the
         prompt) and decode (``tq=1``) alike; ``last_idx`` narrows the
         head to one chunk-local row (a right-padded chunk's true last
@@ -624,16 +740,49 @@ def gather_paged_rows(pools: Sequence[dict], table: torch.Tensor,
 
 
 def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
+               quantized: bool = False, layout: str = "auto",
                device=None) -> List[dict]:
-    """Zeroed dense per-layer rows ``{"k","v"} [B, max_len, KV, D]`` for
-    ``Transformer.decode`` (the grouped layout)."""
+    """Zeroed per-layer KV caches for ``Transformer.decode`` (the JAX
+    ``init_cache``), on ``device``:
+
+    * ``layout="flat"`` — ``{"k","v"} [B, max_len, KV*D]``, the layout
+      the decode-attention kernel reads;
+    * ``"grouped"`` — ``[B, max_len, KV, D]``, the dense path's;
+    * ``"auto"`` — flat on a CUDA device for a causal model when
+      ``decode_attention_usable`` passes (an int8 cache under MHA only, as
+      JAX chooses on its accelerator), grouped otherwise (and on the CPU).
+
+    ``quantized=True`` stores int8 values plus fp32 per-(position, head)
+    scales ``"k_scale"/"v_scale" [B, max_len, KV]``; K/V are quantized as
+    they are written.  Unwritten rows are masked, so zeros never reach
+    the softmax."""
     if max_len > cfg.max_seq_len:
         raise ValueError(
             f"cache max_len {max_len} exceeds max_seq_len {cfg.max_seq_len}")
-    shape = (batch_size, max_len, cfg.kv_heads, cfg.d_head)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-            for _ in range(cfg.num_layers)]
+    if layout not in CACHE_LAYOUTS:
+        raise ValueError(f"unknown cache layout {layout!r}")
+    KV, D = cfg.kv_heads, cfg.d_head
+    if layout == "auto":
+        on_cuda = device is not None and torch.device(device).type == "cuda"
+        use_flat = (cfg.causal and on_cuda and decode_attention_usable(
+            (batch_size, 1, cfg.num_heads, D), max_len, quantized,
+            kv_heads=KV))
+        layout = "flat" if use_flat else "grouped"
+    shape = ((batch_size, max_len, KV * D) if layout == "flat"
+             else (batch_size, max_len, KV, D))
+
+    def layer():
+        if not quantized:
+            return {n: torch.zeros(shape, dtype=cfg.dtype, device=device)
+                    for n in ("k", "v")}
+        out = {n: torch.zeros(shape, dtype=torch.int8, device=device)
+               for n in ("k", "v")}
+        for n in ("k_scale", "v_scale"):
+            out[n] = torch.zeros((batch_size, max_len, KV),
+                                 dtype=torch.float32, device=device)
+        return out
+
+    return [layer() for _ in range(cfg.num_layers)]
 
 
 @torch.no_grad()

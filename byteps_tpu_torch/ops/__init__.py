@@ -1,7 +1,8 @@
 """Hand-written kernels and their plain PyTorch versions, one module each:
-``paged_attention``, ``flash_attention`` and ``fused_cross_entropy``
-(whose entry point is re-exported here; the other two modules share
-their function's name, so they are imported as modules)."""
+``paged_attention``, ``flash_attention``, ``fused_cross_entropy``,
+``decode_attention`` and ``quant_dot``.  ``fused_linear_cross_entropy``
+is re-exported here; the other modules are imported as modules (three
+share their function's name)."""
 
 from .fused_cross_entropy import fused_linear_cross_entropy
 

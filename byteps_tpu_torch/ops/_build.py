@@ -22,7 +22,8 @@ from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["build", "load", "build_logs", "on_cuda", "wide_dtype", "CSRC"]
+__all__ = ["build", "load", "build_logs", "on_cuda", "wide_dtype",
+           "sm_count", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -31,6 +32,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_sms: Dict[torch.device, int] = {}
 build_logs: Dict[str, str] = {}  # nvcc's output per kernel (ptxas report)
 
 
@@ -117,3 +119,13 @@ def wide_dtype(*tensors) -> torch.dtype:
     for t in tensors:
         out = torch.promote_types(out, t.dtype)
     return out
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once per device):
+    the wrappers size their grids to fill the card."""
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n

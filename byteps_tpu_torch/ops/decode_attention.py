@@ -1,0 +1,256 @@
+"""Decode attention — one query token against a flat KV cache — as a
+hand-written Hopper kernel, fp or int8.
+
+Replaces the TPU kernel ``byteps_tpu/ops/decode_attention.py:71``
+``_decode_kernel`` (its ``pallas_call`` at ``:277``, wrapper
+``decode_attention`` at ``:161``) in both its fp and its int8 mode.  The
+kernel is CUDA C++ (``byteps_tpu_torch/csrc/decode_attention.cu``),
+compiled with ``nvcc`` for ``sm_90a`` at first use (``ops/_build.py``)
+and bound here with ``ctypes``.
+
+What it computes (the counterpart of ``decode_attention``): ``q [B, 1,
+H, D]`` at the absolute position ``pos`` against caches ``ck/cv [B, S,
+KV*D]`` (a grouped ``[B, S, KV, D]`` cache is viewed flat, which is free
+for a contiguous tensor), fp32/bf16 like q, or int8 with ``k_scale /
+v_scale [B, S, KV]`` fp32 (``_quantize_kv``'s per-(position, head)
+scales).  Head ``h`` reads KV head ``h // (H/KV)``; key ``c`` is
+attended iff ``c <= pos`` (and ``c > pos - window``).  Output ``[B, 1,
+H, D]`` in q's dtype.  The TPU wrapper's block-diagonal query and
+one-hot contraction feed the MXU and are not ported: the CUDA kernel
+shares each staged K/V chunk across the query heads of its KV head.
+
+What bounds it: HBM bytes — :func:`kv_bytes_read`, the K/V rows (and
+int8 scales) of the attended keys — at about ``2 G / elt`` FLOPs per
+byte.  The design (flash-decoding: chunks of 64 keys walked in splits
+that fill the card, merged by a small combine kernel) is set out in the
+CUDA source.
+
+Beside the kernel:
+
+* :func:`decode_attention_reference` — the plain PyTorch version: dense
+  masked softmax over the rows ``<= pos`` with the kernel's rounding
+  points.  The CPU tests use it; ``chip_smoke.py`` holds the kernel
+  against it on the card.
+* :func:`decode_attention` — the wrapper.  CPU tensors take the plain
+  version; CUDA tensors launch the kernel or raise.  No fallback.
+* :func:`decode_attention_usable` — the port's copy of the JAX gate
+  (``decode_attention.py:297``) that ``init_cache(layout="auto")`` reads.
+* ``launches`` — kernel launches made by the wrapper; ``plain_calls`` —
+  dispatches to the plain version on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+__all__ = ["decode_attention", "decode_attention_reference",
+           "decode_attention_usable", "kv_bytes_read", "decode_flops",
+           "build", "HEAD_DIMS", "CHUNK"]
+
+launches = 0
+plain_calls = 0
+
+HEAD_DIMS = (16, 32, 64, 128)
+CHUNK = 64             # keys per chunk of the kernel
+_SMEM_LIMIT = 232448   # bytes of shared memory one Hopper block may use
+_lib = None
+
+
+def build():
+    """Compile the kernel library if this source has not been built yet;
+    returns its path."""
+    return _build.build(["decode_attention"])["decode_attention"]
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("decode_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.bps_decode_attention.argtypes = (
+            [p] * 9 + [i] * 13 + [ctypes.c_float, p])
+        lib.bps_decode_attention.restype = i
+        lib.bps_decode_attention_smem.argtypes = [i, i, i, i]
+        lib.bps_decode_attention_smem.restype = ctypes.c_longlong
+        _lib = lib
+    return _lib
+
+
+def _check(q, ck, cv, pos, k_scale, v_scale, window):
+    """Validate shapes and options; returns ``(B, S, H, KV, D, quant)``
+    and the caches viewed flat."""
+    if q.ndim != 4 or q.shape[1] != 1:
+        raise ValueError(f"decode_attention is tq=1 only: want q [B, 1, H, "
+                         f"D], got {tuple(q.shape)}")
+    B, _, H, D = q.shape
+    if ck.shape != cv.shape or ck.ndim not in (3, 4):
+        raise ValueError(f"want caches [B, S, KV*D] or [B, S, KV, D] of one "
+                         f"shape, got {tuple(ck.shape)} / {tuple(cv.shape)}")
+    S = ck.shape[1]
+    if ck.ndim == 4:
+        if ck.shape[3] != D:
+            raise ValueError(f"cache head dim {ck.shape[3]} != q's {D}")
+        ck = ck.reshape(B, S, -1)
+        cv = cv.reshape(B, S, -1)
+    KV = ck.shape[2] // D
+    if ck.shape[0] != B or KV * D != ck.shape[2] or KV < 1 or H % KV:
+        raise ValueError(f"cache {tuple(ck.shape)} is not [B={B}, S, "
+                         f"kv_heads*{D}] with kv_heads dividing {H}")
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if quant:
+        for n, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(s.shape) != (B, S, KV):
+                raise ValueError(f"{n} must be [B, S, KV]={(B, S, KV)}, got "
+                                 f"{tuple(s.shape)}")
+        if ck.dtype != torch.int8 or cv.dtype != torch.int8:
+            raise ValueError(f"scales mark an int8 cache, got {ck.dtype}/"
+                             f"{cv.dtype}")
+    if not 0 <= pos < S:
+        raise ValueError(f"pos {pos} outside the {S}-row cache")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    return (B, S, H, KV, D, quant), ck, cv
+
+
+def _first_key(pos: int, window: Optional[int]) -> int:
+    return max(pos - window + 1, 0) if window else 0
+
+
+def kv_bytes_read(B: int, pos: int, kvd: int, elt: int,
+                  window: Optional[int] = None, kv_heads: int = 0) -> int:
+    """HBM bytes of K and V (and, with ``kv_heads``, of their fp32
+    int8 scales) that attention at ``pos`` must read: every slot's rows
+    from the window's first key (0 without one) through ``pos`` — the
+    bound's bytes.  The kernel reads no other cache row."""
+    rows = pos - _first_key(pos, window) + 1
+    return B * rows * (2 * kvd * elt + 2 * 4 * kv_heads)
+
+
+def decode_flops(B: int, H: int, D: int, pos: int,
+                 window: Optional[int] = None) -> int:
+    """FLOPs of one call: QK and PV over the attended keys."""
+    return 4 * B * H * D * (pos - _first_key(pos, window) + 1)
+
+
+def decode_attention_usable(q_shape, cache_len: int, quant_cache: bool,
+                            kv_heads: Optional[int] = None) -> bool:
+    """The JAX gate (``decode_attention.py:297``): tq = 1, and for an int8
+    cache MHA only (``kv_heads == H``; a GQA int8 cache keeps the dense
+    grouped path, as in JAX).  The last condition is the TPU kernel's
+    accumulator limit, kept so both packages choose the same layout."""
+    B, tq, H, D = q_shape
+    if tq != 1:
+        return False
+    if quant_cache and (kv_heads is None or kv_heads != H):
+        return False
+    Hp = -(-H // 16) * 16
+    return Hp * H * D * 4 < 4 * 1024 * 1024
+
+
+def decode_attention_reference(q, ck, cv, pos: int, *, k_scale=None,
+                               v_scale=None, window: Optional[int] = None):
+    """Plain PyTorch version: a dense masked softmax over the rows from
+    the window's first key through ``pos`` with the kernel's rounding
+    points — ``q * D**-0.5`` rounded to q's dtype, fp32 scores (times the
+    K scale for an int8 cache) and softmax statistics, ``l`` summed before
+    the V scale, ``p`` times the V scale rounded to q's dtype before the
+    PV product, output ``acc / max(l, 1e-30)``."""
+    (B, S, H, KV, D, quant), ck, cv = _check(q, ck, cv, pos, k_scale,
+                                             v_scale, window)
+    G = H // KV
+    wt = _build.wide_dtype(q)
+    lo = _first_key(pos, window)
+    k = ck[:, lo:pos + 1].reshape(B, -1, KV, D).to(wt)    # [B, n, KV, D]
+    v = cv[:, lo:pos + 1].reshape(B, -1, KV, D).to(wt)
+    qs = (q[:, 0] * D ** -0.5).to(q.dtype).to(wt).view(B, KV, G, D)
+    s = torch.einsum("bkgd,bnkd->bkgn", qs, k)              # [B, KV, G, n]
+    if quant:
+        s = s * k_scale[:, lo:pos + 1].permute(0, 2, 1)[:, :, None].to(wt)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    if quant:
+        p = p * v_scale[:, lo:pos + 1].permute(0, 2, 1)[:, :, None].to(wt)
+    # p in v's dtype for the PV product (q's for an int8 cache, whose
+    # values are widened to it)
+    p = p.to(q.dtype if quant else cv.dtype).to(wt)
+    out = torch.einsum("bkgn,bnkd->bkgd", p, v) / den
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _splits(B: int, KV: int, n_chunks: int, device) -> tuple:
+    """``(splits, chunks per split)``: enough splits of the attended
+    chunks to put about eight CTAs on every SM (a CTA has one chunk's
+    loads in flight at a time), none of them empty."""
+    sms = _build.sm_count(device)
+    want = max(1, math.ceil(8 * sms / (B * KV)))
+    per = math.ceil(n_chunks / min(want, n_chunks))
+    return math.ceil(n_chunks / per), per
+
+
+def decode_attention(q, ck, cv, pos: int, *, k_scale=None, v_scale=None,
+                     window: Optional[int] = None):
+    """Single-step cached attention (see the module docstring).  CPU
+    tensors run :func:`decode_attention_reference`; CUDA tensors launch
+    the hand-written kernel — building it on first use — or raise."""
+    global launches, plain_calls
+    pos = int(pos)
+    (B, S, H, KV, D, quant), ckf, cvf = _check(q, ck, cv, pos, k_scale,
+                                               v_scale, window)
+    if not _build.on_cuda("decode_attention", q, ck, cv, k_scale, v_scale):
+        plain_calls += 1
+        return decode_attention_reference(q, ck, cv, pos, k_scale=k_scale,
+                                          v_scale=v_scale, window=window)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim {HEAD_DIMS}, got {D}")
+    if not quant and (ck.dtype != q.dtype or cv.dtype != q.dtype):
+        raise ValueError(f"cache dtype {ck.dtype}/{cv.dtype} != q dtype "
+                         f"{q.dtype} (an int8 cache needs its scales)")
+    if quant and (k_scale.dtype != torch.float32
+                  or v_scale.dtype != torch.float32):
+        raise ValueError("k_scale/v_scale must be float32")
+    for name, t in (("q", q), ("ck", ckf), ("cv", cvf), ("k_scale", k_scale),
+                    ("v_scale", v_scale)):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
+    lib = _library()
+    dtype = int(q.dtype == torch.bfloat16)
+    smem = lib.bps_decode_attention_smem(H // KV, D, dtype, int(quant))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{H // KV} query heads per KV head at head_dim {D} "
+                         f"need {smem} bytes of shared memory (> "
+                         f"{_SMEM_LIMIT})")
+    c_lo, c_hi = _first_key(pos, window) // CHUNK, pos // CHUNK
+    nsplit, per = _splits(B, KV, c_hi - c_lo + 1, q.device)
+    out = torch.empty_like(q)
+    part = [None, None, None]
+    if nsplit > 1:
+        part = [torch.empty((nsplit, B, H), dtype=torch.float32,
+                            device=q.device) for _ in range(2)]
+        part.append(torch.empty((nsplit, B, H, D), dtype=torch.float32,
+                                device=q.device))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = lib.bps_decode_attention(
+        q.data_ptr(), ckf.data_ptr(), cvf.data_ptr(), ptr(k_scale),
+        ptr(v_scale), out.data_ptr(), *(ptr(t) for t in part), B, S, H, KV,
+        D, pos, window or 0, c_lo, c_hi, nsplit, per, dtype, int(quant),
+        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: "
+                           f"cudaError {rc}")
+    launches += 1
+    return out

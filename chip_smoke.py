@@ -110,6 +110,60 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    kernel's FLOPs over 989 TFLOP/s (or its bytes over 3.35 TB/s if
    larger).
 
+14. Generate reference — the phase-7 fp32 model with
+   ``attn_impl="flash"``, B=2, a prompt of 128 (the flash prefill), 32
+   new tokens, greedy through ``inference.generate``: a flat cache (the
+   decode-attention kernel) and a grouped one (plain dense) give
+   identical tokens; so do ``kv_quant=True`` flat (the kernel's int8 mode)
+   and grouped (``_cached_attention_q8``).  With ``quantize_params`` (the
+   int8 product kernel on every projection) the prefill logits match the
+   same model with dequantized float weights within 1e-4 of the largest
+   |logit|, and the greedy tokens are identical or ``classify_divergence``
+   says "tie".  A seeded sampled run (temperature 0.8, top-k 50, top-p
+   0.95) repeats exactly.
+15. Generate (the main path of the cached-generation slice) —
+   Llama-3.2-1B at full width, bf16 weights from ``--seed``,
+   ``attn_impl="flash"``; B=8 prompts of 1920 random tokens, 128 new
+   tokens each (``cache_len`` 2048 = max_seq), ``inference.generate``
+   greedy: (a) the default layout, flat on the card (the fp kernel), run
+   twice — identical tokens, 16 flash-forward launches for the prefill
+   and 16 decode-kernel launches per decode step, no plain version
+   called; (b) ``cache_layout="grouped"`` (no kernel): its divergence from
+   (a) must not be "real"; (c) ``kv_quant=True`` flat (the int8 mode), run
+   twice, the same counts; (d) after ``quantize_params``, the flat bf16
+   cache, run twice: 112 ``quant_linear`` launches per forward.  Each run
+   prints prefill ms, decode ms per token (p50 and max, CUDA events
+   between steps), tokens/s, peak memory and launches; counts are set to
+   0 just before each run and read just after.  Eight decode steps of (a)
+   and of (d) under ``torch.profiler``: kernels and device ms per step,
+   the device's idle share, the costliest kernels.
+16. Decode-attention kernel — against its plain version at H=32, KV=8,
+   D=64, B=8, S=2048: pos 0, 1000 and 2047, window 256, S=2000 (a
+   ragged tail), MHA at head_dim 32, head_dim 128, MQA; each in fp32,
+   bf16 and int8 with bf16 q.  fp32 within 1e-4 absolute, bf16 and int8
+   within 2e-2 of the largest reference magnitude (p is rounded to bf16
+   before the PV product at other running maxima).  At pos 2047, with
+   the L2 flushed before each call, device time per call from CUDA graphs
+   of 20 (flush, call) pairs less the flushes alone (no host gaps between
+   launches): the kernel (with its split combine), the plain version, and
+   as the yardstick
+   (never called by the port) ``F.scaled_dot_product_attention(...,
+   enable_gqa=True)`` on the rows ``[:pos+1]`` (dequantized to bf16 for
+   the int8 mode); the bound is the attended K/V bytes (and scales) over
+   3.35 TB/s.
+17. Int8 product kernel — against its plain version at Llama-3.2-1B's
+   projection shapes (2048->2048, 2048->512, 2048->8192, 8192->2048) at
+   M=8 and M=15360, and the probe's [8, 768] x [768, 3072]; bf16 and fp32
+   x, with and without bias.  bf16 within one bf16 ulp of the largest
+   output (2^-7 of it: the same rounding points, fp32 sums in other
+   orders), fp32 within 1e-5 of it.  bf16 device times per call, the L2
+   flushed, from CUDA graphs as in phase 16: the kernel (with its split-K
+   combine), the
+   plain version, and ``F.linear`` on the dequantized bf16 weight
+   (cuBLAS, the yardstick); the bound is max(bytes over 3.35 TB/s,
+   FLOPs over 989 TFLOP/s).  The kernels line reports the sum over one
+   layer's seven projections at M=8 (a decode step is 16 of them).
+
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels":
 [...]}`` JSON object, and ``{"ok": true, "device": {...}}``.
 """
@@ -143,8 +197,12 @@ TRAIN_REF = dict(vocab_size=1024, num_layers=2, num_heads=4, num_kv_heads=2,
 TRAIN_B = 4           # full-width training batch (x MAX_SEQ tokens)
 TRAIN_TIMED = 5       # timed steps after one warm-up step
 GRAD_TOL = 1e-4       # flash vs local step-1 gradients, of max |g|
-KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_cross_entropy")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_cross_entropy",
+                  "decode_attention", "quant_dot")
 EVAL_TOL = 1e-3       # fused vs plain head at full width, bf16, relative
+GEN_B = 8             # full-width generation: slots
+GEN_PROMPT = 1920     # prompt tokens (+ GEN_NEW = MAX_SEQ)
+GEN_NEW = 128         # new tokens
 
 
 def _smi() -> str:
@@ -537,13 +595,19 @@ def _flash_counts():
     return (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
 
 
-def _zero_flash_counts():
+def _zero_counts():
+    """Every launch and plain-call count of the flash, fused-CE, decode
+    and int8-product wrappers to 0."""
+    from byteps_tpu_torch.ops import decode_attention as da
     from byteps_tpu_torch.ops import flash_attention as fa
     from byteps_tpu_torch.ops import fused_cross_entropy as fce
+    from byteps_tpu_torch.ops import quant_dot as qd
 
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = fa.plain_calls = 0
     fce.fwd_launches = fce.dx_launches = fce.dw_launches = 0
     fce.plain_calls = 0
+    da.launches = da.plain_calls = 0
+    qd.launches = qd.plain_calls = 0
 
 
 def _fce_counts():
@@ -573,7 +637,7 @@ def train_reference_phase(torch, seed: int) -> dict:
         init_weights(model, seed)
         trainer = Trainer(lm_loss_fn(model), torch.optim.SGD(
             model.parameters(), lr=0.05, momentum=0.9), log_every=0)
-        _zero_flash_counts()
+        _zero_counts()
         losses, grads = [], None
         for step in range(3):
             trainer.fit(model, {}, [{"tokens": toks}])
@@ -632,7 +696,7 @@ def fused_reference_phase(torch, seed: int) -> dict:
                 lm_loss_fn(model, fused_head=fused, early_exit=early_exit),
                 torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
                 log_every=0)
-            _zero_flash_counts()
+            _zero_counts()
             losses, grads = [], None
             for step in range(3):
                 trainer.fit(model, {}, [{"tokens": toks}])
@@ -702,7 +766,7 @@ def train_phase(torch, seed: int, fused_head: bool = False, then=None):
     torch.cuda.reset_peak_memory_stats()
     trainer.fit(model, {}, [batch])                     # warm-up
     losses = [trainer.metrics["loss"].item()]
-    _zero_flash_counts()
+    _zero_counts()
     step_ms = []
     for _ in range(TRAIN_TIMED):
         before = _flash_counts() + _fce_counts()
@@ -764,7 +828,7 @@ def eval_phase(torch, seed: int, trainer, model) -> dict:
                                       size=(TRAIN_B, MAX_SEQ))}
                for _ in range(2)]
     fused = lm_loss_fn(model, fused_head=True)
-    _zero_flash_counts()
+    _zero_counts()
     t0 = time.perf_counter()
     out = trainer.evaluate(
         lambda st, b: {"loss": fused(st.model, {}, b)[0]}, batches)
@@ -862,6 +926,46 @@ def _kernel_us(torch, fn, flush=None, reps=1) -> dict:
         if e.device_type == DeviceType.CUDA:
             times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
     return {n: t / reps for n, t in times.items()}
+
+
+def _graph_ms(torch, fn, flush, iters=20, reps=3) -> float:
+    """Device ms per call of ``fn`` with the L2 flushed before each call,
+    without the host's gaps between launches (which a call of a few
+    microseconds can be shorter than): ``iters`` (flush, call) pairs are
+    captured in one CUDA graph, and its best replay of ``reps``, timed with
+    CUDA events, less the best replay of a graph of the flushes alone, is
+    divided by ``iters``."""
+    def replay_ms(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):       # warm-up off the capture
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+        best = float("inf")
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graph.replay()
+            e1.record()
+            e1.synchronize()
+            best = min(best, e0.elapsed_time(e1))
+        del graph
+        return best
+
+    def calls():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+
+    def flushes():
+        for _ in range(iters):
+            flush.zero_()
+
+    return (replay_ms(calls) - replay_ms(flushes)) / iters
 
 
 def _sdpa_kernels(torch, fn) -> list:
@@ -1091,6 +1195,452 @@ def fce_kernel_phase(torch, seed: int):
             torch.cuda.empty_cache()
     return main
 
+# ------------------------------------------------------------ generation
+
+
+def _gen_counts() -> dict:
+    from byteps_tpu_torch.ops import decode_attention as da
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import quant_dot as qd
+
+    return {"flash_fwd": fa.fwd_launches, "decode": da.launches,
+            "quant_dot": qd.launches,
+            "plain": fa.plain_calls + da.plain_calls + qd.plain_calls}
+
+
+def generate_reference_phase(torch, seed: int) -> dict:
+    """fp32: flat (kernel) vs grouped (plain) caches, fp and int8; int8
+    weights vs the same weights dequantized; seeded sampling repeats."""
+    import copy
+
+    import numpy as np
+
+    from byteps_tpu_torch.inference import (classify_divergence, generate,
+                                            quantize_params)
+    from byteps_tpu_torch.models.transformer import (Dense, Transformer,
+                                                     TransformerConfig,
+                                                     init_cache, init_weights)
+
+    cfg = TransformerConfig(**{**LLAMA_3_2_1B, **TRAIN_REF},
+                            attn_impl="flash", dtype=torch.float32)
+    model = Transformer(cfg, device="cuda")
+    init_weights(model, seed)
+    B, T, n, L = 2, 128, 32, cfg.num_layers
+    prompt = np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                 size=(B, T))
+    info = {"phase": "generate_reference", "prompt": [B, T],
+            "new_tokens": n}
+
+    def run(m, want, **kw):
+        _zero_counts()
+        out = generate(m, prompt, n, temperature=0, **kw)
+        torch.cuda.synchronize()
+        counts = _gen_counts()
+        if counts != want:
+            raise AssertionError(f"generate {kw}: launches {counts}, want "
+                                 f"{want}")
+        return out["tokens"].cpu().numpy()
+
+    flat_want = {"flash_fwd": L, "decode": (n - 1) * L, "quant_dot": 0,
+                 "plain": 0}
+    for kv_quant in (False, True):
+        tag = "int8_cache_" if kv_quant else ""
+        flat = run(model, flat_want, cache_layout="flat", kv_quant=kv_quant)
+        grouped = run(model, {**flat_want, "decode": 0},
+                      cache_layout="grouped", kv_quant=kv_quant)
+        if not (flat == grouped).all():
+            raise AssertionError(f"{tag}flat (kernel) tokens {flat} != "
+                                 f"grouped {grouped}")
+        info[f"{tag}flat_vs_grouped_identical"] = True
+    # int8 weights against the same int8 weights dequantized to fp32
+    quantize_params(model)
+    deq = copy.deepcopy(model)
+    for m in deq.modules():
+        if isinstance(m, Dense):
+            m.weight = torch.nn.Parameter(m.weight.float() * m.scale[:, None],
+                                          requires_grad=False)
+            m.scale = None
+
+    def prefill(m):
+        caches = init_cache(cfg, B, T, layout="flat", device="cuda")
+        return m.decode(torch.from_numpy(prompt).cuda(), caches, 0)[0]
+
+    _zero_counts()
+    lq = prefill(model)
+    if _gen_counts()["quant_dot"] != 7 * L:
+        raise AssertionError(f"int8 prefill launches {_gen_counts()}")
+    lf = prefill(deq)
+    logit_rel = ((lq - lf).abs().max() / lf.abs().max()).item()
+    if not torch.isfinite(lq).all() or logit_rel > 1e-4:
+        raise AssertionError(f"int8 vs dequantized prefill logits differ by "
+                             f"{logit_rel} of the largest")
+    tq = run(model, {**flat_want, "quant_dot": n * 7 * L},
+             cache_layout="flat")
+    tf = run(deq, flat_want, cache_layout="flat")
+    verdict = classify_divergence(deq, prompt, tf, tq)
+    if verdict["divergence"] == "real":
+        raise AssertionError(f"int8 weights vs dequantized: {verdict}")
+    sampled = [generate(deq, prompt, n, temperature=0.8, top_k=50, top_p=0.95,
+                        seed=seed + 1)["tokens"].cpu().numpy()
+               for _ in range(2)]
+    if not (sampled[0] == sampled[1]).all():
+        raise AssertionError("seeded sampled generation did not repeat")
+    info.update({"int8_weights_logit_rel_diff": logit_rel,
+                 "int8_weights_vs_dequantized": verdict["divergence"],
+                 "int8_weights_agreement": verdict["agreement"],
+                 "sampled_rerun_identical": True,
+                 "sampled_differs_from_greedy": bool((sampled[0] != tf).any())})
+    del model, deq
+    torch.cuda.empty_cache()
+    return info
+
+
+def _decode_profile(torch, model, prompt, steps=8, **cache_kw) -> dict:
+    """``steps`` decode steps of ``Transformer.decode`` (the call the
+    generate loop makes) after a prefill, under ``torch.profiler``: CUDA
+    kernels and device busy ms per step, host wall per step (with the
+    profiler on), the device's idle share, and the kernels taking the
+    most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from byteps_tpu_torch.models.transformer import init_cache
+
+    B, T = prompt.shape
+    caches = init_cache(model.cfg, B, T + steps, device="cuda", **cache_kw)
+    logits, _ = model.decode(prompt, caches, 0, last_only=True)
+    tok = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, _ = model.decode(tok[:, None], caches, T + i)
+            tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, n, busy_us = {}, 0, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            n += 1
+            busy_us += us
+            by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + us
+    if not n:
+        raise AssertionError("the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": steps, "kernels_per_step": n / steps,
+            "device_ms_per_step": busy_us / 1e3 / steps,
+            "host_ms_per_step_profiled": wall_ms / steps,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "top_device_ms_per_step": {k: v / 1e3 / steps for k, v in top}}
+
+
+def generate_phase(torch, seed: int):
+    """Full-width Llama-3.2-1B cached generation through
+    ``make_generate_fn``: fp flat (twice), grouped, int8-cache flat
+    (twice), int8 weights (twice).  Returns the run lines and the launch
+    counts of the last fp, int8-cache and int8-weight runs."""
+    import numpy as np
+
+    from byteps_tpu_torch.inference import (classify_divergence,
+                                            make_generate_fn, quantize_params)
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16, attn_impl="flash")
+    L, steps = cfg.num_layers, GEN_NEW - 1
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
+    init_weights(model, seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompt = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(GEN_B, GEN_PROMPT))).cuda()
+    fp_want = {"flash_fwd": L, "decode": steps * L, "quant_dot": 0,
+               "plain": 0}
+
+    def run(name, want, **kw):
+        fn = make_generate_fn(model, GEN_NEW, temperature=0, **kw)
+        events = []
+
+        def on_step(i):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t1 = time.perf_counter()
+        out = fn(prompt, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = _gen_counts()
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, want {want}")
+        if not out["tokens"].is_cuda:
+            raise AssertionError(f"{name}: tokens are not on the GPU")
+        toks = out["tokens"].cpu().numpy()
+        if toks.shape != (GEN_B, GEN_NEW) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{name}: bad tokens {toks.shape}")
+        dec = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        line = {"phase": "generate_run", "run": name, "layout":
+                kw.get("cache_layout", "auto"),
+                "kv_quant": kw.get("kv_quant", False),
+                "prefill_ms": start.elapsed_time(events[0]),
+                "decode_ms_p50": float(np.median(dec)),
+                "decode_ms_max": float(np.max(dec)), "wall_s": wall,
+                "tokens_per_s": GEN_B * GEN_NEW / wall,
+                "decode_tokens_per_s": GEN_B / (float(np.median(dec)) / 1e3),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": counts, "nvidia_smi": _smi()}
+        _line(line)
+        return toks, line
+
+    runs = {}
+    for name, want, kw in (
+            ("fp_flat", fp_want, {}),
+            ("fp_flat_rerun", fp_want, {}),
+            ("fp_grouped", {**fp_want, "decode": 0},
+             {"cache_layout": "grouped"}),
+            ("int8_cache", fp_want, {"kv_quant": True,
+                                     "cache_layout": "flat"}),
+            ("int8_cache_rerun", fp_want, {"kv_quant": True,
+                                           "cache_layout": "flat"})):
+        runs[name] = run(name, want, **kw)
+    verdict = classify_divergence(model, prompt, runs["fp_flat"][0],
+                                  runs["fp_grouped"][0])
+    if verdict["divergence"] == "real":
+        raise AssertionError(f"flat (kernel) vs grouped: {verdict}")
+    int8_cache_vs_fp = classify_divergence(model, prompt, runs["fp_flat"][0],
+                                           runs["int8_cache"][0])
+    profiles = {"fp_flat": _decode_profile(torch, model, prompt,
+                                           layout="flat")}
+    quantize_params(model)
+    q_want = {**fp_want, "quant_dot": GEN_NEW * 7 * L}
+    for name in ("int8_weights", "int8_weights_rerun"):
+        runs[name] = run(name, q_want, cache_layout="flat")
+    profiles["int8_weights"] = _decode_profile(torch, model, prompt,
+                                               layout="flat")
+    for a in ("fp_flat", "int8_cache", "int8_weights"):
+        if not (runs[a][0] == runs[a + "_rerun"][0]).all():
+            raise AssertionError(f"{a}: greedy rerun is not token-identical")
+    info = {"phase": "generate", "model": "Llama-3.2-1B (random weights)",
+            "source": "meta-llama/Llama-3.2-1B config.json",
+            "reduced": {"max_seq": [131072, MAX_SEQ]},
+            "dtype": "bfloat16", "batch": GEN_B, "prompt": GEN_PROMPT,
+            "new_tokens": GEN_NEW, "setup_s": setup_s,
+            "reruns_identical": True,
+            "flat_vs_grouped": verdict,
+            "int8_cache_vs_fp": int8_cache_vs_fp,
+            "decode_step_profile": profiles,
+            "runs": {n: {k: v for k, v in r[1].items()
+                         if k not in ("phase", "run")}
+                     for n, r in runs.items()}}
+    launches = {n: runs[n][1]["launches"] for n in
+                ("fp_flat_rerun", "int8_cache_rerun", "int8_weights_rerun")}
+    del model
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+# ------------------------------------------------------ decode attention
+
+DECODE_MAIN = dict(B=GEN_B, S=MAX_SEQ, H=32, KV=8, D=64, pos=MAX_SEQ - 1,
+                   window=None)
+DECODE_CASES = (("pos_2047", {}), ("pos_0", {"pos": 0}),
+                ("pos_1000", {"pos": 1000}), ("window256", {"window": 256}),
+                ("s2000_ragged", {"S": 2000, "pos": 1999}),
+                ("mha_head_dim32", {"KV": 32, "D": 32}),
+                ("head_dim128", {"D": 128}), ("mqa", {"KV": 1}))
+
+
+def _decode_inputs(torch, seed, c, mode):
+    """q [B, 1, H, D] and flat caches: fp32 or bf16, or int8 values and
+    scales (``_quantize_kv``) with a bf16 q."""
+    from byteps_tpu_torch.models.transformer import _quantize_kv
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    B, S, H, KV, D = c["B"], c["S"], c["H"], c["KV"], c["D"]
+    q = torch.randn((B, 1, H, D), generator=g, device="cuda")
+    k = torch.randn((B, S, KV, D), generator=g, device="cuda")
+    v = torch.randn((B, S, KV, D), generator=g, device="cuda")
+    if mode == "int8":
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        return (q.to(torch.bfloat16), kq.reshape(B, S, -1),
+                vq.reshape(B, S, -1), ks, vs)
+    dt = torch.float32 if mode == "float32" else torch.bfloat16
+    return (q.to(dt), k.reshape(B, S, -1).to(dt), v.reshape(B, S, -1).to(dt),
+            None, None)
+
+
+def decode_case(torch, name, over, mode, seed, flush, timed):
+    import torch.nn.functional as F
+
+    from byteps_tpu_torch.ops import decode_attention as da
+
+    c = {**DECODE_MAIN, **over}
+    B, S, H, KV, D, pos, w = (c[k] for k in ("B", "S", "H", "KV", "D",
+                                             "pos", "window"))
+    q, ck, cv, ks, vs = _decode_inputs(torch, seed, c, mode)
+    args = (q, ck, cv, pos)
+    kw = {"k_scale": ks, "v_scale": vs, "window": w}
+    out = da.decode_attention(*args, **kw)
+    ref = da.decode_attention_reference(*args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(out.float()).all()
+            and torch.isfinite(ref.float()).all()):
+        raise AssertionError(f"decode {name} {mode}: non-finite output")
+    abs_err = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    tol = 1e-4 if mode == "float32" else 2e-2
+    err = abs_err if mode == "float32" else abs_err / top
+    if err > tol:
+        raise AssertionError(f"decode {name} {mode}: error {err} > {tol}")
+    res = {"case": name, "mode": mode, "B_S_H_KV_D": [B, S, H, KV, D],
+           "pos": pos, "window": w, "max_abs_err": abs_err, "err": err,
+           "tolerance": tol}
+    if not timed:
+        return res
+    res["kernel_ms"] = _graph_ms(torch, lambda: da.decode_attention(
+        *args, **kw), flush)
+    res["plain_ms"] = _graph_ms(
+        torch, lambda: da.decode_attention_reference(*args, **kw), flush,
+        iters=5)
+    # the yardstick: SDPA over the attended rows (int8: dequantized to bf16)
+    n = pos + 1
+    kd, vd = (x.view(B, S, KV, D)[:, :n] for x in (ck, cv))
+    if mode == "int8":
+        kd = (kd.float() * ks[:, :n, :, None]).to(torch.bfloat16)
+        vd = (vd.float() * vs[:, :n, :, None]).to(torch.bfloat16)
+    kd, vd = (x.transpose(1, 2).contiguous() for x in (kd, vd))
+    qd = q.transpose(1, 2).contiguous()
+    lib = F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True)
+    res["library_err"] = (lib.transpose(1, 2).float()
+                          - ref.float()).abs().max().item()
+    res["library_ms"] = _graph_ms(
+        torch, lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                      enable_gqa=True),
+        flush)
+    elt = ck.element_size()
+    nbytes = (da.kv_bytes_read(B, pos, KV * D, elt, w,
+                               kv_heads=KV if mode == "int8" else 0)
+              + 2 * q.numel() * q.element_size())           # q in, out
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (da.decode_flops(B, H, D, pos, w)
+             / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3)
+    res["bound_ms"] = max(t_bytes, t_ops)
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    res["bytes"] = nbytes
+    return res
+
+
+def decode_kernel_phase(torch, seed: int) -> dict:
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    main = {}
+    for mode in ("bfloat16", "int8", "float32"):
+        for name, over in DECODE_CASES:
+            timed = not over and mode != "float32"
+            r = decode_case(torch, name, over, mode, seed, flush, timed)
+            _line(r)
+            if timed:
+                main[mode] = r
+        torch.cuda.empty_cache()
+    return main
+
+
+# ------------------------------------------------------ int8 product
+
+# Llama-3.2-1B's projections (K -> N) and how many a layer runs
+QUANT_SHAPES = (("q_o_2048x2048", 2048, 2048, 2),
+                ("k_v_2048x512", 2048, 512, 2),
+                ("gate_up_2048x8192", 2048, 8192, 2),
+                ("down_8192x2048", 8192, 2048, 1))
+QUANT_ROWS = (GEN_B, GEN_B * GEN_PROMPT)   # decode, prefill
+
+
+def quant_case(torch, name, M, K, N, dtype, bias, seed, flush, timed):
+    import torch.nn.functional as F
+
+    from byteps_tpu_torch.ops import quant_dot as qd
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    w, scale = qd.quantize_weight(
+        torch.randn((N, K), generator=g, device="cuda") * 0.02)
+    b = torch.randn((N,), generator=g, device="cuda") if bias else None
+    out = qd.quant_linear(x, w, scale, b)
+    ref = qd.quant_linear_reference(x, w, scale, b)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"quant {name} M={M}: non-finite output")
+    top = ref.float().abs().max().item()
+    abs_err = (out.float() - ref.float()).abs().max().item()
+    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    if abs_err > tol * top:
+        raise AssertionError(f"quant {name} M={M} {dtype} bias={bias}: "
+                             f"error {abs_err} > {tol} x {top}")
+    res = {"case": name, "M_K_N": [M, K, N],
+           "dtype": str(dtype).split(".")[-1], "bias": bias,
+           "max_abs_err": abs_err, "err": abs_err / top,
+           "err_bf16_ulps_of_max": abs_err / (2.0 ** -7 * top),
+           "tolerance": tol}
+    if not timed:
+        return res
+    iters = 20 if M <= 64 else 3
+    res["kernel_ms"] = _graph_ms(
+        torch, lambda: qd.quant_linear(x, w, scale), flush, iters)
+    res["plain_ms"] = _graph_ms(
+        torch, lambda: qd.quant_linear_reference(x, w, scale), flush,
+        min(iters, 5))
+    wbf = (w.float() * scale[:, None]).to(torch.bfloat16)
+    res["library_ms"] = _graph_ms(torch, lambda: F.linear(x, wbf), flush,
+                                  iters)
+    elt = x.element_size()
+    nbytes = M * K * elt + N * K + 4 * N + M * N * elt
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = qd.quant_flops(M, N, K) / PEAK_FLOPS["bfloat16"] * 1e3
+    res["bound_ms"] = max(t_bytes, t_ops)
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return res
+
+
+def quant_kernel_phase(torch, seed: int) -> dict:
+    """Every case checked; bf16 without bias timed.  Returns the sums of
+    one layer's seven decode (M=8) projections."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    layer = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "bound_ms": 0.0, "max_abs_err": 0.0, "bytes_bound": True}
+    cases = [(n, M, K, N, c) for M in QUANT_ROWS
+             for n, K, N, c in QUANT_SHAPES]
+    cases.append(("probe_768x3072", 8, 768, 3072, 0))
+    for name, M, K, N, count in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            for bias in (False, True):
+                timed = dtype == torch.bfloat16 and not bias
+                r = quant_case(torch, name, M, K, N, dtype, bias, seed, flush,
+                               timed)
+                _line(r)
+                if timed and M == GEN_B and count:
+                    for k in ("kernel_ms", "plain_ms", "library_ms",
+                              "bound_ms"):
+                        layer[k] += count * r[k]
+                    layer["max_abs_err"] = max(layer["max_abs_err"],
+                                               r["max_abs_err"])
+                    layer["bytes_bound"] &= r["bound_by"] == "bytes"
+        torch.cuda.empty_cache()
+    layer["bound_by"] = "bytes" if layer.pop("bytes_bound") else "operations"
+    _line({"phase": "quant_dot_decode_layer", **layer})
+    return layer
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1147,6 +1697,11 @@ def main() -> int:
     _line(fused_info)
     _line(eval_info)
     fce_main = fce_kernel_phase(torch, args.seed)
+    _line(generate_reference_phase(torch, args.seed))
+    gen_info, gen_launches = generate_phase(torch, args.seed)
+    _line(gen_info)
+    decode_main = decode_kernel_phase(torch, args.seed)
+    quant_layer = quant_kernel_phase(torch, args.seed)
     print(_smi(), flush=True)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -1186,6 +1741,28 @@ def main() -> int:
             "bound_ms": fce_main[f"{kname}_bound_ms"],
             "bound_by": fce_main[f"{kname}_bound_by"],
             "library_ms": fce_main[f"{kname}_library_ms"]})
+    for kname, mode, run in (("decode_attention", "bfloat16", "fp_flat_rerun"),
+                             ("decode_attention_int8", "int8",
+                              "int8_cache_rerun")):
+        r = decode_main[mode]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "byteps_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "byteps_tpu/ops/decode_attention.py:71",
+            "launches": gen_launches[run]["decode"],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    kernels.append({
+        "name": "quant_dot", "route": "cuda",
+        "source": "byteps_tpu_torch/csrc/quant_dot.cu",
+        "replaces": "scripts/dot_probe.py:27",
+        "launches": gen_launches["int8_weights_rerun"]["quant_dot"],
+        "max_abs_err": quant_layer["max_abs_err"],
+        "ms": quant_layer["kernel_ms"], "plain_ms": quant_layer["plain_ms"],
+        "bound_ms": quant_layer["bound_ms"],
+        "bound_by": quant_layer["bound_by"],
+        "library_ms": quant_layer["library_ms"]})
     _line({"kernels": kernels})
     _line({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,13 @@ cross-entropy (forward, dlogits + dx, dW): fp32 lse and target logit
 within 1e-5 relative, dx and dW within 1e-4 of the largest reference
 magnitude (fp32 sums of H or N products in other orders); bf16 within
 2e-2 of the largest reference magnitude (dlogits is rounded to bf16
-before each product, in both).
+before each product, in both).  Decode attention (fp and int8 caches):
+fp32 1e-4 absolute (online softmax over splits vs one dense softmax);
+bf16 and int8 2e-2 of the largest reference magnitude (p is rounded to
+bf16 before the PV product at other running maxima).  The int8 product:
+bf16 within one bf16 ulp of the largest output (2^-7 of it: the same
+rounding points on both sides, fp32 sums in other orders), fp32 within
+1e-5 of the largest output.
 """
 
 import numpy as np
@@ -26,7 +32,10 @@ import torch
 
 from byteps_tpu_torch.ops import flash_attention as fa
 from byteps_tpu_torch.ops import fused_cross_entropy as fce
+from byteps_tpu_torch.models.transformer import _quantize_kv
+from byteps_tpu_torch.ops import decode_attention as da
 from byteps_tpu_torch.ops import paged_attention as pa
+from byteps_tpu_torch.ops import quant_dot as qd
 
 
 def _case(seed, B, tq, H, KV, D, blk, mb, pos, dtype):
@@ -238,3 +247,113 @@ def test_fused_ce_autograd_on_the_card_matches_the_cpu_function():
             b.abs().max().item(), 1.0)
     for a, b in zip(runs[0], runs[2]):
         assert torch.equal(a, b)
+
+
+def _decode_inputs(seed, B, S, H, KV, D, dtype, quant):
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    q = torch.from_numpy(rng.randn(B, 1, H, D).astype(np.float32))
+    k = torch.from_numpy(rng.randn(B, S, KV, D).astype(np.float32))
+    v = torch.from_numpy(rng.randn(B, S, KV, D).astype(np.float32))
+    if not quant:
+        return (q.to(dev, dtype), k.reshape(B, S, -1).to(dev, dtype),
+                v.reshape(B, S, -1).to(dev, dtype), None, None)
+    kq, ks = _quantize_kv(k)
+    vq, vs = _quantize_kv(v)
+    return (q.to(dev, dtype), kq.reshape(B, S, -1).to(dev),
+            vq.reshape(B, S, -1).to(dev), ks.to(dev), vs.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,quant,tol", [
+    (torch.float32, False, 1e-4), (torch.bfloat16, False, 2e-2),
+    (torch.float32, True, 1e-4), (torch.bfloat16, True, 2e-2)])
+@pytest.mark.parametrize("B,S,H,KV,D,pos,window", [
+    (8, 2048, 32, 8, 64, 2047, None),    # Llama-3.2-1B, full cache
+    (8, 2048, 32, 8, 64, 1000, 256),     # window
+    (3, 2000, 8, 2, 128, 1999, None),    # ragged tail chunk, head_dim 128
+    (2, 160, 4, 4, 16, 150, None),       # MHA, head_dim 16, S % 64 != 0
+    (4, 300, 32, 1, 64, 0, None),        # MQA at pos 0
+    (2, 513, 4, 4, 32, 300, 48),         # head_dim 32, window
+])
+def test_decode_attention_kernel_matches_plain_version(dtype, quant, tol, B,
+                                                       S, H, KV, D, pos,
+                                                       window):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, ck, cv, ks, vs = _decode_inputs(6, B, S, H, KV, D, dtype, quant)
+    before = da.launches
+    out = da.decode_attention(q, ck, cv, pos, k_scale=ks, v_scale=vs,
+                              window=window)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    ref = da.decode_attention_reference(q, ck, cv, pos, k_scale=ks,
+                                        v_scale=vs, window=window)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        err /= ref.float().abs().max().item()
+    assert err <= tol, err
+    # the grouped [B, S, KV, D] view of the same cache gives the same bits
+    again = da.decode_attention(q, ck.view(B, S, KV, D),
+                                cv.view(B, S, KV, D), pos, k_scale=ks,
+                                v_scale=vs, window=window)
+    assert torch.equal(out, again)
+
+
+def _quant_inputs(seed, M, N, K, dtype, bias):
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(dev, dtype)
+    w, scale = qd.quantize_weight(torch.from_numpy(
+        (rng.randn(N, K) * 0.02).astype(np.float32)))
+    b = (torch.from_numpy(rng.randn(N).astype(np.float32)).to(dev)
+         if bias else None)
+    return x, w.to(dev), scale.to(dev), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("M,N,K,bias", [
+    (8, 2048, 2048, False),     # decode: split-K over one row of tiles
+    (8, 512, 2048, True),       # decode k/v projection, bias
+    (300, 1000, 200, True),     # ragged rows, columns and depth
+    (300, 8192, 2048, False),   # the MLP up projection
+    (5, 96, 40, False),         # K % 16 != 0: scalar loads
+])
+def test_quant_linear_kernel_matches_plain_version(dtype, out_dtype, M, N, K,
+                                                   bias):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, w, scale, b = _quant_inputs(8, M, N, K, dtype, bias)
+    before = qd.launches
+    out = qd.quant_linear(x, w, scale, b, out_dtype)
+    torch.cuda.synchronize()
+    assert qd.launches == before + 1
+    ref = qd.quant_linear_reference(x, w, scale, b, out_dtype)
+    assert out.shape == ref.shape and out.dtype == ref.dtype == out_dtype
+    assert torch.isfinite(out.float()).all()
+    top = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (torch.finfo(torch.bfloat16).eps if dtype == torch.bfloat16
+           else 1e-5) * top
+    assert err <= tol, (err, tol)
+    # reruns are bit-identical (split-K adds the splits in order)
+    assert torch.equal(out, qd.quant_linear(x, w, scale, b, out_dtype))
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_on_mixed_devices():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, ck, cv, _, _ = _decode_inputs(1, 2, 64, 4, 2, 16, torch.float32, False)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        da.decode_attention(q, ck.cpu(), cv, 10)
+    x, w, scale, _ = _quant_inputs(1, 4, 32, 64, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        qd.quant_linear(x, w.cpu(), scale)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        qd.quant_linear(x.cpu(), w, scale)

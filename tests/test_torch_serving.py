@@ -219,6 +219,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import byteps_tpu_torch.training, byteps_tpu_torch.api\n"
         "import byteps_tpu_torch.ops.flash_attention\n"
         "import byteps_tpu_torch.ops.fused_cross_entropy\n"
+        "import byteps_tpu_torch.ops.decode_attention\n"
+        "import byteps_tpu_torch.ops.quant_dot\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'byteps_tpu' or m.startswith('byteps_tpu.')]\n"
         "assert not bad, bad\n")

@@ -7,9 +7,9 @@ either package: the logging pair ``common/logging.py`` needs, the
 ``BYTEPS_SERVE_*`` knobs ``serving/frontend.py:serve_from_env`` reads,
 and the worker knobs ``api.init``, ``training.Trainer`` and
 ``make_data_parallel_step`` read.  Knobs naming features the port does
-not have yet (prefix cache, int8 pools, speculative decoding,
-checkpoints, a multi-worker world, async PS) are still parsed, so that
-a non-default value is refused loudly instead of ignored.
+not have yet (checkpoints, the gather fallback, the dense prefix store's
+granularity, a multi-worker world, async PS) are still parsed, so that a non-default value is refused
+loudly instead of ignored.
 """
 
 from __future__ import annotations
@@ -82,13 +82,20 @@ class Config:
     serve_model: str = ""         # "k=v,..." TransformerConfig overrides
     serve_checkpoint: str = ""    # not ported: refused when set
     serve_chunk: int = 0          # chunked prefill size in tokens; 0 = off
-    serve_prefix_cache: bool = False  # not ported: refused when set
+    serve_prefix_cache: bool = False  # radix prefix store over the pool
+    # the dense store's match granularity (tokens); a paged store matches
+    # at serve_block, so a value other than serve_block is refused
+    serve_prefix_block: Optional[int] = None
+    serve_prefix_mb: int = 256    # prefix store byte budget (MiB); 0 = inf
     serve_paged: bool = False     # the port serves paged only
     serve_block: int = 16         # KV block size in tokens
     serve_kv_mb: int = 0          # KV pool budget (MiB); 0 = dense-equiv
-    serve_kv_dtype: str = ""      # "" only in this slice
+    serve_kv_dtype: str = ""      # "" (model dtype) or "int8"
     serve_paged_kernel: str = "auto"  # auto/on = the kernel; off refused
-    serve_spec: bool = False      # not ported: refused when set
+    serve_spec: bool = False      # speculative decoding (n-gram proposals)
+    serve_spec_k: int = 4         # max proposed tokens (rounds down to 2^n)
+    serve_spec_ngram: int = 3     # longest trailing n-gram matched
+    serve_tp: int = 1             # BYTEPS_TP: KV-head shards of the pool
     serve_client_timeout_ms: float = 300_000.0
 
     @staticmethod
@@ -115,6 +122,8 @@ class Config:
             serve_checkpoint=_env_str("BYTEPS_SERVE_CHECKPOINT", ""),
             serve_chunk=_env_int("BYTEPS_SERVE_CHUNK", 0),
             serve_prefix_cache=_env_bool("BYTEPS_SERVE_PREFIX_CACHE"),
+            serve_prefix_block=_env_opt_int("BYTEPS_SERVE_PREFIX_BLOCK"),
+            serve_prefix_mb=_env_int("BYTEPS_SERVE_PREFIX_MB", 256),
             serve_paged=_env_bool("BYTEPS_SERVE_PAGED"),
             serve_block=_env_int("BYTEPS_SERVE_BLOCK", 16),
             serve_kv_mb=_env_int("BYTEPS_SERVE_KV_MB", 0),
@@ -122,6 +131,9 @@ class Config:
             serve_paged_kernel=_env_str("BYTEPS_SERVE_PAGED_KERNEL",
                                         "auto"),
             serve_spec=_env_bool("BYTEPS_SERVE_SPEC"),
+            serve_spec_k=_env_int("BYTEPS_SERVE_SPEC_K", 4),
+            serve_spec_ngram=_env_int("BYTEPS_SERVE_SPEC_NGRAM", 3),
+            serve_tp=_env_int("BYTEPS_TP", 1),
             serve_client_timeout_ms=_env_float(
                 "BYTEPS_SERVE_CLIENT_TIMEOUT_MS", 300_000.0),
         )

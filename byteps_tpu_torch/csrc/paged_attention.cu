@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel byteps_tpu/ops/paged_attention.py:76
 // `_paged_kernel` (pallas_call at :286, wrapper `paged_decode_attention`
-// at :165) in its fp mode at tp=1.  Python binding, build and the plain
+// at :165) in both its fp and its int8 mode; the tensor-parallel wrapper
+// `paged_decode_attention_sharded` (:306) is one launch of this kernel per
+// shard (ops/paged_attention.py).  Python binding, build and the plain
 // PyTorch version live in byteps_tpu_torch/ops/paged_attention.py.
 //
 // What it computes.  q [B, tq, H, D] against flat block pools
@@ -10,7 +12,9 @@
 // per-slot block table table [B, max_blocks] (int32, unallocated entries =
 // the null block) with per-slot cursors pos [B].  Query row (i, h) attends
 // key c iff c <= pos + i and, with a window, c > pos + i - window; head h
-// reads KV head h / (H / KV).  Output [B, tq, H, D] in q's dtype.  Only the
+// reads KV head h / (H / KV).  In int8 mode the pools hold s8 values and
+// ksc/vsc [n_blocks, block, KV] hold their fp32 per-(position, KV head)
+// scales.  Output [B, tq, H, D] in q's dtype.  Only the
 // logical blocks j with j * block <= pos + tq - 1 (and, with a window, at
 // or after the window's first block) are read, so the null block's padding
 // is never touched.
@@ -18,11 +22,16 @@
 // Rounding points kept from the TPU kernel so bf16 agrees with the plain
 // version: q * D^-0.5 is rounded to q's dtype before the dot; scores and
 // the online-softmax m / l / acc are fp32; p is rounded to v's dtype
-// before the PV product; the output is acc / max(l, 1e-30).
+// before the PV product; the output is acc / max(l, 1e-30).  In int8
+// mode the s8 values are widened to q's dtype (exact: |x| <= 127), the
+// fp32 score is multiplied by the K scale before the mask, m and l take
+// the unscaled p, and p is multiplied by the V scale -- by 0 on a masked
+// key, whose scale row may be a stale tenant's -- before it is rounded.
 //
 // What bounds it.  Decode reads every covered KV block once and does ~2
 // FLOPs per byte, so it is bound by HBM bytes:
-//   sum_b ceil((pos_b + tq) / block) * block * KV * D * 2 * sizeof(elt).
+//   sum_b ceil((pos_b + tq) / block) * block * KV * (D * 2 * sizeof(elt)
+//                                                  + 2 * 4 in int8 mode).
 // The design keeps those reads to one pass per (slot, KV head): the CTA
 // stages each physical block's [block, D] K and V slice for its head in
 // shared memory once, and all G * tq query rows of the group read it
@@ -38,6 +47,10 @@
 //   * the CTA loops over its slot's logical blocks — this loop replaces
 //     the TPU grid's sequential "arbitrary" axis — reading table[b, j]
 //     itself (the TPU's scalar prefetch);
+//   * int8 mode stages the s8 [block, D] slice (half the bytes of bf16)
+//     widened to q's dtype as it lands in shared memory, and the block's
+//     two [block] scale columns (strided by KV floats in the scale pools),
+//     so the inner loops are the fp mode's;
 //   * for each staged block every warp walks its rows in turn: the
 //     block's scores by warp-shuffle reductions, masked, then the online
 //     softmax update of that row's m, l, acc; finally it writes its rows.
@@ -48,6 +61,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -72,6 +86,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch does
 }
 
+// a pool element as q's dtype: a copy in fp mode, exact widening of s8
+template <typename T>
+__device__ __forceinline__ T widen(T x) {
+  return x;
+}
+template <typename T>
+__device__ __forceinline__ T widen(int8_t x) {
+  return from_f<T>(static_cast<float>(x));
+}
+
 __device__ __forceinline__ bool lane_in(int d) {
   return static_cast<int>(threadIdx.x & 31) < d;
 }
@@ -82,15 +106,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// D = head dim (16, 32, 64 or 128); lane l holds elements e * 32 + l,
+// T = q's dtype, P = the pools' (T, or int8_t with the scale pools ksc /
+// vsc).  D = head dim (16, 32, 64 or 128); lane l holds elements e * 32 + l,
 // EPL = ceil(D / 32) of them.  At D = 16 lanes 16..31 hold none: they add
 // zeros to every dot product and write nothing.
-template <typename T, int D>
+template <typename T, typename P, int D>
 __global__ void paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ ck,
-    const T* __restrict__ cv, const int* __restrict__ table,
+    const T* __restrict__ q, const P* __restrict__ ck,
+    const P* __restrict__ cv, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ table,
     const int* __restrict__ pos, T* __restrict__ out, int tq, int H, int KV,
     int bs, int max_blocks, int window, float scale) {
+  constexpr bool kQuant = sizeof(P) == 1;
   constexpr int EPL = (D + 31) / 32;
   constexpr bool kFull = D % 32 == 0;
   const bool lane_live = kFull || lane_in(D);
@@ -107,10 +134,15 @@ __global__ void paged_attention_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);          // [bs, D]
   T* vs = ks + bs * D;                              // [bs, D]
-  float* pw = reinterpret_cast<float*>(vs + bs * D) + warp * kMaxBlock;
+  float* pws = reinterpret_cast<float*>(vs + bs * D);  // [nwarps, kMaxBlock]
+  float* pw = pws + warp * kMaxBlock;
+  float* kss = pws + nwarps * kMaxBlock;            // [bs] K scales (int8)
+  float* vss = kss + kMaxBlock;                     // [bs] V scales (int8)
 
-  // logical blocks that hold a readable key for some query row
-  const int j_hi = (p0 + tq - 1) / bs;
+  // logical blocks that hold a readable key for some query row; a verify
+  // span that runs past the row's end reads the row's blocks only (those
+  // rows are discarded), as the plain version does
+  const int j_hi = min((p0 + tq - 1) / bs, max_blocks - 1);
   int j_lo = 0;
   if (window > 0) {
     const int first = p0 - window + 1;
@@ -147,12 +179,19 @@ __global__ void paged_attention_kernel(
       const size_t pid = static_cast<size_t>(
           table[static_cast<size_t>(b) * max_blocks + j]);
       __syncthreads();  // every warp is done with the previous block
-      const T* kb = ck + pid * bs * KVD + g * D;
-      const T* vb = cv + pid * bs * KVD + g * D;
+      const P* kb = ck + pid * bs * KVD + g * D;
+      const P* vb = cv + pid * bs * KVD + g * D;
       for (int idx = threadIdx.x; idx < bs * D; idx += blockDim.x) {
         const int t = idx / D, d = idx % D;
-        ks[idx] = kb[static_cast<size_t>(t) * KVD + d];
-        vs[idx] = vb[static_cast<size_t>(t) * KVD + d];
+        ks[idx] = widen<T>(kb[static_cast<size_t>(t) * KVD + d]);
+        vs[idx] = widen<T>(vb[static_cast<size_t>(t) * KVD + d]);
+      }
+      if (kQuant) {
+        for (int t = threadIdx.x; t < bs; t += blockDim.x) {
+          const size_t at = (pid * bs + t) * KV + g;
+          kss[t] = ksc[at];
+          vss[t] = vsc[at];
+        }
       }
       __syncthreads();
 
@@ -166,6 +205,7 @@ __global__ void paged_attention_kernel(
           for (int e = 0; e < EPL; ++e)
             if (lane_live) s += qr[rr][e] * to_f(ks[t * D + e * 32 + lane]);
           s = warp_sum(s);  // every lane holds the full dot
+          if (kQuant) s *= kss[t];
           const int c = j * bs + t;
           const bool valid =
               c <= qpos[rr] && (window <= 0 || c > qpos[rr] - window);
@@ -180,8 +220,14 @@ __global__ void paged_attention_kernel(
         for (int e = 0; e < EPL; ++e) acc[rr][e] *= alpha;
         float psum = 0.f;
         for (int t = 0; t < bs; ++t) {
-          const float p = expf(pw[t] - m_new);
+          float p = expf(pw[t] - m_new);
           psum += p;
+          if (kQuant) {
+            const int c = j * bs + t;
+            const bool valid =
+                c <= qpos[rr] && (window <= 0 || c > qpos[rr] - window);
+            p *= valid ? vss[t] : 0.f;  // mask first: 0 * a stale scale
+          }
           const float pr = to_f(from_f<T>(p));  // p in v's dtype for PV
 #pragma unroll
           for (int e = 0; e < EPL; ++e)
@@ -207,15 +253,18 @@ __global__ void paged_attention_kernel(
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* ck, const void* cv, const int* table,
-           const int* pos, void* out, int B, int tq, int H, int KV, int bs,
-           int max_blocks, int window, float scale, cudaStream_t stream) {
+template <typename T, typename P, int D>
+int launch(const void* q, const void* ck, const void* cv, const float* ksc,
+           const float* vsc, const int* table, const int* pos, void* out,
+           int B, int tq, int H, int KV, int bs, int max_blocks, int window,
+           float scale, cudaStream_t stream) {
   const int R = (H / KV) * tq;
   const int nwarps = R < kMaxWarps ? R : kMaxWarps;
-  const size_t smem = 2 * static_cast<size_t>(bs) * D * sizeof(T) +
-                      static_cast<size_t>(nwarps) * kMaxBlock * sizeof(float);
-  auto kern = paged_attention_kernel<T, D>;
+  const size_t smem =
+      2 * static_cast<size_t>(bs) * D * sizeof(T) +
+      (static_cast<size_t>(nwarps) + (sizeof(P) == 1 ? 2 : 0)) * kMaxBlock *
+          sizeof(float);
+  auto kern = paged_attention_kernel<T, P, D>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -224,42 +273,51 @@ int launch(const void* q, const void* ck, const void* cv, const int* table,
   }
   dim3 grid(KV, B);
   kern<<<grid, nwarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ck),
-      static_cast<const T*>(cv), table, pos, static_cast<T*>(out), tq, H, KV,
-      bs, max_blocks, window, scale);
+      static_cast<const T*>(q), static_cast<const P*>(ck),
+      static_cast<const P*>(cv), ksc, vsc, table, pos, static_cast<T*>(out),
+      tq, H, KV, bs, max_blocks, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C interface (bound with ctypes).  dtype: 0 = float32, 1 = bfloat16.
-// window <= 0 means no window.  Returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue for a shape the kernel
-// does not take (the Python wrapper checks these first).
+// C interface (bound with ctypes).  dtype (of q and out): 0 = float32,
+// 1 = bfloat16.  quant: 0 = the pools are q's dtype (ksc, vsc unused),
+// 1 = s8 pools with fp32 scale pools ksc / vsc.  window <= 0 means no
+// window.  Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape the kernel does not take (the Python
+// wrapper checks these first).
 extern "C" int bps_paged_attention(const void* q, const void* ck,
-                                   const void* cv, const int* table,
+                                   const void* cv, const float* ksc,
+                                   const float* vsc, const int* table,
                                    const int* pos, void* out, int B, int tq,
                                    int H, int KV, int D, int bs,
                                    int max_blocks, int window, int dtype,
-                                   float scale, void* stream) {
+                                   int quant, float scale, void* stream) {
   if (B < 1 || tq < 1 || KV < 1 || H % KV != 0 || bs < 1 ||
       bs > kMaxBlock || max_blocks < 1 ||
       (D != 16 && D != 32 && D != 64 && D != 128) ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (quant != 0 && quant != 1) ||
+      (quant == 1 && (ksc == nullptr || vsc == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BPS_PAGED_LAUNCH(TYPE, DIM)                                       \
-  return launch<TYPE, DIM>(q, ck, cv, table, pos, out, B, tq, H, KV, bs, \
-                           max_blocks, window, scale, s)
-#define BPS_PAGED_DIMS(TYPE)          \
-  switch (D) {                        \
-    case 16: BPS_PAGED_LAUNCH(TYPE, 16);  \
-    case 32: BPS_PAGED_LAUNCH(TYPE, 32);  \
-    case 64: BPS_PAGED_LAUNCH(TYPE, 64);  \
-    default: BPS_PAGED_LAUNCH(TYPE, 128); \
+#define BPS_PAGED_LAUNCH(TYPE, POOL, DIM)                                  \
+  return launch<TYPE, POOL, DIM>(q, ck, cv, ksc, vsc, table, pos, out, B, \
+                                 tq, H, KV, bs, max_blocks, window, scale, \
+                                 s)
+#define BPS_PAGED_DIMS(TYPE, POOL)             \
+  switch (D) {                                 \
+    case 16: BPS_PAGED_LAUNCH(TYPE, POOL, 16);  \
+    case 32: BPS_PAGED_LAUNCH(TYPE, POOL, 32);  \
+    case 64: BPS_PAGED_LAUNCH(TYPE, POOL, 64);  \
+    default: BPS_PAGED_LAUNCH(TYPE, POOL, 128); \
   }
-  if (dtype == 0) BPS_PAGED_DIMS(float)
-  BPS_PAGED_DIMS(__nv_bfloat16)
+  if (dtype == 0) {
+    if (quant) BPS_PAGED_DIMS(float, int8_t)
+    BPS_PAGED_DIMS(float, float)
+  }
+  if (quant) BPS_PAGED_DIMS(__nv_bfloat16, int8_t)
+  BPS_PAGED_DIMS(__nv_bfloat16, __nv_bfloat16)
 #undef BPS_PAGED_DIMS
 #undef BPS_PAGED_LAUNCH
 }

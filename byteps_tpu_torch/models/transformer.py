@@ -60,7 +60,7 @@ from torch import nn
 
 from ..ops.decode_attention import decode_attention, decode_attention_usable
 from ..ops.flash_attention import flash_attention
-from ..ops.paged_attention import paged_attention
+from ..ops.paged_attention import paged_attention, paged_attention_sharded
 from ..ops.quant_dot import quant_linear, quantize_weight
 
 __all__ = ["TransformerConfig", "Transformer", "apply_rope",
@@ -430,18 +430,43 @@ class Attention(nn.Module):
         SHARED flat block pool at the host-computed ``(wblk, woff)
         [N, tq]`` targets (in place — JAX donates and returns the
         pool), then the paged-attention kernel reads allocated,
-        position-covered blocks through the block table."""
+        position-covered blocks through the block table.
+
+        An int8 pool is written quantized (``_quantize_kv``: s8 values
+        and their scale rows), so every read of these positions, this
+        step's included, sees the stored bytes — which is what lets a
+        re-prefill after preemption reproduce them.  A tp pool ``[tp,
+        n_blocks, block, (KV/tp)*D]`` takes each shard's KV-head slice
+        of the head-major row, and attention runs shard by shard
+        (:func:`paged_attention_sharded`); the table and targets are
+        the same on every shard."""
         B, T, _ = x.shape
         rpos = pos[:, None] + torch.arange(T, device=x.device)[None, :]
         q, k, v = self._qkv(x, rpos)
         pk, pv = cache["k"], cache["v"]
-        pk[wblk, woff] = k.reshape(B, T, -1).to(pk.dtype)
-        pv[wblk, woff] = v.reshape(B, T, -1).to(pv.dtype)
-        out = paged_attention(q, pk, pv, tables, pos,
-                              window=self.cfg.attn_window)
+        tp = pk.shape[0] if pk.ndim == 4 else 1
+        dst = (wblk, woff) if tp == 1 else (slice(None), wblk, woff)
+
+        def rows(t):  # [B, T, W] -> the pool's [(tp,) B, T, W/tp]
+            t = t.reshape(B, T, -1)
+            return t if tp == 1 else t.reshape(B, T, tp, -1).permute(
+                2, 0, 1, 3)
+
+        scales = {}
+        if pk.dtype == torch.int8:
+            (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+            scales = {"k_scale": cache["k_scale"],
+                      "v_scale": cache["v_scale"]}
+            scales["k_scale"][dst] = rows(ks)
+            scales["v_scale"][dst] = rows(vs)
+        pk[dst] = rows(k).to(pk.dtype)
+        pv[dst] = rows(v).to(pv.dtype)
+        attend = paged_attention if tp == 1 else paged_attention_sharded
+        out = attend(q, pk, pv, tables, pos, window=self.cfg.attn_window,
+                     **scales)
         return self.o(out.reshape(B, T, -1))
 
-    def forward_cached(self, x, row, pos: int):
+    def forward_cached(self, x, row, pos: int, fresh_prefill: bool = True):
         """Cached attention at the absolute offset ``pos``: the fresh K/V
         is written into ``row`` at ``[pos, pos+T)`` in place (quantized at
         write for an int8 cache), then attended, dispatched as the JAX
@@ -452,7 +477,11 @@ class Attention(nn.Module):
         forward on the fresh K/V; other prompts at ``pos = 0`` on a flat
         or int8 cache attend the fresh, unquantized K/V densely; the rest
         is dense on the grouped ``[B, S, KV, D]`` view
-        (``_cached_attention`` / ``_cached_attention_q8``)."""
+        (``_cached_attention`` / ``_cached_attention_q8``).
+        ``fresh_prefill=False`` drops the two ``pos = 0`` shortcuts, so a
+        prompt attends the rows as any chunk does — the paged engine's
+        chunks (JAX's traced position), whose int8 prompt must read the
+        quantized values its later chunks and decode steps read."""
         cfg = self.cfg
         if not cfg.causal:
             raise ValueError("KV-cache decode requires causal=True")
@@ -474,7 +503,8 @@ class Attention(nn.Module):
         ck[:, pos:pos + T] = kw.reshape(B, T, *ck.shape[2:])
         cv[:, pos:pos + T] = vw.reshape(B, T, *cv.shape[2:])
         scales = (row["k_scale"], row["v_scale"]) if quant else (None, None)
-        if (pos == 0 and T > 1 and cfg.attn_impl == "flash"
+        at_zero = pos == 0 and fresh_prefill
+        if (at_zero and T > 1 and cfg.attn_impl == "flash"
                 and math.gcd(T, 1024) >= 128):
             # prefill: the valid keys are exactly the fresh k/v (an int8
             # cache's prompt attends them unquantized, as in JAX)
@@ -482,7 +512,7 @@ class Attention(nn.Module):
         elif flat and T == 1:
             out = decode_attention(q, ck, cv, pos, k_scale=scales[0],
                                    v_scale=scales[1], window=w)
-        elif pos == 0 and (flat or quant):
+        elif at_zero and (flat or quant):
             out = _cached_attention(q, k, v, 0, window=w)
         else:
             gk = ck.view(B, S, KV, D) if flat else ck
@@ -537,9 +567,9 @@ class Block(nn.Module):
         return self._finish(x, self.attn.forward_paged(
             self.ln1(x), cache, tables, pos, wblk, woff))
 
-    def forward_cached(self, x, row, pos: int):
+    def forward_cached(self, x, row, pos: int, fresh_prefill: bool = True):
         return self._finish(x, self.attn.forward_cached(
-            self.ln1(x), row, pos))
+            self.ln1(x), row, pos, fresh_prefill))
 
 
 class Transformer(nn.Module):
@@ -657,19 +687,20 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, caches: Sequence[dict], pos: int,
-               last_only: bool = False, last_idx: Optional[int] = None):
+               last_only: bool = False, last_idx: Optional[int] = None,
+               fresh_prefill: bool = True):
         """One step over ``tokens [B, tq]`` at absolute offset ``pos``
         against per-layer caches from ``init_cache`` (flat or grouped, fp
         or int8), written in place at ``[pos, pos + tq)``.
         Returns ``(logits, caches)``.  Serves prefill (``pos=0``, the
         prompt) and decode (``tq=1``) alike; ``last_idx`` narrows the
         head to one chunk-local row (a right-padded chunk's true last
-        token)."""
+        token); ``fresh_prefill`` as in ``Attention.forward_cached``."""
         T = tokens.shape[1]
         x = self._embed(tokens, (pos + torch.arange(
             T, device=tokens.device))[None, :])
         for block, c in zip(self.blocks, caches):
-            x = block.forward_cached(x, c, pos)
+            x = block.forward_cached(x, c, pos, fresh_prefill)
         return self._head(x, last_only, last_idx), caches
 
     @torch.no_grad()
@@ -682,21 +713,36 @@ class Transformer(nn.Module):
         the table (entries past the slot's grant are the null block, so
         pad positions land there).  Returns ``[1, 1, vocab]`` logits at
         chunk-local ``last_idx`` — the JAX engine's gather -> chunk ->
-        scatter (``_paged_chunk_fn``), with the scatter done here."""
+        scatter (``_paged_chunk_fn``), with the scatter done here.
+
+        Every chunk, the first included, attends the gathered rows
+        (``fresh_prefill=False``): over an int8 pool the chunk writes
+        quantized rows and attends the s8 values and scales
+        (``_cached_attention_q8``), the bytes decode reads.  A tp pool is
+        gathered into the unsharded row and scattered back per shard."""
         cfg = self.cfg
         C = tokens.shape[1]
-        bs = pools[0]["k"].shape[1]
+        k0 = pools[0]["k"]
+        tp = k0.shape[0] if k0.ndim == 4 else 1
+        bs = k0.shape[-2]
         nb = -(-(pos + C) // bs)
         rows = gather_paged_rows(pools, table, hw_blocks=nb)
-        grouped = [{n: r[n].view(1, nb * bs, cfg.kv_heads, cfg.d_head)
-                    for n in r} for r in rows]
-        logits, _ = self.decode(tokens, grouped, pos, last_idx=last_idx)
+        grouped = [{n: (r[n].view(1, nb * bs, cfg.kv_heads, cfg.d_head)
+                        if n in ("k", "v") else r[n]) for n in r}
+                   for r in rows]
+        logits, _ = self.decode(tokens, grouped, pos, last_idx=last_idx,
+                                fresh_prefill=False)
         p = torch.arange(pos, pos + C, device=table.device)
         blk = table[p // bs].long()
         off = p % bs
         for pool, row in zip(pools, rows):
             for n in pool:
-                pool[n][blk, off] = row[n][0, pos:pos + C]
+                fresh = row[n][0, pos:pos + C]
+                if tp == 1:
+                    pool[n][blk, off] = fresh
+                else:
+                    pool[n][:, blk, off] = fresh.reshape(C, tp, -1).permute(
+                        1, 0, 2)
         return logits
 
     @torch.no_grad()
@@ -709,10 +755,15 @@ class Transformer(nn.Module):
         [N, tq]`` and the paged-attention kernel reads the blocks in
         place through ``tables [N, max_blocks]``; ``pos [N]`` holds
         per-slot cursors.  Returns ``logits [N, tq|1, vocab]``; the
-        pools are updated in place."""
+        pools (fp, int8 or tp, ``Attention.forward_paged``) are updated
+        in place.  ``tq = 1`` is a decode step; ``tq = k + 1`` is the
+        speculative verify (JAX ``verify_tokens_paged_fused``): the
+        kernel treats every query row alike at any width."""
         T = tokens.shape[1]
         positions = pos[:, None] + torch.arange(T, device=pos.device)[None]
-        x = self._embed(tokens, positions)
+        # a verify span may run past the row's end, where its rows are
+        # discarded: keep a learned table's lookup in range
+        x = self._embed(tokens, positions.clamp(max=self.cfg.max_seq_len - 1))
         wb, wo = wblk.long(), woff.long()
         for block, c in zip(self.blocks, pools):
             x = block.forward_paged(x, c, tables, pos, wb, wo)
@@ -724,7 +775,9 @@ def gather_paged_rows(pools: Sequence[dict], table: torch.Tensor,
     """One slot's contiguous view of flat per-layer pools ``[n_blocks,
     block, X]`` through its table ``[max_blocks]`` ->
     ``[1, hw_blocks * block, X]`` (a copy; ``hw_blocks`` caps the
-    gather at the slot's high-water block)."""
+    gather at the slot's high-water block).  Per-shard pools ``[tp,
+    n_blocks, block, X]`` give the unsharded row ``[1, S, tp * X]``: the
+    shards' minor axes side by side, which is the head-major row."""
     if hw_blocks is not None:
         table = table[:hw_blocks]
     idx = table.long()
@@ -732,9 +785,14 @@ def gather_paged_rows(pools: Sequence[dict], table: torch.Tensor,
     for layer in pools:
         row = {}
         for name, c in layer.items():
-            g = c[idx]
-            row[name] = g.reshape((1, g.shape[0] * g.shape[1])
-                                  + tuple(g.shape[2:]))
+            if c.ndim == 4:
+                g = c[:, idx]                     # [tp, nb, block, X]
+                row[name] = g.permute(1, 2, 0, 3).reshape(
+                    1, g.shape[1] * g.shape[2], -1)
+            else:
+                g = c[idx]
+                row[name] = g.reshape((1, g.shape[0] * g.shape[1])
+                                      + tuple(g.shape[2:]))
         out.append(row)
     return out
 

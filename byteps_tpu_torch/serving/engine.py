@@ -18,24 +18,52 @@ budget, run ONE decode pass over every active slot, return credits.
     Masked slots (free or PREFILLING) sit at pos 0 and write the null
     block.
   * **block pressure** — blocks are granted lazily at boundary
-    crossings; on exhaustion the newest other request is preempted back
-    to QUEUED (its blocks return to the pool) and later re-prefills
-    prompt + emitted tokens, resuming from its parked next-input token.
+    crossings; on exhaustion the prefix store gives up its least
+    recently used unpinned blocks first, then the newest other request
+    is preempted back to QUEUED (its blocks return to the pool) and
+    later re-prefills prompt + emitted tokens, resuming from its parked
+    next-input token.
+  * **int8 / tp pools** (``kv_dtype="int8"``, ``tp > 1``) — the pool
+    holds s8 values with fp32 scale rows, quantized as they are written
+    (so a re-prefill writes the same bytes), and/or one sub-pool per
+    KV-head slice; the kernel reads either (``ops/paged_attention.py``).
+  * **prefix reuse** (``prefix_cache``, ``serving/prefix.py``) — at
+    admission the longest stored block-aligned prefix of the sequence
+    is adopted into the slot's table (refcount bumps, no copy) and
+    prefill resumes at its boundary; after prefill the sequence's full
+    blocks are inserted.  A chunk whose start is shifted left over a
+    shared block forks it first (copy-on-write, ``_cow_copy``).
+  * **speculative decoding** (``spec_k > 0``, ``serving/spec.py``) —
+    every tick is a verify pass: the kernel at ``tq = k + 1`` over every
+    slot (a span that runs past its row's end too: the rows there are
+    discarded), inputs its next token and the proposals its own history made
+    (none is fine), each slot emitting the model's tokens up to the
+    first rejected proposal (at least one, so it never emits fewer than
+    a plain tick), truncated at its budget and at EOS
+    (``_verify_tick``).  Blocks are granted for the span first; a
+    proposal the grant cannot cover is clipped.  The JAX engine verifies
+    only on ticks where some slot proposes, at the depth bucket of the
+    longest proposal; here the width is fixed because the card's GEMM
+    and reduction kernels depend on the row count, so a slot's
+    arithmetic would otherwise depend on what the other slots propose,
+    and streams could differ from run to run with the batch's makeup.
 
 Greedy streams are token-identical to the JAX engine (and to
 ``generate()``).  Sampled streams use the port's own noise chain,
 ``inference.token_generator(seed, k)`` — a pure function of the
 request's seed and the index of the token being drawn — so a stream
-repeats exactly across runs, batch compositions and preemptions, but
-does not reproduce ``jax.random``'s draws (the JAX engine replays its
-``PRNGKey`` split chain instead, ``_resume_key_chain``).
+repeats exactly across runs, batch compositions, preemptions and
+speculation (the draw for token ``k`` is the same whether a verify or a
+plain tick emits it), but does not reproduce ``jax.random``'s draws
+(the JAX engine replays its ``PRNGKey`` split chain instead,
+``_resume_key_chain``).
 
 PyTorch runs eagerly, so there are no compiled programs to count:
-:meth:`step_counts` reports the decode ticks and prefill chunks run,
+:meth:`step_counts` reports the decode and verify ticks, prefill chunks,
+proposed and accepted tokens, prefix hits and copy-on-write forks run,
 and the paged-attention kernel's launch count.
 
-Not ported in this slice: the dense slot pool, the prefix cache,
-speculative decoding, int8 pools, tensor parallelism, disaggregated
+Not ported yet: the dense slot pool, the gather fallback, disaggregated
 KV shipping and router epochs (ROADMAP queue A).
 """
 
@@ -60,7 +88,9 @@ from ..ops import paged_attention as _pa
 from . import metrics as sm
 from .blocks import BlocksExhaustedError, PagedSlotPool
 from .metrics import ServeMetrics, get_serve_metrics
+from .prefix import PagedPrefixCache, weights_fingerprint
 from .scheduler import ServeScheduler
+from .spec import NgramProposer
 
 __all__ = ["Request", "RequestState", "ServingEngine", "resolve_device"]
 
@@ -102,6 +132,13 @@ class Request:
     _hold_blocks: int = dataclasses.field(default=0, repr=False)
     # tokens pre-seeded by a resume submit (another engine emitted them)
     _resumed_n: int = dataclasses.field(default=0, repr=False)
+    # rolling prefix-block digests of _seq, computed once at admission
+    _prefix_digs: Optional[list] = dataclasses.field(default=None,
+                                                     repr=False)
+    # the proposer's context (prompt + emitted tokens) and its fill
+    _spec_ctx: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                        repr=False)
+    _spec_n: int = dataclasses.field(default=0, repr=False)
     _task: Optional[object] = dataclasses.field(default=None, repr=False)
     t_submit: float = 0.0
     t_admit: float = 0.0
@@ -160,6 +197,13 @@ class ServingEngine:
     :func:`resolve_device`).  Paged with the kernel only: the JAX
     engine's ``paged`` / ``paged_kernel`` choices have one value here.
 
+    ``kv_dtype`` ("" or "int8") and ``tp`` shape the pool;
+    ``prefix_cache`` turns on the radix prefix store, of at most
+    ``prefix_bytes``, matching at the pool's ``block`` (a ``prefix_block``
+    other than ``block`` selects the dense store's own granularity, which
+    is not ported, and is refused); ``spec_k > 0`` turns on speculation with up to
+    ``spec_k`` proposed tokens (rounded down to a power of two) from a
+    trailing n-gram of up to ``spec_ngram`` tokens (floored at 2).
     Sampling parameters are fixed per engine; per-request variation
     rides the ``seed``.  Drive it with :meth:`step` (deterministic,
     single-threaded) or :meth:`start`'s background tick thread."""
@@ -170,12 +214,25 @@ class ServingEngine:
                  eos_id: Optional[int] = None, max_queue: int = 64,
                  prefill_credits: Optional[int] = None, chunk: int = 0,
                  block: int = 16, kv_mb: int = 0,
-                 kv_blocks: Optional[int] = None,
+                 kv_blocks: Optional[int] = None, kv_dtype: str = "",
+                 tp: int = 1, prefix_cache: bool = False,
+                 prefix_block: Optional[int] = None,
+                 prefix_bytes: int = 256 << 20, spec_k: int = 0,
+                 spec_ngram: int = 3,
                  metrics: Optional[ServeMetrics] = None, device=None):
         self.device = resolve_device(device)
         cfg = model.cfg
+        if tp < 1 or cfg.num_heads % tp:
+            raise ValueError(f"tp ({tp}) must be >= 1 and divide num_heads "
+                             f"({cfg.num_heads}) so query head slices "
+                             f"align with KV head slices")
+        if prefix_block is not None and prefix_block != block:
+            raise NotImplementedError(
+                f"prefix_block {prefix_block} != block {block}: a paged "
+                f"store matches at the pool's block; the dense store that "
+                f"takes its own granularity is not ported")
         if self.device.type == "cuda":
-            _pa.check_kernel_config(cfg.dtype, cfg.d_head, block)
+            _pa.check_kernel_config(cfg.dtype, cfg.d_head, block, kv_dtype)
         self.model = model.to(self.device).eval()
         self.max_seq = max_seq if max_seq is not None else cfg.max_seq_len
         self.temperature = temperature
@@ -190,8 +247,21 @@ class ServingEngine:
                                    self.max_seq) if chunk and chunk > 0
                       else 0)
         self.pool = PagedSlotPool(cfg, n_slots, self.max_seq, block=block,
-                                  n_blocks=kv_blocks,
-                                  kv_bytes=kv_mb << 20, device=self.device)
+                                  n_blocks=kv_blocks, kv_bytes=kv_mb << 20,
+                                  kv_dtype=kv_dtype, tp=tp,
+                                  device=self.device)
+        self.kv_dtype = kv_dtype
+        self.tp = tp
+        # speculation depth rounds DOWN to a power of two (the JAX
+        # engine's verify buckets); single-token n-grams are noise
+        if spec_k and spec_k > 0:
+            k = 1
+            while k * 2 <= spec_k:
+                k *= 2
+            self.spec: Optional[NgramProposer] = NgramProposer(
+                k, max(2, spec_ngram))
+        else:
+            self.spec = None
         # credit budget in padded prefill tokens per tick: one max-length
         # prefill (or one chunk) unless set
         budget = (prefill_credits if prefill_credits and prefill_credits > 0
@@ -201,6 +271,24 @@ class ServingEngine:
         self.scheduler = ServeScheduler(max_queue=max_queue,
                                         credit_budget=budget)
         self.metrics = metrics if metrics is not None else get_serve_metrics()
+        # the prefix store references this pool's blocks, so it is
+        # private; its keys are salted with the weights and the pool's
+        # geometry, as in JAX
+        self._weights_fp: Optional[str] = None
+        self._prefix_salt = b""
+        self.prefix: Optional[PagedPrefixCache] = None
+        if prefix_cache:
+            self.prefix = PagedPrefixCache(
+                self.pool.alloc, block=self.pool.block,
+                block_bytes=self.pool.block_bytes, max_bytes=prefix_bytes,
+                on_evict=lambda n: self.metrics.bump(sm.BLOCK_EVICTIONS, n))
+            geom = hashlib.blake2b(digest_size=16)
+            for layer in self.pool.caches[:1]:
+                for name, t in sorted(layer.items()):
+                    geom.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
+            wfp = weights_fingerprint(self.model)
+            self._weights_fp = wfp.hex()
+            self._prefix_salt = wfp + geom.digest()
         self._lock = threading.RLock()
         self._req_seq = 0
         self._slot_req: List[Optional[Request]] = [None] * n_slots
@@ -216,9 +304,13 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
         self._stop_flag = False
         self._engine_error: Optional[BaseException] = None
-        self._weights_fp: Optional[str] = None
-        self.decode_ticks = 0
+        self.decode_ticks = 0       # decode and verify ticks
+        self.verify_ticks = 0
         self.prefill_chunks = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.prefix_hits = 0
+        self.cow_copies = 0
 
     # ------------------------------------------------------------- submit
 
@@ -369,6 +461,7 @@ class ServingEngine:
             bs = self.pool.block_stats()
             self.metrics.gauge(sm.KV_BLOCKS_FREE, bs["free"])
             self.metrics.gauge(sm.KV_BLOCKS_USED, bs["used"])
+            self.metrics.gauge(sm.KV_BLOCKS_SHARED, bs["shared"])
         return {"admitted": admitted, "emitted": emitted,
                 "active": self.pool.active_count,
                 "queued": self.scheduler.depth,
@@ -388,19 +481,42 @@ class ServingEngine:
             req.t_admit = time.monotonic()
             self.metrics.bump(sm.ADMITTED)
         self._slot_req[slot] = req
+        p0 = 0
+        if self.prefix is not None:
+            req._prefix_digs = self.prefix.digests_for(
+                seq, salt=self._prefix_salt)
+            m = self.prefix.match(seq, salt=self._prefix_salt,
+                                  digests=req._prefix_digs)
+            if m is not None:
+                # a hit shares the stored blocks (no copy) and prefill
+                # resumes at the boundary: the shared bytes are the K/V
+                # the prefill would recompute
+                entry, p0 = m
+                self.prefix.acquire(entry)
+                try:
+                    self.pool.share_prefix(
+                        slot, entry.buffer[:p0 // self.pool.block])
+                finally:
+                    self.prefix.release(entry)
+                self.prefix_hits += 1
+                self.metrics.bump(sm.PREFIX_HITS)
+                self.metrics.bump(sm.PREFIX_HIT_TOKENS, p0)
+            else:
+                self.metrics.bump(sm.PREFIX_MISSES)
         req.state = RequestState.PREFILLING
-        req.prefill_pos = 0
+        req.prefill_pos = p0
         req._pf_paid = True
         self._prefilling[slot] = req
         return self._advance_prefill(req)
 
-    def _select(self, logits_last: torch.Tensor, req: Request) -> int:
-        """Pick the next token of ``req`` from ``[1, vocab]`` logits:
-        argmax, or a draw from ``token_generator(seed, k)`` for the
-        request's ``k``-th token."""
+    def _select(self, logits_last: torch.Tensor, req: Request,
+                k: Optional[int] = None) -> int:
+        """Pick token ``k`` (default: the next) of ``req`` from ``[1,
+        vocab]`` logits: argmax, or a draw from ``token_generator(seed,
+        k)``."""
         if self.greedy:
             return int(torch.argmax(logits_last[0]).item())
-        g = token_generator(req.seed, len(req.tokens))
+        g = token_generator(req.seed, len(req.tokens) if k is None else k)
         return int(sample_logits(logits_last, g, self.temperature,
                                  self.top_k, self.top_p)[0].item())
 
@@ -436,10 +552,16 @@ class ServingEngine:
             # K/V recomputes to the same values)
             start = min(p0, S - bucket)
             # lazy grant for the chunk's REAL tokens; padding lands on
-            # the null block through the table's null entries
+            # the null block through the table's null entries.  Then fork
+            # any shared block the span touches (only a shifted-left
+            # re-feed reaches one), so shared blocks are never written
             if not self._with_block_pressure(
                     req, lambda: self.pool.ensure_blocks(
                         slot, min(start + bucket, T))):
+                return 0
+            if not self._with_block_pressure(
+                    req, lambda: self.pool.make_writable(
+                        slot, start, start + bucket, self._cow_copy)):
                 return 0
             toks = np.full((1, bucket), self.pad_id, np.int64)
             end = min(start + bucket, T)
@@ -457,6 +579,7 @@ class ServingEngine:
             if final:
                 del self._prefilling[slot]
                 req.state = RequestState.ACTIVE
+                self._maybe_insert_prefix(req)
                 if req._resume_tok is not None:
                     # resuming: every emitted token's K/V is rebuilt;
                     # the parked next-input token continues the stream
@@ -468,17 +591,45 @@ class ServingEngine:
                 self._emit(req, tok0)
                 return 1
 
+    def _maybe_insert_prefix(self, req: Request) -> None:
+        """After a completed prefill, register the sequence's full
+        blocks in the prefix store (refcount bumps, no copy); skipped
+        when its last full boundary is already stored."""
+        if self.prefix is None:
+            return
+        seq = req._seq if req._seq is not None else req.prompt
+        ins = self.prefix.insertable_len(seq, salt=self._prefix_salt,
+                                         digests=req._prefix_digs)
+        if ins <= 0:
+            return
+        ids = self.pool.tables[req.slot].blocks[:ins // self.pool.block]
+        if (len(ids) == ins // self.pool.block
+                and self.prefix.insert_blocks(
+                    seq[:ins], ids, salt=self._prefix_salt,
+                    digests=req._prefix_digs)):
+            self.metrics.bump(sm.PREFIX_INSERTIONS)
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Device side of a copy-on-write fork
+        (``PagedSlotPool.make_writable``)."""
+        self.pool.copy_block(src, dst)
+        self.cow_copies += 1
+
     def _with_block_pressure(self, req: Request, fn) -> bool:
-        """Run ``fn()`` (a block grant for ``req``); on exhaustion
-        preempt the NEWEST other in-flight request and retry; if ``req``
-        is itself the newest it yields (back to QUEUED); alone and still
-        short it fails with the typed error.  False = ``req`` lost its
-        slot this tick."""
+        """Run ``fn()`` (a block grant for ``req``); on exhaustion evict
+        unpinned prefix-store blocks (cheapest: they can be recomputed),
+        else preempt the NEWEST other in-flight request and retry; if
+        ``req`` is itself the newest it yields (back to QUEUED); alone
+        and still short it fails with the typed error.  False = ``req``
+        lost its slot this tick."""
         while True:
             try:
                 fn()
                 return True
             except BlocksExhaustedError as e:
+                if self.prefix is not None and self.prefix.evict_for(
+                        max(1, e.needed - e.free)):
+                    continue
                 others = [self._slot_req[s]
                           for s in self.pool.active_slots()
                           if self._slot_req[s] is not None
@@ -530,6 +681,8 @@ class ServingEngine:
                   and s not in self._prefilling]
         if not active:
             return 0
+        if self.spec is not None:
+            return self._verify_tick(active, self._collect_proposals(active))
         self.decode_ticks += 1
         self.metrics.bump(sm.DECODE_TICKS)
         pos = np.zeros((n,), np.int32)
@@ -558,6 +711,120 @@ class ServingEngine:
             self.pool.advance(slot)
             self._emit(req, int(nxt[slot]))
             emitted += 1
+        return emitted
+
+    def _collect_proposals(self, active: List[int]) -> Dict[int, List[int]]:
+        """Per active slot, up to ``k`` proposed continuations from the
+        request's own prompt + emitted history, capped at its remaining
+        row space and token budget minus one (tokens past either could
+        never be emitted); slots with none are left out."""
+        props: Dict[int, List[int]] = {}
+        S = self.max_seq
+        for slot in active:
+            req = self._slot_req[slot]
+            if req is None or not req.tokens:
+                continue
+            cap = min(S - self.pool.pos[slot] - 1,
+                      req.max_new_tokens - len(req.tokens) - 1)
+            if cap < 1:
+                continue
+            P = int(req.prompt.shape[0])
+            if req._spec_ctx is None:
+                req._spec_ctx = np.empty(P + req.max_new_tokens, np.int32)
+                req._spec_ctx[:P] = req.prompt
+                req._spec_n = P
+            k = len(req.tokens)
+            have = req._spec_n - P
+            if k > have:
+                req._spec_ctx[P + have:P + k] = req.tokens[have:]
+                req._spec_n = P + k
+            p = self.spec.propose(req._spec_ctx[:req._spec_n], cap)
+            if p:
+                props[slot] = p
+        return props
+
+    def _verify_tick(self, active: List[int],
+                     props: Dict[int, List[int]]) -> int:
+        """One speculative tick: every slot rides one kernel pass at
+        ``tq = k + 1``, inputs ``[next token, proposals...]`` at ``[pos,
+        pos + tq)``.  Slot ``s`` emits the model's tokens ``t_0..t_{m-1}``
+        with ``m = 1 + `` the leading run of proposals equal to the
+        model's own tokens, truncated at its budget and at the first
+        EOS; ``t_{m-1}`` is its next input and its cursor moves ``m``.
+        Rejected positions' K/V lies past the cursor, never attended
+        before it is rewritten.  The width never changes, so a slot's
+        arithmetic does not depend on the other slots: near the row's
+        end a span's positions past the granted blocks write the null
+        block, and their rows (which the kernel serves from the row's
+        own blocks) are discarded, as proposals are capped to the row."""
+        n = self.pool.n_slots
+        S = self.max_seq
+        blk = self.pool.block
+        d = self.spec.k
+        tq = d + 1
+        toks = np.full((n, tq), self.pad_id, np.int64)
+        toks[:, 0] = self._tok
+        plen = np.zeros((n,), np.int64)
+        pos = np.zeros((n,), np.int32)
+        wblk = np.full((n, tq), self.pool.null_block, np.int32)
+        woff = np.zeros((n, tq), np.int32)
+        for slot in active:
+            p0 = self.pool.pos[slot]
+            pos[slot] = p0
+            p = props.get(slot, [])[:d]
+            toks[slot, 1:1 + len(p)] = p
+            # best-effort span grant: speculation never evicts or
+            # preempts to hold guess-width; a proposal the grant cannot
+            # cover is clipped before the verify, so acceptance never
+            # moves a cursor onto an unwritten position
+            try:
+                self.pool.ensure_blocks(slot, min(p0 + 1 + len(p), S))
+            except BlocksExhaustedError:
+                pass
+            table = self.pool.tables[slot].blocks
+            cov = len(table) * blk - p0
+            plen[slot] = min(len(p), cov - 1)
+            for j in range(min(tq, cov)):
+                wblk[slot, j] = table[(p0 + j) // blk]
+                woff[slot, j] = (p0 + j) % blk
+        self.decode_ticks += 1
+        self.verify_ticks += 1
+        self.metrics.bump(sm.DECODE_TICKS)
+        self.metrics.bump(sm.SPEC_VERIFY_TICKS)
+        dev = self.device
+        logits = self.model.decode_paged_fused(
+            torch.from_numpy(toks).to(dev), self.pool.caches,
+            self.pool.tables_device(), torch.from_numpy(pos).to(dev),
+            torch.from_numpy(wblk).to(dev), torch.from_numpy(woff).to(dev))
+        tmat = (torch.argmax(logits, dim=-1).cpu().numpy() if self.greedy
+                else None)                                # [n, tq]
+        emitted = accepted = 0
+        for slot in active:
+            req = self._slot_req[slot]
+            k0 = len(req.tokens)
+            # the model's token at each position that could be emitted:
+            # argmax, or the draw of token k0 + i from its own generator
+            # (the draw a plain tick would make for that token)
+            cand = [int(tmat[slot, i]) if self.greedy else self._select(
+                logits[slot, i:i + 1], req, k0 + i)
+                for i in range(int(plen[slot]) + 1)]
+            lead = 0
+            while lead < plen[slot] and toks[slot, 1 + lead] == cand[lead]:
+                lead += 1
+            m = min(1 + lead, max(req.max_new_tokens - k0, 1))
+            if self.eos_id is not None and self.eos_id in cand[:m]:
+                m = cand.index(self.eos_id) + 1
+            accepted += lead
+            self._tok[slot] = cand[m - 1]
+            self.pool.advance(slot, m)
+            for t in cand[:m]:
+                self._emit(req, t)
+                emitted += 1
+        self.spec_proposed += int(plen.sum())
+        self.spec_accepted += accepted
+        self.metrics.bump(sm.SPEC_PROPOSED, int(plen.sum()))
+        if accepted:
+            self.metrics.bump(sm.SPEC_ACCEPTED, accepted)
         return emitted
 
     def _emit(self, req: Request, tok: int) -> None:
@@ -679,21 +946,23 @@ class ServingEngine:
 
     @property
     def weights_fp(self) -> str:
-        """Hex blake2b fingerprint of the weights (names, shapes, dtypes,
-        bytes), computed once on first use."""
+        """Hex fingerprint of the weights (``prefix.weights_fingerprint``,
+        the digest the prefix keys are salted with), computed once."""
         if self._weights_fp is None:
-            h = hashlib.blake2b(digest_size=16)
-            for name, t in sorted(self.model.state_dict().items()):
-                t = t.detach().contiguous().cpu()
-                h.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
-                h.update(t.view(torch.uint8).numpy().tobytes())
-            self._weights_fp = h.hexdigest()
+            self._weights_fp = weights_fingerprint(self.model).hex()
         return self._weights_fp
 
     def step_counts(self) -> Dict[str, int]:
-        """What ran: decode ticks and prefill chunks of this engine, and
-        the paged-attention kernel's process-wide launch count (one per
-        layer per decode tick on a CUDA engine)."""
+        """What ran in this engine: decode ticks (verify ticks included)
+        and verify ticks, prefill chunks, proposed and accepted tokens,
+        prefix hits and copy-on-write forks; and the paged-attention
+        kernel's process-wide launch count (per tick one per layer, tp
+        per layer on a tp pool, on a CUDA engine)."""
         return {"decode_ticks": self.decode_ticks,
+                "verify_ticks": self.verify_ticks,
                 "prefill_chunks": self.prefill_chunks,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "prefix_hits": self.prefix_hits,
+                "cow_copies": self.cow_copies,
                 "paged_attention_launches": _pa.launches}

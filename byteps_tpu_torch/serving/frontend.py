@@ -154,7 +154,8 @@ class _ServeHandler(socketserver.BaseRequestHandler):
              "step_counts": engine.step_counts(),
              "occupancy": engine.pool.occupancy(),
              "queue_depth": engine.scheduler.depth,
-             "prefix_cache": None,
+             "prefix_cache": (engine.prefix.stats()
+                              if engine.prefix is not None else None),
              "kv_blocks": engine.pool.block_stats(),
              "device": str(engine.device),
              "metrics": engine.metrics.registry.snapshot()})
@@ -373,10 +374,12 @@ def _model_from_env(cfg_str: str, device, seed: int = 0):
 def serve_from_env(env=None, device=None, port: Optional[int] = None,
                    in_thread: bool = False):
     """The launcher's ``serve`` role: build the engine from
-    ``BYTEPS_SERVE_*`` and run the TCP frontend (blocking, or with
-    ``in_thread`` returning ``(server, thread)``).  ``device`` defaults
-    to ``cuda`` and raises without a GPU; knobs for features this slice
-    does not port are refused, never ignored."""
+    ``BYTEPS_SERVE_*`` and ``BYTEPS_TP`` and run the TCP frontend
+    (blocking, or with ``in_thread`` returning ``(server, thread)``).
+    ``device`` defaults to ``cuda`` and raises without a GPU; knobs for
+    features the port does not have (a checkpoint, the gather fallback,
+    the dense prefix store's ``BYTEPS_SERVE_PREFIX_BLOCK``) are refused,
+    never ignored."""
     import os
 
     from ..common.config import get_config, reset_config
@@ -389,9 +392,6 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
     cfg = get_config()
     refused = [name for name, on in (
         ("BYTEPS_SERVE_CHECKPOINT", bool(cfg.serve_checkpoint)),
-        ("BYTEPS_SERVE_PREFIX_CACHE", cfg.serve_prefix_cache),
-        ("BYTEPS_SERVE_SPEC", cfg.serve_spec),
-        ("BYTEPS_SERVE_KV_DTYPE", bool(cfg.serve_kv_dtype)),
         ("BYTEPS_SERVE_PAGED_KERNEL=off",
          cfg.serve_paged_kernel not in ("auto", "on"))) if on]
     if refused:
@@ -414,6 +414,13 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
         chunk=cfg.serve_chunk,
         block=cfg.serve_block,
         kv_mb=cfg.serve_kv_mb,
+        kv_dtype=cfg.serve_kv_dtype,
+        tp=cfg.serve_tp,
+        prefix_cache=cfg.serve_prefix_cache,
+        prefix_block=cfg.serve_prefix_block,
+        prefix_bytes=cfg.serve_prefix_mb << 20,
+        spec_k=(cfg.serve_spec_k if cfg.serve_spec else 0),
+        spec_ngram=cfg.serve_spec_ngram,
         device=dev)
     out = serve(engine, cfg.serve_port if port is None else port,
                 in_thread=in_thread)

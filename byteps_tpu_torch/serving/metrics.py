@@ -1,6 +1,7 @@
 """Serving metrics — the port of ``byteps_tpu/serving/metrics.py``
-(the counters the paged engine bumps, TTFT/TPOT/queue-wait histograms,
-KV block gauges), registry-backed by the port's
+(the counters the paged engine bumps — requests, tokens, prefill,
+prefix reuse, speculation, preemption — TTFT/TPOT/queue-wait
+histograms, KV block gauges), registry-backed by the port's
 ``observability/metrics.py``.  Counter names are the JAX package's, so
 a STATS reply reads the same from either engine.
 """
@@ -22,12 +23,28 @@ FAILED = "serve.requests_failed"
 TOKENS = "serve.tokens_generated"
 PREFILL_TOKENS = "serve.prefill_tokens"
 PREFILL_CHUNKS = "serve.prefill_chunks"
+# prefix reuse (serving/prefix.py): lookup outcomes per admission, the
+# tokens whose prefill a hit skipped, and inserts that stored something
+PREFIX_HITS = "serve.prefix_hits"
+PREFIX_MISSES = "serve.prefix_misses"
+PREFIX_HIT_TOKENS = "serve.prefix_hit_tokens"
+PREFIX_INSERTIONS = "serve.prefix_insertions"
 KV_BLOCKS_FREE = "serve.kv_blocks_free"
 KV_BLOCKS_USED = "serve.kv_blocks_used"
+KV_BLOCKS_SHARED = "serve.kv_blocks_shared"
+# prefix-store nodes evicted (each released one block reference)
+BLOCK_EVICTIONS = "serve.block_evictions"
 PREEMPTIONS = "serve.preemptions"
-# ticks that ran a decode forward (the tokens-per-tick denominator; one
-# paged-attention launch per layer per tick)
+# ticks that ran a decode or verify forward (the tokens-per-tick
+# denominator; one paged-attention launch per layer — tp per layer on a
+# tp pool — per tick)
 DECODE_TICKS = "serve.decode_ticks"
+# speculative decoding (serving/spec.py): tokens handed to the verifier,
+# proposed tokens the model confirmed (before budget/EOS truncation),
+# and the ticks that ran a verify pass in place of a plain decode
+SPEC_PROPOSED = "serve.spec_proposed_tokens"
+SPEC_ACCEPTED = "serve.spec_accepted_tokens"
+SPEC_VERIFY_TICKS = "serve.spec_verify_ticks"
 OCCUPANCY = "serve.batch_occupancy"
 QUEUE_DEPTH = "serve.queue_depth"
 TTFT_MS = "serve.ttft_ms"

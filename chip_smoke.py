@@ -32,21 +32,63 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 5. Kernel — the paged-attention kernel against its plain PyTorch version
    on the card at Llama-3.2-1B shapes (H=32, KV=8, D=64, block 16, B=8):
    ragged cursors 1..2047 over null-padded tables, all slots at 2047,
-   tq=1 and tq=4, window 256, fp32 and bf16, plus the cursors of the
-   serve run's last decode tick.  Max abs error <= 1e-4 in fp32 (online
-   vs dense softmax order) and <= 2e-2 in bf16 (p is rounded to bf16
-   before the PV product, so one bf16 ulp of a probability reaches the
-   output).  Times: the kernel, the plain version, and
+   tq=1 and tq=5 (speculation at k=4), window 256, fp32 and bf16, in the
+   fp mode and the int8 mode (s8 pools with fp32 scale pools, the scale
+   rows past each cursor garbage; q fp32 or bf16), plus the cursors of
+   the serve run's last decode tick.  Max abs error <= 1e-4 in fp32
+   (online vs dense softmax order) and <= 2e-2 in bf16 (p is rounded to
+   bf16 before the PV product, so one bf16 ulp of a probability reaches
+   the output); the int8 mode with a bf16 q within 2 bf16 ulps of each
+   output row's largest reference magnitude (both sides round p and the
+   output at the same points).  Every int8 case also runs the tp wrapper
+   at tp=2 and 4 on the same bytes cut into per-shard pools: tp
+   launches, the output bit-identical to the unsharded launch (printed;
+   held to the same tolerance).  Times (fp cases, and the int8 mode with a bf16 q): device
+   time per call from CUDA graphs of 20 (flush, call) pairs less the
+   flushes, as in phase 16, of the kernel (and the tp=2 wrapper) and of
    ``F.scaled_dot_product_attention(enable_gqa=True)`` over pre-gathered
-   dense rows as a yardstick (never called by the port), with the L2
-   cache flushed before every timed launch; the bound is the bytes the
-   kernel must move over 3.35 TB/s (or its FLOPs over the dtype's peak
-   if larger).  One more case per dtype at head_dim 32 (4 heads, MHA:
-   the serve role's default model).
+   dense rows (dequantized to bf16 for int8) as a yardstick (never called
+   by the port); the plain version by CUDA events around each call (it
+   syncs to size its gather, so it cannot be captured); the bound is the
+   bytes the kernel must move (values, and int8 scales) over 3.35 TB/s
+   (or its FLOPs over the dtype's peak if larger).  One more case per
+   mode and dtype at head_dim 32 (4 heads, MHA: the serve role's default
+   model).
 6. Serve role — ``serve_from_env`` with only ``BYTEPS_SERVE_PAGED=1``:
    the default model (d_model 128, 4 heads, head_dim 32) on the GPU
    answers two identical greedy requests identically, through the
-   kernel.
+   kernel (one launch per layer per tick); then again with
+   ``BYTEPS_SERVE_KV_DTYPE=int8 BYTEPS_TP=2 BYTEPS_SERVE_PREFIX_CACHE=1
+   BYTEPS_SERVE_SPEC=1``: the pool sharded in two and int8, the second
+   request a prefix hit, every tick a verify pass, two launches per
+   layer per tick.
+6b. Tiers reference — the phase-3 fp32 model: the int8-pool engine (the
+   kernel's int8 mode) gives exactly the greedy tokens of a plain dense
+   loop over an int8 grouped cache whose prompt is quantized at write
+   and attended as int8 (``Transformer.decode(fresh_prefill=False)``, no
+   kernel; whether ``inference.generate(kv_quant=True)``, which attends
+   its prompt unquantized, agrees is printed); tp=2 gives tp=1's tokens
+   for fp and int8 pools; the prefix cache on gives the tokens of off
+   (int8, prompts sharing 64 tokens, >= 3 hits); speculation (k=4) on
+   gives the tokens of off, greedy (fp and int8) and seeded.
+6c. Tiers serve (the main path of the tiers slice) — phase 4's
+   Llama-3.2-1B in bf16 behind a ``ServeFrontend``: an int8 pool at 513
+   MiB (phase 4's 1025-block bf16 pool, 537.4 MB, in whole MiB), the prefix
+   cache, speculation at k=4, tp=1.  One warm request, then 8 concurrent
+   ones; a base prompt is a shared 256-token prefix, 64-256 unique tokens
+   and an 8-token run repeated twice (336-528 tokens); 32 new tokens
+   each.  Run with the n-gram proposer at tp=1, then tp=2 (random
+   weights accept none of its proposals: the answer changes with any
+   change of its context, so no copy of it can sit in a prompt), then on
+   fresh engines at tp=1 and tp=2 with a replay proposer offering each
+   request's answer from the first run: the accept path at full width
+   (cursors moving up to 5, the accepted rows quantized at scatter, tp=2
+   writes at tq=5), which must accept.  All four runs token-identical.
+   Each run: >= 8 prefix hits, every tick a verify pass, exactly one
+   kernel launch per layer per tick (two at tp=2), no plain version
+   called; TTFT/TPOT p50/p99, tokens/s, the acceptance rate, and the blocks the
+   budget holds in int8 against bf16.  Then the int8 mode and the tp=2
+   wrapper at the last tick's cursors, timed as in phase 5.
 7. Training reference — a small fp32 Llama-shaped model (2 layers,
    d_model 256, 4 heads over 2 KV heads, head_dim 64, vocab 1024), B=2,
    T=256: 3 ``Trainer.fit`` steps with ``attn_impl="flash"`` (the
@@ -203,6 +245,7 @@ EVAL_TOL = 1e-3       # fused vs plain head at full width, bf16, relative
 GEN_B = 8             # full-width generation: slots
 GEN_PROMPT = 1920     # prompt tokens (+ GEN_NEW = MAX_SEQ)
 GEN_NEW = 128         # new tokens
+INT8_BF16_ULPS = 2    # paged int8 mode, bf16 q: ulps of each row's max
 
 
 def _smi() -> str:
@@ -406,7 +449,13 @@ def serve_phase(torch, seed: int):
 # ---------------------------------------------------------------- kernel
 
 
-def _kernel_case(torch, np, seed, pos, tq, dtype, H, KV, D):
+def _kernel_case(torch, np, seed, pos, tq, dtype, H, KV, D, quant=False):
+    """q, pools, null-padded tables and cursors at the serving shapes; an
+    int8 pool is the fp pool quantized per (position, KV head) with its
+    scale pools, the scale rows past each cursor a stale tenant's (1e30:
+    the mask must keep them out)."""
+    from byteps_tpu_torch.models.transformer import _quantize_kv
+
     mb = MAX_SEQ // BLOCK
     n_blocks = N_SLOTS * mb + 1
     rng = np.random.RandomState(seed)
@@ -420,12 +469,27 @@ def _kernel_case(torch, np, seed, pos, tq, dtype, H, KV, D):
     for b, p in enumerate(pos):
         for j in range(-(-(p + tq) // BLOCK)):
             table[b, j] = next(ids)
-    return (q.to(dtype), ck.to(dtype), cv.to(dtype),
-            torch.from_numpy(table).cuda(),
-            torch.tensor(pos, dtype=torch.int32, device="cuda"))
+    posv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    tab = torch.from_numpy(table).cuda()
+    if not quant:
+        return q.to(dtype), ck.to(dtype), cv.to(dtype), tab, posv, {}
+    scales = {}
+    pools = []
+    for name, c in (("k_scale", ck), ("v_scale", cv)):
+        qv, sc = _quantize_kv(c.view(n_blocks, BLOCK, KV, D))
+        sc[0] = 1e30
+        for b, p in enumerate(pos):
+            last = p + tq - 1
+            sc[table[b, last // BLOCK], last % BLOCK + 1:] = 1e30
+        pools.append(qv.view(n_blocks, BLOCK, KV * D))
+        scales[name] = sc
+    return q.to(dtype), pools[0], pools[1], tab, posv, scales
 
 
 def _time_ms(torch, fn, flush, iters=20) -> float:
+    """ms per call by CUDA events around each call (L2 flushed first) —
+    for the paged plain version, which syncs to size its gather and so
+    cannot be captured in a CUDA graph."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -441,11 +505,12 @@ def _time_ms(torch, fn, flush, iters=20) -> float:
     return total / iters
 
 
-def _bound(pa, q, pos, tq, window, elt, dtype_name, KV):
+def _bound(pa, q, pos, tq, window, elt, dtype_name, KV, quant=False):
     B, _, H, D = q.shape
     KVD = KV * D
-    nbytes = (pa.kv_bytes_read(pos, tq, BLOCK, KVD, elt, window)
-              + 2 * q.numel() * elt                      # q in, out
+    nbytes = (pa.kv_bytes_read(pos, tq, BLOCK, KVD, elt, window,
+                               kv_heads=KV if quant else 0)
+              + 2 * q.numel() * q.element_size()         # q in, out
               + 4 * len(pos)                             # pos
               + 4 * sum(-(-(p + tq) // BLOCK) for p in pos))  # table
     keys = 0
@@ -457,33 +522,97 @@ def _bound(pa, q, pos, tq, window, elt, dtype_name, KV):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+                                 else "operations"), nbytes
+
+
+def _shard_pools(t, tp):
+    """A flat pool (or scale pool) ``[n, block, X]`` cut head-major into
+    per-shard pools ``[tp, n, block, X/tp]``."""
+    n, blk, x = t.shape
+    return t.reshape(n, blk, tp, x // tp).permute(2, 0, 1, 3).contiguous()
+
+
+def _row_ulps(torch, out, ref) -> float:
+    """The largest ``|out - ref|`` in bf16 ulps of its row's largest
+    reference magnitude (a row: one query head's D outputs; 8 significant
+    bits, so the ulp of [2^e, 2^(e+1)) is 2^(e-7))."""
+    top = ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return ((out.float() - ref.float()).abs() / ulp).max().item()
 
 
 def kernel_case(torch, np, name, pos, tq, window, dtype, seed, flush,
-                H=32, KV=8, D=64):
+                H=32, KV=8, D=64, quant=False, tps=(), timed=True):
+    """One paged-attention case against the plain version: fp pools, or
+    int8 pools (``quant``) with a q of ``dtype``; with ``tps``, the tp
+    wrapper on the same bytes cut into shards must give the unsharded
+    launch's output bit for bit.  ``timed``: device ms per call of the
+    kernel (and the tp=2 wrapper) and of SDPA on pre-gathered
+    (dequantized) rows from CUDA graphs, the plain version's by events."""
     import torch.nn.functional as F
 
     from byteps_tpu_torch.ops import paged_attention as pa
 
     dname = str(dtype).split(".")[-1]
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    q, ck, cv, table, posv = _kernel_case(torch, np, seed, pos, tq, dtype,
-                                          H, KV, D)
-    out = pa.paged_attention(q, ck, cv, table, posv, window=window)
+    mode = "int8" if quant else dname
+    q, ck, cv, table, posv, kw = _kernel_case(torch, np, seed, pos, tq,
+                                              dtype, H, KV, D, quant)
+    out = pa.paged_attention(q, ck, cv, table, posv, window=window, **kw)
     ref = pa.paged_attention_reference(q, ck, cv, table, posv,
-                                       window=window)
+                                       window=window, **kw)
+    # int8 with a bf16 q: both sides round p and the output to bf16 at the
+    # same points, so each row differs by about one ulp of its magnitude
+    ulps = quant and dtype == torch.bfloat16
+    tol = (INT8_BF16_ULPS if ulps else
+           1e-4 if dtype == torch.float32 else 2e-2)
+
+    def reading(got):
+        return (_row_ulps(torch, got, ref) if ulps else
+                (got.float() - ref.float()).abs().max().item())
+
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    if not torch.isfinite(out.float()).all() or err > tol:
-        raise AssertionError(f"{name} {dname}: max abs err {err} > {tol}")
+    if not torch.isfinite(out.float()).all() or reading(out) > tol:
+        raise AssertionError(f"{name} {mode} q {dname}: max abs err {err} "
+                             f"(reading {reading(out)}) > {tol}")
+    res = {"case": name, "mode": mode, "q_dtype": dname, "tq": tq,
+           "window": window, "heads": [H, KV, D], "max_err": err,
+           "tolerance": (f"{tol} bf16 ulps of the row's max |ref|" if ulps
+                         else tol)}
+    if ulps:
+        res["max_err_row_ulps"] = reading(out)
+    sharded = {}
+    for tp in tps:
+        spools = [_shard_pools(t, tp) for t in (ck, cv)]
+        skw = {k: _shard_pools(v, tp) for k, v in kw.items()}
+        sharded[tp] = (spools, skw)
+        before = pa.launches
+        got = pa.paged_attention_sharded(q, *spools, table, posv,
+                                         window=window, **skw)
+        torch.cuda.synchronize()
+        if pa.launches != before + tp:
+            raise AssertionError(f"{name}: tp={tp} made "
+                                 f"{pa.launches - before} launches")
+        res[f"tp{tp}_bit_identical"] = bool(torch.equal(got, out))
+        res[f"tp{tp}_max_err"] = (got.float() - ref.float()).abs().max().item()
+        if reading(got) > tol:
+            raise AssertionError(f"{name} tp={tp}: max abs err "
+                                 f"{res[f'tp{tp}_max_err']} (reading "
+                                 f"{reading(got)}) > {tol}")
+    if not timed:
+        return res
     # the yardstick: SDPA over the same keys gathered into dense rows
-    B, _, H, D = q.shape
+    # (int8: dequantized to q's dtype)
+    B = q.shape[0]
     nb = -(-(max(pos) + tq) // BLOCK)
     S = nb * BLOCK
     idx = table[:, :nb].long()
-    kd = ck[idx].reshape(B, S, KV, D).transpose(1, 2).contiguous()
-    vd = cv[idx].reshape(B, S, KV, D).transpose(1, 2).contiguous()
+    kd = ck[idx].reshape(B, S, KV, D)
+    vd = cv[idx].reshape(B, S, KV, D)
+    if quant:
+        kd = (kd.float() * kw["k_scale"][idx].reshape(B, S, KV, 1)).to(dtype)
+        vd = (vd.float() * kw["v_scale"][idx].reshape(B, S, KV, 1)).to(dtype)
+    kd, vd = (x.transpose(1, 2).contiguous() for x in (kd, vd))
     qd = q.transpose(1, 2).contiguous()
     c = torch.arange(S, device="cuda")
     qpos = posv.long()[:, None] + torch.arange(tq, device="cuda")[None]
@@ -493,21 +622,21 @@ def kernel_case(torch, np, name, pos, tq, window, dtype, seed, flush,
     mask = mask[:, None]                                 # [B, 1, tq, S]
     lib = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
                                          enable_gqa=True)
-    lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max().item()
-    kernel_ms = _time_ms(torch, lambda: pa.paged_attention(
-        q, ck, cv, table, posv, window=window), flush)
-    plain_ms = _time_ms(torch, lambda: pa.paged_attention_reference(
-        q, ck, cv, table, posv, window=window), flush)
-    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+    res["library_err"] = (lib.transpose(1, 2).float()
+                          - ref.float()).abs().max().item()
+    res["kernel_ms"] = _graph_ms(torch, lambda: pa.paged_attention(
+        q, ck, cv, table, posv, window=window, **kw), flush)
+    if 2 in sharded:
+        spools, skw = sharded[2]
+        res["tp2_ms"] = _graph_ms(torch, lambda: pa.paged_attention_sharded(
+            q, *spools, table, posv, window=window, **skw), flush)
+    res["plain_ms"] = _time_ms(torch, lambda: pa.paged_attention_reference(
+        q, ck, cv, table, posv, window=window, **kw), flush, iters=5)
+    res["library_ms"] = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True), flush)
-    bound_ms, bound_by = _bound(pa, q, pos, tq, window,
-                                q.element_size(), dname, KV)
-    return {"case": name, "dtype": dname, "tq": tq, "window": window,
-            "heads": [H, KV, D],
-            "max_err": err, "tolerance": tol, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_err": lib_err, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    res["bound_ms"], res["bound_by"], res["bytes"] = _bound(
+        pa, q, pos, tq, window, ck.element_size(), dname, KV, quant)
+    return res
 
 
 def kernel_phase(torch, seed: int, final_pos):
@@ -517,24 +646,32 @@ def kernel_phase(torch, seed: int, final_pos):
     rng = np.random.RandomState(seed)
     ragged = sorted(int(x) for x in rng.randint(1, 2048, size=N_SLOTS - 2))
     ragged = [1] + ragged + [2047]
+    tq5 = [min(p, 2043) for p in ragged]
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, pos, tq, window in (
-                ("ragged_1_2047", ragged, 1, None),
-                ("all_at_2047", [2047] * N_SLOTS, 1, None),
-                ("ragged_tq4", [min(p, 2044) for p in ragged], 4, None),
-                ("all_at_2044_tq4", [2044] * N_SLOTS, 4, None),
-                ("ragged_window256", ragged, 1, 256),
-                ("ragged_tq4_window256", [min(p, 2044) for p in ragged],
-                 4, 256)):
-            cases.append(kernel_case(torch, np, name, pos, tq, window,
-                                     dtype, seed, flush))
+    for quant in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            # timed: every fp case, and the int8 mode with a bf16 q (the
+            # serving dtype); the tp wrapper on the int8 cases
+            timed = not quant or dtype == torch.bfloat16
+            tps = (2, 4) if quant else ()
+            for name, pos, tq, window in (
+                    ("ragged_1_2047", ragged, 1, None),
+                    ("all_at_2047", [2047] * N_SLOTS, 1, None),
+                    ("ragged_tq5", tq5, 5, None),
+                    ("all_at_2043_tq5", [2043] * N_SLOTS, 5, None),
+                    ("ragged_window256", ragged, 1, 256),
+                    ("ragged_tq5_window256", tq5, 5, 256)):
+                cases.append(kernel_case(torch, np, name, pos, tq, window,
+                                         dtype, seed, flush, quant=quant,
+                                         tps=tps, timed=timed))
+                _line(cases[-1])
+            # the serve role's default model: 4 heads of 32, MHA
+            cases.append(kernel_case(torch, np, "serve_default_head_dim32",
+                                     ragged, 1, None, dtype, seed, flush,
+                                     H=4, KV=4, D=32, quant=quant,
+                                     tps=(2, 4) if quant else (),
+                                     timed=timed))
             _line(cases[-1])
-        # the serve role's default model: 4 heads of 32, MHA
-        cases.append(kernel_case(torch, np, "serve_default_head_dim32",
-                                 ragged, 1, None, dtype, seed, flush,
-                                 H=4, KV=4, D=32))
-        _line(cases[-1])
     main = kernel_case(torch, np, "serve_last_tick", final_pos, 1, None,
                        torch.bfloat16, seed, flush)
     _line(main)
@@ -544,9 +681,12 @@ def kernel_phase(torch, seed: int, final_pos):
 # ------------------------------------------------------------- serve role
 
 
-def serve_role_phase(torch) -> dict:
-    """``DMLC_ROLE=serve`` with its defaults: the head_dim-32 model on the
-    GPU, greedy reruns identical, decoding through the kernel."""
+def serve_role_phase(torch, extra=None) -> dict:
+    """``DMLC_ROLE=serve`` with its defaults (plus ``extra`` knobs): the
+    head_dim-32 model on the GPU, greedy reruns identical, decoding
+    through the kernel.  With the tiers' knobs the second request is a
+    prefix hit and every tick a verify pass over the tp-sharded int8
+    pool."""
     import os
 
     import numpy as np
@@ -556,15 +696,17 @@ def serve_role_phase(torch) -> dict:
     from byteps_tpu_torch.serving import RemoteServeClient
     from byteps_tpu_torch.serving.frontend import serve_from_env
 
+    env = {"BYTEPS_SERVE_PAGED": "1", **(extra or {})}
     os.environ.pop("BYTEPS_SERVE_MODEL", None)
     pa.launches = 0
-    srv, thread = serve_from_env({"BYTEPS_SERVE_PAGED": "1"}, port=0,
-                                 in_thread=True)
+    pa.plain_calls = 0
+    srv, thread = serve_from_env(env, port=0, in_thread=True)
     try:
-        cfg = srv.engine.model.cfg
+        eng = srv.engine
+        cfg = eng.model.cfg
         c = RemoteServeClient(f"127.0.0.1:{srv.server_address[1]}",
                               timeout=300)
-        prompt = np.arange(1, 12, dtype=np.int32)
+        prompt = np.arange(1, 40, dtype=np.int32) % 7
         a, b = c.generate(prompt, 8), c.generate(prompt, 8)
         st = c.stats()
         c.close()
@@ -572,18 +714,336 @@ def serve_role_phase(torch) -> dict:
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=30)
-        os.environ.pop("BYTEPS_SERVE_PAGED", None)
+        for k in env:
+            os.environ.pop(k, None)
         reset_config()
     torch.cuda.synchronize()
     if cfg.d_head != 32 or not st["device"].startswith("cuda"):
         raise AssertionError(f"serve role ran head_dim {cfg.d_head} on "
                              f"{st['device']}")
-    if a.shape != (8,) or not np.array_equal(a, b) or pa.launches == 0:
+    counts = st["step_counts"]
+    if (a.shape != (8,) or not np.array_equal(a, b) or pa.plain_calls
+            or pa.launches != counts["decode_ticks"] * cfg.num_layers
+            * eng.tp or pa.launches == 0):
         raise AssertionError(f"serve role: {a} / {b}, {pa.launches} kernel "
-                             f"launches")
-    return {"phase": "serve_role", "head_dim": cfg.d_head,
+                             f"launches, {pa.plain_calls} plain, {counts}")
+    info = {"phase": "serve_role", "env": env, "head_dim": cfg.d_head,
             "device": st["device"], "tokens_identical": True,
-            "paged_launches": pa.launches}
+            "paged_launches": pa.launches, "step_counts": counts,
+            "kv_blocks": st["kv_blocks"], "prefix_cache": st["prefix_cache"]}
+    if extra:
+        pool = eng.pool.caches[0]["k"]
+        if (eng.tp != int(extra["BYTEPS_TP"]) or pool.shape[0] != eng.tp
+                or pool.dtype != torch.int8
+                or st["prefix_cache"]["hits"] < 1
+                or counts["verify_ticks"] != counts["decode_ticks"]):
+            raise AssertionError(f"serve role tiers: tp {eng.tp}, pool "
+                                 f"{tuple(pool.shape)} {pool.dtype}, "
+                                 f"{st['prefix_cache']}, {counts}")
+    return info
+
+
+# ------------------------------------------------------- serving tiers
+
+TIERS_KV_MB = 513    # phase 4's 1025-block bf16 pool (537.4 MB), whole MiB
+TIERS_SPEC_K = 4
+TIERS_SHARED = 256   # shared prefix tokens of every prompt
+TIERS_RUN = 8        # the run each prompt ends with, twice
+TIERS_ROLE_ENV = {"BYTEPS_SERVE_KV_DTYPE": "int8", "BYTEPS_TP": "2",
+                  "BYTEPS_SERVE_PREFIX_CACHE": "1", "BYTEPS_SERVE_SPEC": "1"}
+
+
+def tiers_reference_phase(torch, seed: int) -> dict:
+    """The serving tiers on the phase-3 fp32 model: int8 pools (kernel)
+    vs a plain dense int8 loop; tp=2 vs tp=1 (fp and int8); prefix cache
+    on vs off; speculation on vs off (greedy and seeded)."""
+    import numpy as np
+
+    from byteps_tpu_torch.inference import generate
+    from byteps_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, init_cache, init_weights)
+    from byteps_tpu_torch.ops import paged_attention as pa
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
+
+    cfg = TransformerConfig(
+        **{**LLAMA_3_2_1B, "vocab_size": 1000, "num_layers": 2,
+           "num_heads": 8, "num_kv_heads": 2, "d_model": 512,
+           "d_ff": 1024, "max_seq_len": 256, "tie_embeddings": False},
+        dtype=torch.float32)
+    model = Transformer(cfg, device="cuda")
+    init_weights(model, seed)
+    rng = np.random.RandomState(seed + 7)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,)) for n in
+               (20, 37, 64, 90)]
+    n_new = 16
+
+    def engine(**kw):
+        return ServingEngine(model, n_slots=4, max_seq=256, block=BLOCK,
+                             device="cuda", metrics=ServeMetrics(), **kw)
+
+    def run(eng, ps, seeds=None, one_by_one=False):
+        reqs = []
+        for i, p in enumerate(ps):
+            reqs.append(eng.submit(p, n_new, seed=seeds[i] if seeds else 0))
+            if one_by_one:
+                eng.drain(timeout=300)
+        eng.drain(timeout=300)
+        return [r.result().tolist() for r in reqs]
+
+    # the plain int8 loop: the prompt quantized at write and attended as
+    # int8 like every later step (the paged chunk's rule), no kernel
+    want = []
+    for p in prompts:
+        caches = init_cache(cfg, 1, len(p) + n_new, quantized=True,
+                            layout="grouped", device="cuda")
+        logits, _ = model.decode(torch.tensor(p[None], device="cuda"),
+                                 caches, 0, last_only=True,
+                                 fresh_prefill=False)
+        out = []
+        for i in range(n_new):
+            out.append(int(torch.argmax(logits[0, -1]).item()))
+            if i + 1 < n_new:
+                logits, _ = model.decode(
+                    torch.tensor([[out[-1]]], device="cuda"), caches,
+                    len(p) + i)
+        want.append(out)
+    info = {"phase": "tiers_reference"}
+    launches0 = pa.launches
+    int8 = run(engine(kv_dtype="int8"), prompts)
+    if int8 != want:
+        raise AssertionError(f"int8 engine {int8} != plain int8 loop {want}")
+    if pa.launches == launches0:
+        raise AssertionError("the int8 engine launched no kernel")
+    # generate(kv_quant=True) attends its prompt unquantized (JAX's
+    # static pos=0 path), so it may differ from the int8 pool: reported
+    gq = generate(model, np.stack([np.asarray(p) for p in prompts[:1]]),
+                  n_new, temperature=0.0, kv_quant=True,
+                  cache_layout="grouped")["tokens"]
+    info["generate_kv_quant_identical"] = gq[0].tolist() == int8[0]
+    info["int8_vs_plain_loop_identical"] = True
+    fp = run(engine(), prompts)
+    for kv in ("", "int8"):
+        base = fp if not kv else int8
+        if run(engine(kv_dtype=kv, tp=2), prompts) != base:
+            raise AssertionError(f"tp=2 ({kv or 'fp'}) != tp=1")
+    info["tp2_identical"] = True
+    shared = rng.randint(0, cfg.vocab_size, size=(64,))
+    prefixed = [np.concatenate([shared, p[:10]]) for p in prompts]
+    eng_p = engine(prefix_cache=True, kv_dtype="int8")
+    got = run(eng_p, prefixed, one_by_one=True)
+    if got != run(engine(kv_dtype="int8"), prefixed):
+        raise AssertionError("prefix cache on != off")
+    if eng_p.prefix_hits < 3:
+        raise AssertionError(f"{eng_p.prefix_hits} prefix hits")
+    info["prefix_identical"] = True
+    info["prefix_hits"] = eng_p.prefix_hits
+    rep = [np.tile(p[:8], 4) for p in prompts]
+    for kv in ("", "int8"):
+        eng_s = engine(spec_k=TIERS_SPEC_K, kv_dtype=kv)
+        if run(eng_s, rep) != run(engine(kv_dtype=kv), rep):
+            raise AssertionError(f"spec on != off ({kv or 'fp'}, greedy)")
+        info[f"spec_counts_{kv or 'fp'}"] = eng_s.step_counts()
+    kw = dict(temperature=0.8, top_k=50, top_p=0.95)
+    seeds = [100 + i for i in range(len(rep))]
+    on = run(engine(spec_k=TIERS_SPEC_K, **kw), rep, seeds)
+    if on != run(engine(**kw), rep, seeds):
+        raise AssertionError("spec on != off (seeded)")
+    info["spec_identical"] = {"greedy": True, "seeded": True}
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def _tiers_prompts(np, vocab, seed):
+    """9 base prompts (a warm one, then 8): a shared 256-token prefix,
+    64-256 unique tokens, and an 8-token run repeated twice."""
+    rng = np.random.RandomState(seed + 11)
+    shared = rng.randint(0, vocab, size=(TIERS_SHARED,))
+    out = []
+    for n in np.linspace(64, 256, 9).astype(int):
+        run = rng.randint(0, vocab, size=(TIERS_RUN,))
+        out.append(np.concatenate([shared, rng.randint(0, vocab, size=(n,)),
+                                   run, run]).astype(np.int32))
+    return out[0], out[1:]
+
+
+def _tiers_engine(model, tp):
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
+
+    return ServingEngine(model, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                         block=BLOCK, kv_mb=TIERS_KV_MB, kv_dtype="int8",
+                         tp=tp, prefix_cache=True, spec_k=TIERS_SPEC_K,
+                         device="cuda", metrics=ServeMetrics())
+
+
+class _ReplayProposer:
+    """Proposes each request's reference answer (a first run's tokens) —
+    the accept path at full width.  Random weights never accept their
+    own n-gram proposals: their near-tied logits make the answer change
+    with any change of its context, so no copy of it can sit in a
+    prompt.  Every row of a verify pass is computed as it would be
+    alone, so replayed proposals must be accepted and must give the
+    reference tokens.  ``k`` is the engine's proposer's."""
+
+    def __init__(self, k, prompts, answers):
+        self.k = k
+        self._ref = {p.tobytes(): a for p, a in zip(prompts, answers)}
+        self._lens = sorted({len(p) for p in prompts})
+
+    def propose(self, context, max_tokens):
+        for n in self._lens:
+            ans = self._ref.get(context[:n].tobytes())
+            if ans is not None:
+                break
+        else:
+            return []
+        done = len(context) - n                    # tokens emitted so far
+        if not (context[n:] == ans[:done]).all():
+            return []
+        return [int(t) for t in ans[done:done + min(self.k, max_tokens)]]
+
+
+def _tiers_run(torch, np, model, prompts, warm, tp, replay=None):
+    """One engine (int8 pool, prefix cache, speculation, tp) behind a
+    ServeFrontend: the warm request, then 8 concurrent ones; the kernel
+    counts set to 0 just before and read just after.  ``replay`` (the
+    first run's answers) swaps the n-gram proposer for a
+    :class:`_ReplayProposer`, whose proposals must be accepted."""
+    from byteps_tpu_torch.ops import paged_attention as pa
+    from byteps_tpu_torch.serving import RemoteServeClient, serve
+
+    engine = _tiers_engine(model, tp)
+    if replay is not None:
+        engine.spec = _ReplayProposer(engine.spec.k, [warm] + prompts,
+                                      replay)
+    if not all(t.is_cuda for layer in engine.pool.caches
+               for t in layer.values()):
+        raise AssertionError("KV pool is not on the GPU")
+    srv, thread = serve(engine, 0, host="127.0.0.1", in_thread=True)
+    addr = f"127.0.0.1:{srv.server_address[1]}"
+    results = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        try:
+            c = RemoteServeClient(addr, timeout=600)
+            try:
+                results[i] = c.generate(prompts[i], NEW_TOKENS)
+            finally:
+                c.close()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    try:
+        pa.launches = 0
+        pa.plain_calls = 0
+        c = RemoteServeClient(addr, timeout=600)
+        warm_out = c.generate(warm, NEW_TOKENS)
+        c.close()
+        t1 = time.perf_counter()
+        workers = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches, plain = pa.launches, pa.plain_calls
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    if errors:
+        raise errors[0]
+    if any(w.is_alive() for w in workers):
+        raise AssertionError("a serve request did not finish")
+    cfg = model.cfg
+    for r in [warm_out] + results:
+        if r is None or r.shape != (NEW_TOKENS,) or r.min() < 0 \
+                or r.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad result: {r}")
+    counts = engine.step_counts()
+    if (launches != counts["decode_ticks"] * cfg.num_layers * tp
+            or counts["verify_ticks"] != counts["decode_ticks"] or plain
+            or (replay is not None and not counts["spec_accepted"])):
+        raise AssertionError(f"tp={tp}: {launches} launches, {plain} plain "
+                             f"calls, {counts}")
+    if counts["prefix_hits"] < len(prompts):
+        raise AssertionError(f"{counts['prefix_hits']} prefix hits")
+    summ = engine.metrics.summary()
+    final_pos = [len(p) + NEW_TOKENS - 2 for p in prompts]
+    out = {"tp": tp, "proposer": "ngram" if replay is None else "replay",
+           "results": [warm_out] + results, "launches": launches,
+           "step_counts": counts, "wall_s": wall,
+           "tokens_per_s": NEW_TOKENS * len(prompts) / wall,
+           "ttft_p50_ms": summ["ttft_p50_s"] * 1e3,
+           "ttft_p99_ms": summ["ttft_p99_s"] * 1e3,
+           "tpot_p50_ms": summ["tpot_p50_s"] * 1e3,
+           "tpot_p99_ms": summ["tpot_p99_s"] * 1e3,
+           "spec_acceptance": (counts["spec_accepted"]
+                               / max(counts["spec_proposed"], 1)),
+           "kv_blocks": engine.pool.block_stats(),
+           "prefix_cache": engine.prefix.stats(), "final_pos": final_pos}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def tiers_serve_phase(torch, seed: int):
+    """The main path of the tiers slice at full width: Llama-3.2-1B bf16
+    behind a ServeFrontend on an int8 pool with the prefix cache and
+    speculation, twice at tp=1 (fresh engines: identical tokens), then
+    at tp=2 (identical to tp=1)."""
+    import numpy as np
+
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16)
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
+    init_weights(model, seed)
+    warm, prompts = _tiers_prompts(np, cfg.vocab_size, seed)
+    runs = [_tiers_run(torch, np, model, prompts, warm, tp) for tp in (1, 2)]
+    ref = runs[0]["results"]
+    runs += [_tiers_run(torch, np, model, prompts, warm, tp, replay=ref)
+             for tp in (1, 2)]
+    for r in runs[1:]:
+        for a, b in zip(ref, r["results"]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"tp={r['tp']} run is not "
+                                     f"token-identical to the first")
+    bf16_block = cfg.num_layers * 2 * BLOCK * cfg.kv_heads * cfg.d_head * 2
+    info = {"phase": "tiers_serve", "model": "Llama-3.2-1B (random weights)",
+            "source": "meta-llama/Llama-3.2-1B config.json",
+            "reduced": {"max_seq": [131072, MAX_SEQ]}, "dtype": "bfloat16",
+            "kv_mb": TIERS_KV_MB, "spec_k": TIERS_SPEC_K,
+            "prompt_lens": [len(warm)] + [len(p) for p in prompts],
+            "int8_blocks": runs[0]["kv_blocks"]["n_blocks"],
+            "bf16_blocks": (TIERS_KV_MB << 20) // bf16_block,
+            "rerun_identical": True, "tp2_identical": True,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    info["blocks_ratio"] = info["int8_blocks"] / info["bf16_blocks"]
+    for i, r in enumerate(runs):
+        info[f"run{i}_tp{r['tp']}_{r['proposer']}"] = {
+            k: v for k, v in r.items() if k not in ("results", "final_pos")}
+    del model
+    torch.cuda.empty_cache()
+    return info, runs[0], runs[1]
+
+
+def tiers_kernel_phase(torch, seed: int, final_pos) -> dict:
+    """The int8 mode and the tp=2 wrapper at the tiers run's last decode
+    cursors (bf16 q): the kernels line's row-8 int8 and tp entries."""
+    import numpy as np
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    main = kernel_case(torch, np, "tiers_last_tick", final_pos, 1, None,
+                       torch.bfloat16, seed, flush, quant=True, tps=(2,))
+    _line(main)
+    return main
 
 
 # -------------------------------------------------------------- training
@@ -1677,6 +2137,12 @@ def main() -> int:
     _line(serve_info)
     _, paged_main = kernel_phase(torch, args.seed, final_pos)
     _line(serve_role_phase(torch))
+    _line(serve_role_phase(torch, TIERS_ROLE_ENV))
+    _line(tiers_reference_phase(torch, args.seed))
+    tiers_info, tiers_tp1, tiers_tp2 = tiers_serve_phase(torch, args.seed)
+    tiers_info["nvidia_smi"] = _smi()
+    _line(tiers_info)
+    tiers_main = tiers_kernel_phase(torch, args.seed, tiers_tp1["final_pos"])
     _line(train_reference_phase(torch, args.seed))
     train_info, flash_launches, _ = train_phase(torch, args.seed)
     train_info["nvidia_smi"] = _smi()
@@ -1712,6 +2178,20 @@ def main() -> int:
         "bound_ms": paged_main["bound_ms"],
         "bound_by": paged_main["bound_by"],
         "library_ms": paged_main["library_ms"]}]
+    for kname, run, ms, err in (
+            ("paged_attention_int8", tiers_tp1, "kernel_ms", "max_err"),
+            ("paged_attention_int8_tp2", tiers_tp2, "tp2_ms", "tp2_max_err")):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "byteps_tpu_torch/csrc/paged_attention.cu",
+            "replaces": ("byteps_tpu/ops/paged_attention.py:76"
+                         if run["tp"] == 1 else
+                         "byteps_tpu/ops/paged_attention.py:306"),
+            "launches": run["launches"], "max_abs_err": tiers_main[err],
+            "ms": tiers_main[ms], "plain_ms": tiers_main["plain_ms"],
+            "bound_ms": tiers_main["bound_ms"],
+            "bound_by": tiers_main["bound_by"],
+            "library_ms": tiers_main["library_ms"]})
     for kname, line, n in (("fwd", 116, flash_launches[0]),
                            ("dq", 374, flash_launches[1]),
                            ("dkv", 444, flash_launches[2])):

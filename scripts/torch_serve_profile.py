@@ -4,10 +4,13 @@ on the GPU (byteps_tpu_torch, Llama-3.2-1B at full width, bf16, random
 weights).
 
     python3 scripts/torch_serve_profile.py [--ticks 20] [--seed 0]
+        [--kv-dtype int8] [--tp 2] [--spec-k 4]
 
 Admits 8 requests (prompts of 32-512 tokens, as ``chip_smoke.py``)
-straight into a ``ServingEngine`` (no TCP tier), steps until every one
-is decoding, then measures steady decode ticks two ways:
+straight into a ``ServingEngine`` (no TCP tier; an fp pool at tp=1
+without speculation unless asked), steps until every one is decoding,
+then measures steady decode (or, with ``--spec-k``, verify) ticks two
+ways:
 
 * host wall time per tick (``engine.step()`` ending in the token
   read-back, which synchronizes);
@@ -61,6 +64,9 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
+    ap.add_argument("--kv-dtype", default="", choices=("", "int8"))
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--spec-k", type=int, default=0)
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -87,7 +93,12 @@ def main() -> int:
     model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
     init_weights(model, args.seed)
     eng = ServingEngine(model, n_slots=8, max_seq=2048, block=16,
-                        device="cuda", metrics=ServeMetrics())
+                        kv_dtype=args.kv_dtype, tp=args.tp,
+                        spec_k=args.spec_k, device="cuda",
+                        metrics=ServeMetrics())
+    emit({"measure": "config", "kv_dtype": args.kv_dtype or "model",
+          "tp": args.tp, "spec_k": args.spec_k,
+          "device": torch.cuda.get_device_name(0)})
     rng = np.random.RandomState(args.seed)
     budget = 3 * args.ticks + 8
     reqs = [eng.submit(rng.randint(0, cfg.vocab_size, size=(n,)), budget)

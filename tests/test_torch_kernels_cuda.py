@@ -4,10 +4,14 @@ runs on the card's machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Without a GPU every test here skips.  Paged attention: fp32 1e-4
-absolute (online vs dense softmax accumulation order); bf16 2e-2 (p is
-rounded to bf16 before the PV product, so a bf16 ulp of a probability
-reaches the output).  Flash attention (forward, dq, dk/dv): fp32 1e-4
+Without a GPU every test here skips.  Paged attention (fp and int8
+pools, and the tp wrapper): fp32 1e-4 absolute (online vs dense softmax
+accumulation order); bf16 2e-2 (p is rounded to bf16 before the PV
+product, so a bf16 ulp of a probability reaches the output); the tp
+wrapper's output bit-identical to the unsharded launch (each shard's CTAs
+do the unsharded launch's arithmetic for their rows); the int8 mode with a
+bf16 q within 2 bf16 ulps of each output row's largest reference
+magnitude (both sides round p and the output to bf16 at the same points).  Flash attention (forward, dq, dk/dv): fp32 1e-4
 of the largest reference magnitude, absolute below magnitude 1 (dk/dv
 sum over the whole head group); bf16 2e-2 of the largest reference
 magnitude (p and ds are rounded to bf16 before their products, at
@@ -80,6 +84,125 @@ def test_paged_attention_kernel_matches_plain_version(dtype, tol, tq, window,
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out.float()).all()
     assert err <= tol, err
+
+
+def _int8_pools(ck, cv, KV, table, pos, tq):
+    """Quantize fp pools per (position, KV head) with ``_quantize_kv``;
+    the scale rows of the null block and past each slot's last query
+    position hold a stale tenant's garbage (1e30)."""
+    n, blk, kvd = ck.shape
+    out = []
+    for c in (ck, cv):
+        qv, sc = _quantize_kv(c.float().view(n, blk, KV, kvd // KV))
+        sc[0] = 1e30
+        for row, p in zip(table.tolist(), pos):
+            last = p + tq - 1
+            sc[row[last // blk], last % blk + 1:] = 1e30
+        out += [qv.view(n, blk, kvd), sc]
+    return out
+
+
+def _row_ulps(out, ref):
+    """The largest ``|out - ref|`` in bf16 ulps of its row's (one query
+    head's) largest reference magnitude."""
+    top = ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return ((out.float() - ref.float()).abs() / ulp).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, None)])
+@pytest.mark.parametrize("tq,window", [(1, None), (5, None), (1, 256),
+                                       (3, 5)])
+@pytest.mark.parametrize("H,KV,D,blk", [(32, 8, 64, 16), (8, 2, 128, 64),
+                                        (32, 1, 64, 16), (4, 4, 32, 16),
+                                        (8, 4, 16, 8)])
+def test_paged_attention_int8_mode_matches_plain_version(dtype, tol, tq,
+                                                         window, H, KV, D,
+                                                         blk):
+    """s8 pools with fp32 scale pools, q in fp32 or bf16; stale scale rows
+    past the cursors are garbage, which the mask must keep out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pos = [0, 1, 17, 100, 255, 333, 480, 623]
+    mb = -(-(max(pos) + tq) // blk)
+    q, ck, cv, table, posv = _case(9, len(pos), tq, H, KV, D, blk, mb, pos,
+                                   torch.float32)
+    kq, ks, vq, vs = _int8_pools(ck, cv, KV, table, pos, tq)
+    q = q.to(dtype)
+    before = pa.launches
+    out = pa.paged_attention(q, kq, vq, table, posv, k_scale=ks, v_scale=vs,
+                             window=window)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    ref = pa.paged_attention_reference(q, kq, vq, table, posv, k_scale=ks,
+                                       v_scale=vs, window=window)
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    if tol is None:                     # bf16 q
+        assert _row_ulps(out, ref) <= 2, _row_ulps(out, ref)
+    else:
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_span_past_the_row_end(quant):
+    """A verify span at the row's end (``pos + tq`` past ``max_blocks *
+    block``): the kernel reads the row's own blocks only, as the plain
+    version does, so every row (those past the end included) agrees."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H, KV, D, blk, tq, S = 32, 8, 64, 16, 5, 2048
+    pos = [2047, 2046, 2044, 2043, 100, 0, 2045, 1500]
+    mb = S // blk
+    # one block past the row is allocated, then cut off the table
+    q, ck, cv, table, posv = _case(6, len(pos), tq, H, KV, D, blk, mb + 1,
+                                   pos, torch.float32)
+    kw = {}
+    if quant:
+        ck, ks, cv, vs = _int8_pools(ck, cv, KV, table, pos, tq)
+        kw = {"k_scale": ks, "v_scale": vs}
+    table = table[:, :mb].contiguous()
+    out = pa.paged_attention(q, ck, cv, table, posv, **kw)
+    ref = pa.paged_attention_reference(q, ck, cv, table, posv, **kw)
+    assert torch.isfinite(out).all()
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_sharded_is_the_unsharded_launch(tp, quant, dtype):
+    """Per-shard pools cut head-major from one pool: ``tp`` launches, and
+    an output bit-identical to the unsharded launch's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H, KV, D, blk, tq = 32, 8, 64, 16, 5
+    pos = [1, 90, 511, 1000, 1500, 2000, 2042, 2042]
+    mb = -(-(max(pos) + tq) // blk)
+    q, ck, cv, table, posv = _case(4, len(pos), tq, H, KV, D, blk, mb, pos,
+                                   dtype)
+    kw = {}
+    if quant:
+        ck, ks, cv, vs = _int8_pools(ck, cv, KV, table, pos, tq)
+        kw = {"k_scale": ks, "v_scale": vs}
+    n = ck.shape[0]
+
+    def shard(t):
+        return t.reshape(n, blk, tp, -1).permute(2, 0, 1, 3).contiguous()
+
+    whole = pa.paged_attention(q, ck, cv, table, posv, **kw)
+    before = pa.launches
+    parts = pa.paged_attention_sharded(
+        q, shard(ck), shard(cv), table, posv,
+        **{k: shard(v) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert pa.launches == before + tp
+    assert torch.equal(parts, whole)
 
 
 def _flash_inputs(seed, B, T, H, KV, D, dtype, seg, alibi):

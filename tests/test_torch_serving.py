@@ -271,8 +271,8 @@ def test_serve_role_runs_on_the_gpu_unless_told_otherwise(monkeypatch):
     monkeypatch.setenv("BYTEPS_SERVE_PAGED", "1")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launcher.main()
-    monkeypatch.setenv("BYTEPS_SERVE_SPEC", "1")
-    with pytest.raises(NotImplementedError, match="SPEC"):
+    monkeypatch.setenv("BYTEPS_SERVE_PAGED_KERNEL", "off")
+    with pytest.raises(NotImplementedError, match="PAGED_KERNEL=off"):
         serve_from_env(device="cpu")
     monkeypatch.setenv("DMLC_ROLE", "worker")
     assert launcher.main() == 2

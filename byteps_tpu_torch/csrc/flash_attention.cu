@@ -33,7 +33,44 @@
 // over the card's peak for the dtype (989 TFLOP/s bf16 tensor cores,
 // 67 TFLOP/s fp32 FMA).
 //
-// Design (right and simple first; no tensor cores yet):
+// Forward, bf16 (flash_fwd_mma_kernel): tensor-core tiles.
+//   * one CTA of 4 warps per (query head, 64-row q tile); each warp owns 16
+//     query rows.  Q K^T and P V are mma.sync.m16n8k16 bf16 products with
+//     fp32 accumulators, their operands read from shared memory with
+//     ldmatrix (.trans for V, whose rows are keys);
+//   * K / V tiles of 64 keys are staged with 16-byte cp.async into a
+//     two-stage ring, so tile j+1 loads while tile j computes; rows at or
+//     past T are zero-filled by the copy's source size (0 bytes read), not
+//     by branching loads.  Shared rows are padded by 16 bytes so the eight
+//     row addresses of an ldmatrix hit distinct banks;
+//   * S stays in registers: the online softmax runs on the accumulator
+//     fragments (a row's 64 scores sit in the 4 lanes of a quad: 2 quad
+//     shuffles per max) on the unscaled dots, with p = 2^(s * scale *
+//     log2(e) - m * scale * log2(e)): one FMA and one ex2.approx a score
+//     (lse = m * scale + log(l), natural log).  P is rounded to bf16 in
+//     registers and fed as the A operand of the PV product: the same
+//     rounding point as the plain version's p.to(v.dtype);
+//   * Q's fragments are read from shared memory at every tile rather
+//     than held in registers: the kernel then fits 128 registers with no
+//     spill at D = 64, so 4 CTAs share an SM (2 at D = 128);
+//   * masks come from the fragment's (row, col) lane map (lane l holds rows
+//     l/4 and l/4 + 8 and columns 2 (l%4) + {0, 1} of each 8-column block)
+//     and are applied only to tiles that need them: the causal diagonal,
+//     the window's edge, the T tail, and every tile when segment ids are
+//     given.  ALiBi's slope * (col - row) is added to every tile before
+//     the mask (as (slope / scale) * (col - row) on the unscaled dot);
+//   * grid (query head in its KV group, batch * KV head, q tile): the G
+//     query heads of one KV head run next to each other and share its K / V
+//     tiles in L2, and causal q tiles launch longest first, so the short
+//     tiles of the triangle's tail fill the last wave;
+//   * o is rounded once; lse = m + log(max(l, 1e-30)); a fully masked row
+//     gives o = 0 and lse = -1e30 + log(1e-30), as the plain version.
+// Forward, fp32 (flash_fwd_kernel): scalar fp32 FMA, as below.  Tensor
+// cores would mean TF32, whose 10-bit mantissa moves the fp32 rounding
+// points that the training reference holds to 1e-5; so fp32 keeps the
+// scalar path.
+//
+// Backward and the fp32 forward (right and simple first; no tensor cores):
 //   * one CTA of 256 threads per (batch * head, 64-row q tile) for the
 //     forward and dq, per (batch * KV head, 64-row k tile) for dk / dv;
 //   * the loop over the other operand's 64-row tiles inside the CTA takes
@@ -49,8 +86,8 @@
 //     two CTAs write one dk / dv row: no atomics, and reruns are
 //     bit-identical;
 //   * tail rows and columns (index >= T) are staged as zeros and masked.
-// Not yet: wgmma / mma.sync on bf16, TMA or cp.async double-buffering,
-// split work for the causal triangle's load imbalance.
+// Not yet: tensor cores in the backward; TMA / wgmma with a warp-
+// specialised producer for the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -354,6 +391,276 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward on tensor cores
+
+constexpr int kMmaTile = 64;      // q rows of a CTA, and keys of a K / V tile
+constexpr int kMmaThreads = 128;  // 4 warps x 16 q rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes = 0 reads nothing and writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x (MUFU.EX2; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats as a bf16 pair (lo in the low half: the smaller column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [row0, row0 + kMmaTile) of head `head` of a [B, T, NH, D] bf16
+// tensor into dst [kMmaTile][D + 8] with cp.async; rows at or past T are
+// zero-filled (their source is row 0, of which no byte is read)
+template <int D>
+__device__ __forceinline__ void stage_async(__nv_bfloat16* dst,
+                                            const __nv_bfloat16* src, int b,
+                                            int head, int NH, int T_,
+                                            int row0) {
+  constexpr int CH = D / 8, LD = D + 8;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < kMmaTile * CH; idx += kMmaThreads) {
+    const int r = idx / CH, c = (idx % CH) * 8;
+    const int t = row0 + r;
+    const bool in = t < T_;
+    cp_async16(dst + r * LD + c,
+               src + ((static_cast<size_t>(b) * T_ + (in ? t : 0)) * NH +
+                      head) * D + c,
+               in ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 4 : 2)
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, Problem P) {
+  constexpr int LD = D + 8;          // shared row stride (elements)
+  constexpr int KSTEPS = D / 16;     // k-steps of Q K^T
+  constexpr int NB = kMmaTile / 8;   // 8-key blocks of S
+  constexpr int DB = D / 8;          // 8-column blocks of O
+  const int G = P.H / P.KV;
+  const int bkv = blockIdx.y, b = bkv / P.KV, kvh = bkv % P.KV;
+  const int h = kvh * G + blockIdx.x;
+  const int n_tiles = (P.T + kMmaTile - 1) / kMmaTile;
+  const int qt = P.causal ? n_tiles - 1 - static_cast<int>(blockIdx.z)
+                          : static_cast<int>(blockIdx.z);
+  const int q0 = qt * kMmaTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad_row = lane >> 2, quad_col = (lane & 3) * 2;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* Ks = Qs + kMmaTile * LD;      // [2][kMmaTile][LD]
+  __nv_bfloat16* Vs = Ks + 2 * kMmaTile * LD;  // [2][kMmaTile][LD]
+
+  int lo, hi;
+  k_range(P, q0, lo, hi);
+  stage_async<D>(Qs, q, b, h, P.H, P.T, q0);
+  stage_async<D>(Ks, k, b, kvh, P.KV, P.T, lo * kMmaTile);
+  stage_async<D>(Vs, v, b, kvh, P.KV, P.T, lo * kMmaTile);
+  cp_async_commit();
+
+  // this lane's two rows: rr = 0 -> quad_row, rr = 1 -> quad_row + 8
+  int row[2], seg_r[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    row[rr] = q0 + warp * 16 + quad_row + rr * 8;
+    seg_r[rr] = P.seg && row[rr] < P.T
+                    ? P.seg[static_cast<size_t>(b) * P.T + row[rr]] : -1;
+  }
+  const float sc2 = P.scale * kLog2e;
+  const float sl2 = P.slopes ? P.slopes[h] / P.scale : 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const __nv_bfloat16* q_row = Qs + (warp * 16 + (lane & 15)) * LD +
+                               (lane >> 4) * 8;
+
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int st = (kt - lo) & 1;
+    if (kt < hi) {  // the next tile loads while this one computes
+      stage_async<D>(Ks + (st ^ 1) * kMmaTile * LD, k, b, kvh, P.KV, P.T,
+                     (kt + 1) * kMmaTile);
+      stage_async<D>(Vs + (st ^ 1) * kMmaTile * LD, v, b, kvh, P.KV, P.T,
+                     (kt + 1) * kMmaTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Kt = Ks + st * kMmaTile * LD;
+    const __nv_bfloat16* Vt = Vs + st * kMmaTile * LD;
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t a[4];  // Q from shared memory: no registers held across
+      ldsm_x4(a, q_row + kk * 16);  // tiles, so 4 CTAs fit an SM at D = 64
+#pragma unroll
+      for (int j2 = 0; j2 < NB / 2; ++j2) {
+        uint32_t kb[4];  // keys j2*16 + [0, 8) and [8, 16), d kk*16 + [0, 16)
+        ldsm_x4(kb, Kt + (j2 * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j2], a, kb[0], kb[1]);
+        mma_bf16(s[2 * j2 + 1], a, kb[2], kb[3]);
+      }
+    }
+
+    // ALiBi, and the mask where this tile needs one (on unscaled dots)
+    const int k0 = kt * kMmaTile;
+    const bool need_mask =
+        P.seg != nullptr || k0 + kMmaTile > P.T ||
+        (P.causal && (k0 + kMmaTile - 1 > q0 ||
+                      (P.window > 0 && q0 + kMmaTile - 1 - k0 >= P.window)));
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row[e >> 1], col = k0 + j * 8 + quad_col + (e & 1);
+        float x = s[j][e];
+        if (P.slopes) x += sl2 * static_cast<float>(col - r);
+        if (need_mask) {
+          bool ok = col < P.T;
+          if (P.causal) {
+            ok = ok && r >= col;
+            if (P.window > 0) ok = ok && r - col < P.window;
+          }
+          if (P.seg)
+            ok = ok && col < P.T &&
+                 __ldg(P.seg + static_cast<size_t>(b) * P.T + col) ==
+                     seg_r[e >> 1];
+          if (!ok) x = -INFINITY;
+        }
+        s[j][e] = x;
+      }
+    }
+
+    // online softmax on the fragments; a row lives in the 4 lanes of a quad
+    float mu[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = m[rr];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * rr], s[j][2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // mu = m * scale * log2(e); a row with nothing attended yet keeps
+      // every p at 2^-inf = 0 against mu = 0
+      mu[rr] = mx == -INFINITY ? 0.f : mx * sc2;
+      const float alpha = ex2(m[rr] * sc2 - mu[rr]);
+      m[rr] = mx;
+      l[rr] *= alpha;
+#pragma unroll
+      for (int j = 0; j < DB; ++j) {
+        acc[j][2 * rr] *= alpha;
+        acc[j][2 * rr + 1] *= alpha;
+      }
+    }
+    uint32_t pf[NB][2];  // p in bf16: [j][0] row quad_row, [j][1] row + 8
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float p0 = ex2(fmaf(s[j][0], sc2, -mu[0]));
+      const float p1 = ex2(fmaf(s[j][1], sc2, -mu[0]));
+      const float p2 = ex2(fmaf(s[j][2], sc2, -mu[1]));
+      const float p3 = ex2(fmaf(s[j][3], sc2, -mu[1]));
+      l[0] += p0 + p1;  // l sums the fp32 p, this lane's columns
+      l[1] += p2 + p3;
+      pf[j][0] = pack_bf16(p0, p1);
+      pf[j][1] = pack_bf16(p2, p3);
+    }
+
+    // O += P V: P's accumulator layout is the A operand's
+#pragma unroll
+    for (int kk = 0; kk < NB / 2; ++kk) {
+      const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
+                             pf[2 * kk + 1][1]};
+#pragma unroll
+      for (int j2 = 0; j2 < DB / 2; ++j2) {
+        uint32_t vb[4];  // keys kk*16 + [0, 16), d j2*16 + [0, 8), [8, 16)
+        ldsm_x4_t(vb, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               LD + j2 * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * j2], a, vb[0], vb[1]);
+        mma_bf16(acc[2 * j2 + 1], a, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    if (row[rr] >= P.T) continue;
+    const float den = fmaxf(l[rr], 1e-30f);
+    __nv_bfloat16* orow =
+        o + ((static_cast<size_t>(b) * P.T + row[rr]) * P.H + h) * D +
+        quad_col;
+#pragma unroll
+    for (int j = 0; j < DB; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(acc[j][2 * rr] / den, acc[j][2 * rr + 1] / den);
+    if ((lane & 3) == 0)
+      lse[(static_cast<size_t>(b) * P.H + h) * P.T + row[rr]] =
+          (m[rr] == -INFINITY ? kMasked : m[rr] * P.scale) + logf(den);
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -543,14 +850,28 @@ constexpr size_t smem_bytes(int D, int tiles) {
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         int B, const Problem& P, cudaStream_t s) {
-  auto kern = flash_fwd_kernel<T, D>;
-  const size_t smem = smem_bytes(D, 3);
-  if (int e = set_smem(kern, smem)) return e;
-  dim3 grid((P.T + kTile - 1) / kTile, B * P.H);
-  kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, P);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2) {  // bf16: tensor cores
+    auto kern = flash_fwd_mma_kernel<D>;
+    const size_t smem = static_cast<size_t>(5) * kMmaTile * (D + 8) *
+                        sizeof(__nv_bfloat16);  // Q, 2 x K, 2 x V
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid(P.H / P.KV, B * P.KV, (P.T + kMmaTile - 1) / kMmaTile);
+    kern<<<grid, kMmaThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+        lse, P);
+    return static_cast<int>(cudaGetLastError());
+  } else {  // fp32: the scalar path (tensor cores would mean TF32)
+    auto kern = flash_fwd_kernel<T, D>;
+    const size_t smem = smem_bytes(D, 3);
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid((P.T + kTile - 1) / kTile, B * P.H);
+    kern<<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, P);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>

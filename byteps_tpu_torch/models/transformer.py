@@ -437,9 +437,9 @@ class Attention(nn.Module):
         step's included, sees the stored bytes — which is what lets a
         re-prefill after preemption reproduce them.  A tp pool ``[tp,
         n_blocks, block, (KV/tp)*D]`` takes each shard's KV-head slice
-        of the head-major row, and attention runs shard by shard
-        (:func:`paged_attention_sharded`); the table and targets are
-        the same on every shard."""
+        of the head-major row, and attention reads every shard in one
+        launch (:func:`paged_attention_sharded`); the table and targets
+        are the same on every shard."""
         B, T, _ = x.shape
         rpos = pos[:, None] + torch.arange(T, device=x.device)[None, :]
         q, k, v = self._qkv(x, rpos)

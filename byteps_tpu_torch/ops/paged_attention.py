@@ -25,10 +25,11 @@ bf16.
 
 What bounds it: HBM bytes — :func:`kv_bytes_read`, each slot's covered
 blocks of K and V (and their scales) — at about 2 FLOPs per byte.  The
-design (one CTA per (KV head, slot), one warp per query row, each KV
-block staged once in shared memory for the whole GQA group, s8 widened
-as it is staged) is set out in the CUDA source, with what it leaves for
-later (split-K, TMA, wgmma).
+design (flash-decoding over the block table: a grid of (split, KV head,
+slot) with the plan of :func:`split_plan`, each KV block staged once
+with ``cp.async`` for the whole GQA group and verify width, the splits
+merged in order by the last CTA of each (slot, KV head)) is set out in
+the CUDA source, with what it leaves for later (TMA, tensor cores).
 
 Beside the kernel:
 
@@ -41,16 +42,21 @@ Beside the kernel:
   fallback from a failed build or launch.
 * :func:`paged_attention_sharded` — per-shard pools ``[tp, n_blocks,
   block, (KV/tp)*D]`` (and scale pools ``[tp, n_blocks, block, KV/tp]``):
-  one :func:`paged_attention` per shard on its query-head slice, the
-  outputs concatenated on the head axis.
-* ``launches`` — kernel launches made by the wrapper (a plain integer);
-  ``plain_calls`` — dispatches to the plain version on CPU tensors.
+  one launch for every shard, the shard a grid coordinate, q read and
+  the output written at each head's place in the full tensors.
+* :func:`split_plan` — the launch's split of the block axis, from
+  shapes only (never the cursors), so a tick's launches can be captured
+  in a CUDA graph and tp 1, 2 and 4 do the same arithmetic.
+* ``launches`` — kernel launches made by the wrappers (a plain integer,
+  one per call at any tp); ``plain_calls`` — dispatches to the plain
+  version on CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, Optional
 
 import torch
 
@@ -58,8 +64,8 @@ from . import _build
 
 __all__ = ["paged_attention", "paged_attention_sharded",
            "paged_attention_reference", "build", "check_kernel_config",
-           "kv_bytes_read", "launches", "plain_calls", "HEAD_DIMS",
-           "KV_DTYPES"]
+           "kv_bytes_read", "split_plan", "launches", "plain_calls",
+           "HEAD_DIMS", "KV_DTYPES"]
 
 launches = 0
 plain_calls = 0
@@ -67,7 +73,10 @@ plain_calls = 0
 MAX_BLOCK = 64
 HEAD_DIMS = (16, 32, 64, 128)
 KV_DTYPES = ("", "int8")  # the pool's: q's dtype, or s8 with fp32 scales
+CTAS_PER_SM = 8           # the split plan's aim (as the decode kernel's)
+_SMEM_LIMIT = 227 * 1024  # shared memory a CTA may use on Hopper
 _lib = None
+_tickets: Dict[torch.device, torch.Tensor] = {}
 
 
 def build():
@@ -82,8 +91,10 @@ def _library():
         lib = _build.load("paged_attention")
         fn = lib.bps_paged_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 10 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 10 + [i] * 14 + [ctypes.c_float, p]
         fn.restype = i
+        lib.bps_paged_attention_smem.argtypes = [i] * 4
+        lib.bps_paged_attention_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -153,8 +164,8 @@ def kv_bytes_read(pos, tq: int, block: int, kvd: int, elt: int,
     scales) that attention must read for cursors ``pos`` (the bound's
     bytes): each slot's blocks from its window's first block (0 without
     a window) through the block of its last query position.  The kernel
-    reads them once while ``G * tq <= 64`` and ``ceil(G * tq / 64)``
-    times beyond."""
+    reads each of them once, for all ``G * tq`` query rows of its KV head
+    and at any tp."""
     total = 0
     for p in (int(x) for x in pos):
         hi = (p + tq - 1) // block
@@ -208,25 +219,44 @@ def paged_attention_reference(q, ck, cv, table, pos, *, k_scale=None,
     return out.permute(0, 3, 1, 2, 4).reshape(B, tq, H, D).to(q.dtype)
 
 
-def paged_attention(q, ck, cv, table, pos, *, k_scale=None, v_scale=None,
-                    window: Optional[int] = None):
-    """Fused paged attention (see the module docstring), fp pools or
-    int8 pools with ``k_scale``/``v_scale``.  CPU tensors run
-    :func:`paged_attention_reference`; CUDA tensors launch the
-    hand-written kernel — building it on first use — or raise."""
-    global launches, plain_calls
-    B, tq, H, D, KV = _check_shapes(q, ck, cv, table, pos, k_scale,
-                                    v_scale)
+def split_plan(q, ck, table, sms: int) -> tuple:
+    """``(splits, blocks per split)`` of the kernel's grid, from SHAPES
+    only: q ``[B, tq, H, D]``, a pool ``[n_blocks, block, KV*D]`` or
+    per-shard pools ``[tp, n_blocks, block, (KV/tp)*D]``, and the table's
+    ``max_blocks``.  Its logical blocks are cut into runs of ``per``,
+    enough of them to put about :data:`CTAS_PER_SM` CTAs of ``B * KV`` on
+    each of ``sms`` SMs, none of them empty.  No value of the table or the
+    cursors is read (a split past a slot's cursor exits at once on the
+    card), so a tick's launch can sit in a CUDA graph; and the plan takes
+    the TOTAL KV heads, so tp shards launch the unsharded plan."""
+    B, D = q.shape[0], q.shape[-1]
+    kv_heads = (ck.shape[-1] // D) * (ck.shape[0] if ck.ndim == 4 else 1)
+    max_blocks = table.shape[1]
+    want = max(1, math.ceil(CTAS_PER_SM * sms / (B * kv_heads)))
+    per = math.ceil(max_blocks / min(want, max_blocks))
+    return math.ceil(max_blocks / per), per
+
+
+def _ticket_buffer(device, n: int) -> torch.Tensor:
+    """``n`` int32 zeros on ``device``, allocated once (grown when a call
+    needs more): the kernel's per-(slot, KV head) merge tickets, which
+    each launch leaves at zero."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                             device=device)
+    return buf
+
+
+def _launch(q, ck, cv, table, pos, k_scale, v_scale, window):
+    """One kernel launch over pools ``[tp, n_blocks, block, (KV/tp)*D]``
+    (scale pools ``[tp, n_blocks, block, KV/tp]``), shapes already
+    checked.  Reads no value of ``pos`` or ``table`` on the host."""
+    global launches
+    B, tq, H, D = q.shape
+    tp, n_blocks, bs, kvd = ck.shape
+    KV = tp * (kvd // D)
     quant = k_scale is not None
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    if not _build.on_cuda("paged_attention", q, ck, cv, table, pos,
-                          k_scale, v_scale):
-        plain_calls += 1
-        return paged_attention_reference(q, ck, cv, table, pos,
-                                         k_scale=k_scale, v_scale=v_scale,
-                                         window=window)
-    bs = ck.shape[1]
     check_kernel_config(q.dtype, D, bs, "int8" if quant else "")
     if not quant and (ck.dtype != q.dtype or cv.dtype != q.dtype):
         raise ValueError(f"pool dtype {ck.dtype}/{cv.dtype} != q dtype "
@@ -242,21 +272,59 @@ def paged_attention(q, ck, cv, table, pos, *, k_scale=None, v_scale=None,
                     ("v_scale", v_scale)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if ck.data_ptr() % 16 or cv.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned")
     lib = _library()
+    smem = lib.bps_paged_attention_smem((H // KV) * tq, D, bs,
+                                        ck.element_size())
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{H // KV} query heads per KV head x tq {tq} at "
+                         f"head_dim {D}, block {bs} need {smem} bytes of "
+                         f"shared memory (> {_SMEM_LIMIT})")
+    nsplit, per = split_plan(q, ck, table, _build.sm_count(q.device))
+    part = tickets = None
+    if nsplit > 1:
+        part = torch.empty(nsplit * B * H * tq * (D + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = _ticket_buffer(q.device, B * KV)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.bps_paged_attention(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, table.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, tq, H, KV, D, bs,
-        table.shape[1], window or 0, 0 if q.dtype == torch.float32 else 1,
-        int(quant), D ** -0.5, stream)
+        pos.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), B, tq, H, KV, tp,
+        n_blocks, D, bs, table.shape[1], window or 0, nsplit, per,
+        0 if q.dtype == torch.float32 else 1, int(quant), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {rc}")
     launches += 1
     return out
+
+
+def paged_attention(q, ck, cv, table, pos, *, k_scale=None, v_scale=None,
+                    window: Optional[int] = None):
+    """Fused paged attention (see the module docstring), fp pools or
+    int8 pools with ``k_scale``/``v_scale``.  CPU tensors run
+    :func:`paged_attention_reference`; CUDA tensors launch the
+    hand-written kernel — building it on first use — or raise."""
+    global plain_calls
+    _check_shapes(q, ck, cv, table, pos, k_scale, v_scale)
+    quant = k_scale is not None
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if not _build.on_cuda("paged_attention", q, ck, cv, table, pos,
+                          k_scale, v_scale):
+        plain_calls += 1
+        return paged_attention_reference(q, ck, cv, table, pos,
+                                         k_scale=k_scale, v_scale=v_scale,
+                                         window=window)
+    return _launch(q, ck[None], cv[None], table, pos,
+                   k_scale[None] if quant else None,
+                   v_scale[None] if quant else None, window)
 
 
 def paged_attention_sharded(q, ck, cv, table, pos, *, k_scale=None,
@@ -266,12 +334,14 @@ def paged_attention_sharded(q, ck, cv, table, pos, *, k_scale=None,
     n_blocks, block, KV/tp]``) — the counterpart of JAX
     ``paged_decode_attention_sharded``.  Shard ``s`` holds KV heads
     ``[s*KV/tp, (s+1)*KV/tp)``, which are exactly the KV heads of query
-    heads ``[s*H/tp, (s+1)*H/tp)``: one call per shard on that head
-    slice (made contiguous), the outputs concatenated on the head axis.
-    Each shard's launch does, row for row, the arithmetic of the
-    unsharded launch (one CTA per (KV head, slot) either way), so the
-    result is the unsharded one.  The table and cursors are shared by
-    every shard; all shards live on one device."""
+    heads ``[s*H/tp, (s+1)*H/tp)``.  On the card this is ONE launch: the
+    shard is a grid coordinate, each CTA reads its query heads from the
+    full q and writes them into the full output, and the split plan is
+    the unsharded one (it takes the total KV), so every row's arithmetic
+    — and the result, bit for bit — is the unsharded launch's.  On the
+    CPU: one plain call per shard on its head slice, concatenated.  The
+    table and cursors are shared by every shard; all shards live on one
+    device."""
     if q.ndim != 4 or ck.ndim != 4:
         raise ValueError(f"want q [B, tq, H, D] and per-shard pools [tp, "
                          f"n_blocks, block, (KV/tp)*D], got "
@@ -284,6 +354,19 @@ def paged_attention_sharded(q, ck, cv, table, pos, *, k_scale=None,
         raise ValueError(f"tp ({tp}) must divide num_heads ({H})")
     Hs = H // tp
     quant = k_scale is not None
+    for t in (k_scale, v_scale):
+        if t is not None and (t.ndim != 4 or t.shape[0] != tp):
+            raise ValueError(f"scale pools must be [tp={tp}, n_blocks, "
+                             f"block, KV/tp], got {tuple(t.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    # one shard's shapes stand for all (views: nothing is copied)
+    _check_shapes(q[:, :, :Hs], ck[0], cv[0], table, pos,
+                  None if k_scale is None else k_scale[0],
+                  None if v_scale is None else v_scale[0])
+    if _build.on_cuda("paged_attention", q, ck, cv, table, pos, k_scale,
+                      v_scale):
+        return _launch(q, ck, cv, table, pos, k_scale, v_scale, window)
     outs = [paged_attention(
         q[:, :, s * Hs:(s + 1) * Hs].contiguous(), ck[s], cv[s], table, pos,
         k_scale=k_scale[s] if quant else None,

@@ -11,7 +11,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    false.
 2. Build — compiles every kernel of the serving and training paths from
    the sources in the checkout (one ``nvcc`` per source, ``sm_90a``,
-   started together) and prints the build seconds.
+   started together) and prints the build seconds and ``ptxas``'s
+   register and spill lines; then the paged kernel's and the bf16 flash
+   forward's per instantiation, and fails if the tensor-core forward
+   spills at head_dim 64 or 128.
 3. Reference — a small fp32 Llama-shaped model served greedily through
    the paged engine (the kernel decoding) must give exactly the tokens
    of a plain dense-cache greedy loop (``Transformer.decode``, no
@@ -41,9 +44,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the output); the int8 mode with a bf16 q within 2 bf16 ulps of each
    output row's largest reference magnitude (both sides round p and the
    output at the same points).  Every int8 case also runs the tp wrapper
-   at tp=2 and 4 on the same bytes cut into per-shard pools: tp
-   launches, the output bit-identical to the unsharded launch (printed;
-   held to the same tolerance).  Times (fp cases, and the int8 mode with a bf16 q): device
+   at tp=2 and 4 on the same bytes cut into per-shard pools: the output
+   bit-identical to the unsharded launch (printed;
+   held to the same tolerance).  One launch at every tp (the shard is a
+   grid coordinate).  Times (fp cases, and the int8 mode with a bf16 q): device
    time per call from CUDA graphs of 20 (flush, call) pairs less the
    flushes, as in phase 16, of the kernel (and the tp=2 wrapper) and of
    ``F.scaled_dot_product_attention(enable_gqa=True)`` over pre-gathered
@@ -60,8 +64,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    kernel (one launch per layer per tick); then again with
    ``BYTEPS_SERVE_KV_DTYPE=int8 BYTEPS_TP=2 BYTEPS_SERVE_PREFIX_CACHE=1
    BYTEPS_SERVE_SPEC=1``: the pool sharded in two and int8, the second
-   request a prefix hit, every tick a verify pass, two launches per
-   layer per tick.
+   request a prefix hit, every tick a verify pass, one launch per layer
+   per tick (the tp wrapper launches once for both shards).
 6b. Tiers reference — the phase-3 fp32 model: the int8-pool engine (the
    kernel's int8 mode) gives exactly the greedy tokens of a plain dense
    loop over an int8 grouped cache whose prompt is quantized at write
@@ -85,7 +89,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (cursors moving up to 5, the accepted rows quantized at scatter, tp=2
    writes at tq=5), which must accept.  All four runs token-identical.
    Each run: >= 8 prefix hits, every tick a verify pass, exactly one
-   kernel launch per layer per tick (two at tp=2), no plain version
+   kernel launch per layer per tick (at tp=2 too), no plain version
    called; TTFT/TPOT p50/p99, tokens/s, the acceptance rate, and the blocks the
    budget holds in int8 against bf16.  Then the int8 mode and the tp=2
    wrapper at the last tick's cursors, timed as in phase 5.
@@ -257,6 +261,57 @@ def _smi() -> str:
 
 def _line(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# ----------------------------------------------------------------- build
+
+
+def _ptxas_entries(log: str) -> dict:
+    """ptxas ``-v``'s report per kernel entry: ``{mangled name: {"registers":
+    n, "spill_stores": bytes, "spill_loads": bytes}}``."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_phase(logs: dict) -> dict:
+    """Registers and spills of the paged kernel and the bf16 flash forward
+    (``flash_fwd_mma_kernel<D>``), per instantiation; the tensor-core
+    forward must not spill at head_dim 64 or 128."""
+    info = {"phase": "ptxas"}
+    for src, key in (("paged_attention", "paged_attention_kernel"),
+                     ("flash_attention", "flash_fwd_mma_kernel")):
+        if src not in logs:  # built by an earlier run: no report here
+            info[src] = "built earlier; no ptxas report in this process"
+            continue
+        info[src] = {n: r for n, r in _ptxas_entries(logs[src]).items()
+                     if key in n}
+        if not info[src]:
+            raise AssertionError(f"no {key} in the {src} ptxas report")
+    for name, r in (info["flash_attention"].items()
+                    if isinstance(info["flash_attention"], dict) else ()):
+        # the mangled name carries D as its template argument: Li64E
+        if ("Li64E" in name or "Li128E" in name) and (
+                r.get("spill_stores") or r.get("spill_loads")):
+            raise AssertionError(f"{name} spills: {r}")
+    return info
 
 
 # ------------------------------------------------------------- reference
@@ -590,7 +645,7 @@ def kernel_case(torch, np, name, pos, tq, window, dtype, seed, flush,
         got = pa.paged_attention_sharded(q, *spools, table, posv,
                                          window=window, **skw)
         torch.cuda.synchronize()
-        if pa.launches != before + tp:
+        if pa.launches != before + 1:  # one launch serves every shard
             raise AssertionError(f"{name}: tp={tp} made "
                                  f"{pa.launches - before} launches")
         res[f"tp{tp}_bit_identical"] = bool(torch.equal(got, out))
@@ -724,7 +779,7 @@ def serve_role_phase(torch, extra=None) -> dict:
     counts = st["step_counts"]
     if (a.shape != (8,) or not np.array_equal(a, b) or pa.plain_calls
             or pa.launches != counts["decode_ticks"] * cfg.num_layers
-            * eng.tp or pa.launches == 0):
+            or pa.launches == 0):  # one launch per layer a tick at any tp
         raise AssertionError(f"serve role: {a} / {b}, {pa.launches} kernel "
                              f"launches, {pa.plain_calls} plain, {counts}")
     info = {"phase": "serve_role", "env": env, "head_dim": cfg.d_head,
@@ -964,7 +1019,7 @@ def _tiers_run(torch, np, model, prompts, warm, tp, replay=None):
                 or r.max() >= cfg.vocab_size:
             raise AssertionError(f"bad result: {r}")
     counts = engine.step_counts()
-    if (launches != counts["decode_ticks"] * cfg.num_layers * tp
+    if (launches != counts["decode_ticks"] * cfg.num_layers  # any tp
             or counts["verify_ticks"] != counts["decode_ticks"] or plain
             or (replay is not None and not counts["spec_accepted"])):
         raise AssertionError(f"tp={tp}: {launches} launches, {plain} plain "
@@ -2131,6 +2186,7 @@ def main() -> int:
            "ptxas": {n: [ln.strip() for ln in log.splitlines()
                          if "registers" in ln or "spill" in ln]
                      for n, log in _build.build_logs.items()}})
+    _line(ptxas_phase(_build.build_logs))
     _line(reference_phase(torch, args.seed))
     serve_info, paged_launches, final_pos = serve_phase(torch, args.seed)
     serve_info["nvidia_smi"] = smi

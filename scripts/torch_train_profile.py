@@ -55,7 +55,7 @@ CLASSES = (("fce_fwd", re.compile(r"fce_fwd")),
            ("fce_dlogits", re.compile(r"fce_dlogits_kernel")),
            ("fce_dx", re.compile(r"fce_dx_kernel")),
            ("fce_dw", re.compile(r"fce_dw_kernel")),
-           ("flash_fwd", re.compile(r"flash_fwd_kernel")),
+           ("flash_fwd", re.compile(r"flash_fwd_(mma_)?kernel")),
            ("flash_dq", re.compile(r"flash_bwd_dq_kernel")),
            ("flash_dkv", re.compile(r"flash_bwd_dkv_kernel")),
            ("optimizer", re.compile(r"adam", re.I)),

@@ -8,8 +8,9 @@ Without a GPU every test here skips.  Paged attention (fp and int8
 pools, and the tp wrapper): fp32 1e-4 absolute (online vs dense softmax
 accumulation order); bf16 2e-2 (p is rounded to bf16 before the PV
 product, so a bf16 ulp of a probability reaches the output); the tp
-wrapper's output bit-identical to the unsharded launch (each shard's CTAs
-do the unsharded launch's arithmetic for their rows); the int8 mode with a
+wrapper's output bit-identical to the unsharded launch (one launch whose
+CTAs do the unsharded launch's arithmetic for their rows), and reruns
+bit-identical (the splits merge in split order); the int8 mode with a
 bf16 q within 2 bf16 ulps of each output row's largest reference
 magnitude (both sides round p and the output to bf16 at the same points).  Flash attention (forward, dq, dk/dv): fp32 1e-4
 of the largest reference magnitude, absolute below magnitude 1 (dk/dv
@@ -201,8 +202,92 @@ def test_paged_attention_sharded_is_the_unsharded_launch(tp, quant, dtype):
         q, shard(ck), shard(cv), table, posv,
         **{k: shard(v) for k, v in kw.items()})
     torch.cuda.synchronize()
-    assert pa.launches == before + tp
+    assert pa.launches == before + 1  # one launch serves every shard
     assert torch.equal(parts, whole)
+
+
+def _split_case(name, sms):
+    """Cursors (and shapes) that put the split plan's edges where the
+    kernel can get them wrong.  Returns ``(H, KV, D, blk, mb, tq, window,
+    pos, cut)``: with ``cut`` the table keeps ``mb`` blocks but one more
+    is allocated past each row (a span running past the row's end)."""
+    H, KV, D, blk, mb, tq, window, cut = 32, 8, 64, 16, 128, 1, None, False
+    if name == "block64_head_dim128":
+        H, KV, D, blk, mb = 8, 2, 128, 64, 32
+    if name == "max_blocks_not_a_multiple":
+        mb = 130
+    probe = (torch.empty(8, tq, H, D, device="meta"),
+             torch.empty(1, blk, KV * D, device="meta"),
+             torch.empty(8, mb, device="meta"))
+    _, per = pa.split_plan(*probe, sms)
+    edge = per * blk  # keys per split
+    S = mb * blk
+    if name == "cursor_0":
+        pos = [0, 0, 1, 0, 5, 0, edge, 0]
+    elif name in ("split_edge", "block64_head_dim128"):
+        pos = [edge - 1, edge, 2 * edge - 1, 2 * edge, 3 * edge - 1,
+               3 * edge + 1, S - 1, 0]
+    elif name == "tq5_across_edge":
+        tq = 5
+        pos = [edge - 2, edge - 5, edge - 4, 2 * edge - 3, 0, S - 5,
+               3 * edge - 1, 4 * edge - 3]
+    elif name == "tq5_past_row_end":
+        tq, cut = 5, True
+        pos = [S - 1, S - 2, S - 4, S - 5, S - 3, 0, edge - 2, S - edge - 2]
+    elif name == "window256_mid_split":
+        window = 256
+        pos = [edge + 255 + edge // 2, 1000, 255 + edge // 2, 3 * edge + 7,
+               255, 256, S - 1, 0]
+    elif name == "max_blocks_not_a_multiple":
+        pos = [S - 1, S - 2, S - edge, S - edge - 1, 17, 0, edge, S // 2]
+    return H, KV, D, blk, mb, tq, window, pos, cut
+
+
+SPLIT_CASES = ("cursor_0", "split_edge", "tq5_across_edge",
+               "tq5_past_row_end", "window256_mid_split",
+               "max_blocks_not_a_multiple", "block64_head_dim128")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_paged_attention_split_plan_edges(mode, name):
+    """The block axis split over CTAs and merged by the last one: cursors
+    at 0, on and one past a split's edge, a verify span across an edge and
+    past the row's end, a window starting mid-split, ``max_blocks`` not a
+    multiple of the split, block 64 at head_dim 128.  Each against the
+    plain version (fp32 1e-4, bf16 2e-2, int8 with a bf16 q 2 row ulps),
+    and a rerun bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from byteps_tpu_torch.ops import _build
+    sms = _build.sm_count(torch.device("cuda", torch.cuda.current_device()))
+    H, KV, D, blk, mb, tq, window, pos, cut = _split_case(name, sms)
+    dtype = torch.float32 if mode == "float32" else torch.bfloat16
+    q, ck, cv, table, posv = _case(12, len(pos), tq, H, KV, D, blk,
+                                   mb + cut, pos,
+                                   torch.float32 if mode == "int8" else dtype)
+    kw = {}
+    if mode == "int8":
+        ck, ks, cv, vs = _int8_pools(ck, cv, KV, table, pos, tq)
+        kw = {"k_scale": ks, "v_scale": vs}
+        q = q.to(dtype)
+    table = table[:, :mb].contiguous()
+    assert pa.split_plan(q, ck, table, sms)[0] > 1  # the merge path runs
+    before = pa.launches
+    out = pa.paged_attention(q, ck, cv, table, posv, window=window, **kw)
+    again = pa.paged_attention(q, ck, cv, table, posv, window=window, **kw)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 2
+    ref = pa.paged_attention_reference(q, ck, cv, table, posv, window=window,
+                                       **kw)
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    if mode == "int8":
+        assert _row_ulps(out, ref) <= 2, _row_ulps(out, ref)
+    else:
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= (1e-4 if mode == "float32" else 2e-2), err
+    assert torch.equal(out, again)
 
 
 def _flash_inputs(seed, B, T, H, KV, D, dtype, seg, alibi):
@@ -266,6 +351,8 @@ def test_flash_kernels_match_plain_versions(dtype, tol, T, H, KV, D, causal,
     assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
         n + 1 for n in n0)
     assert (lse - lse_ref).abs().max().item() <= 1e-4
+    o2, lse2 = fa.flash_forward(q, k, v, *args)  # a rerun: the same bits
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     for name, out, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
         assert out.shape == ref.shape and out.dtype == ref.dtype, name
@@ -273,6 +360,29 @@ def test_flash_kernels_match_plain_versions(dtype, tol, T, H, KV, D, causal,
         assert torch.isfinite(ref.float()).all(), name
         err = _rel_err(out, ref, dtype)
         assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,KV,D", [(1, 4, 2, 64), (1, 4, 4, 128),
+                                      (2000, 8, 2, 64)])
+def test_flash_forward_bf16_at_the_t_edges(T, H, KV, D):
+    """The tensor-core forward at T = 1 (one live row of a 64-row tile)
+    and T = 2000 (a tail tile of 16 rows): o within 2e-2 of the largest
+    reference magnitude, lse within 1e-4, a rerun bit-identical.  (The
+    backward at T = 1 has dq = dk = 0 up to rounding, which a relative
+    bound cannot hold: the forward alone.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, _, _, _ = _flash_inputs(13, 2, T, H, KV, D, torch.bfloat16,
+                                     False, False)
+    o, lse = fa.flash_forward(q, k, v, True)
+    o2, lse2 = fa.flash_forward(q, k, v, True)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert _rel_err(o, o_ref, torch.bfloat16) <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda

@@ -2,9 +2,12 @@
 // and both backward kernels.
 //
 // Replaces the TPU kernels of byteps_tpu/ops/flash_attention.py:
-//   * flash_fwd_kernel     <- `_fwd_kernel` (:116, pallas_call at :288)
-//   * flash_bwd_dq_kernel  <- `_bwd_dq_kernel` (:374, pallas_call at :625)
-//   * flash_bwd_dkv_kernel <- `_bwd_dkv_kernel` (:444, pallas_call at :661)
+//   * flash_fwd_mma_kernel (bf16), flash_fwd_kernel (fp32)
+//       <- `_fwd_kernel` (:116, pallas_call at :288)
+//   * flash_bwd_dq_mma_kernel (bf16), flash_bwd_dq_kernel (fp32)
+//       <- `_bwd_dq_kernel` (:374, pallas_call at :625)
+//   * flash_bwd_dkv_mma_kernel (bf16), flash_bwd_dkv_kernel (fp32)
+//       <- `_bwd_dkv_kernel` (:444, pallas_call at :661)
 // Python binding, build and the plain PyTorch versions live in
 // byteps_tpu_torch/ops/flash_attention.py.
 //
@@ -65,12 +68,47 @@
 //     tiles of the triangle's tail fill the last wave;
 //   * o is rounded once; lse = m + log(max(l, 1e-30)); a fully masked row
 //     gives o = 0 and lse = -1e30 + log(1e-30), as the plain version.
-// Forward, fp32 (flash_fwd_kernel): scalar fp32 FMA, as below.  Tensor
-// cores would mean TF32, whose 10-bit mantissa moves the fp32 rounding
-// points that the training reference holds to 1e-5; so fp32 keeps the
-// scalar path.
-//
-// Backward and the fp32 forward (right and simple first; no tensor cores):
+// Backward, bf16 (flash_bwd_dq_mma_kernel, flash_bwd_dkv_mma_kernel): the
+// same building blocks, with the products arranged so that nothing
+// round-trips through shared memory.
+//   * dq: one CTA of 4 warps per (query head in its KV group, batch * KV
+//     head, 64-row q tile), launched as the forward (causal q tiles
+//     longest first; the G heads of a KV head share its tiles in L2).  Q
+//     and dO are staged once; K / V tiles of 64 keys run through the
+//     two-stage cp.async ring.  Per 32-key chunk: S = Q K^T and dP = dO
+//     V^T by mma.sync; p = 2^(s * scale * log2(e) + bias - lse * log2(e))
+//     (ex2.approx); dS = p (dP - delta) packed to bf16 in registers (the
+//     plain version's ds.to(k.dtype)) is the A operand of dQ += dS K, K
+//     read by ldmatrix.trans.  dQ is scaled and rounded once;
+//   * dk / dv: one CTA of 4 warps per (batch * KV head, 64-row k tile) owns
+//     its dK / dV rows for the whole query-head group, so no two CTAs
+//     write one row: no atomics, reruns bit-identical.  K and V stay in
+//     shared memory; the CTA walks (g, q tile) in a fixed order with the
+//     Q / dO tiles and their 64 lse and delta values in the cp.async ring.
+//     The products are the transposed ones: S^T = K Q^T and dP^T = V dO^T
+//     (Q, dO by ldmatrix non-transposed), so P^T and dS^T = P^T (dP^T -
+//     delta) come out in the A operand's layout for dV += P^T dO and
+//     dK += dS^T Q (dO, Q by ldmatrix.trans).  lse and delta belong to the
+//     columns: each lane reads its columns' values from shared memory.
+//     dK and dV sum the group in fp32 registers and are rounded once (the
+//     plain version's group sum).  The grid is (batch * KV head, k tile),
+//     so the low k tiles, which see the most q tiles under a causal mask,
+//     launch first;
+//   * masks, ALiBi and the tail as in the forward, on the C fragment's
+//     lane map, only on tiles that need them; in dk / dv the query rows at
+//     or past T (zero-filled, with lse = delta = 0) are masked explicitly;
+//   * registers: dq holds dQ plus one 32-key chunk of S and dP (128
+//     registers at D = 64, 4 CTAs an SM); dk / dv holds dK and dV and
+//     walks 16-row q chunks in a loop that is not unrolled (128 registers
+//     at D = 64, no spill; D = 128 takes 2 CTAs an SM in both);
+//   * the pair recomputes Q K^T and dO V^T in both kernels: 14 D FLOPs an
+//     attended pair against 10 D for a fused backward.  Fusing dq into the
+//     dk / dv kernel needs fp32 atomics on dQ, whose order changes from
+//     run to run, and the port keeps reruns bit-identical.
+// fp32 (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel):
+// scalar fp32 FMA.  Tensor cores would mean TF32, whose 10-bit mantissa
+// moves the fp32 rounding points that the training reference holds to
+// 1e-5; so fp32 keeps the scalar path (right and simple first):
 //   * one CTA of 256 threads per (batch * head, 64-row q tile) for the
 //     forward and dq, per (batch * KV head, 64-row k tile) for dk / dv;
 //   * the loop over the other operand's 64-row tiles inside the CTA takes
@@ -82,12 +120,10 @@
 //     the 16 x 16 grid computes scores of rows ty*4..ty*4+3 and columns
 //     tx + 16 j, and owns output columns tx*D/16.. of the same rows, so a
 //     row's softmax reduces over 16 lanes of one warp with shuffles;
-//   * dk / dv: each CTA owns its k tile for the whole head group, so no
-//     two CTAs write one dk / dv row: no atomics, and reruns are
-//     bit-identical;
+//   * dk / dv: each CTA owns its k tile for the whole head group, as above;
 //   * tail rows and columns (index >= T) are staged as zeros and masked.
-// Not yet: tensor cores in the backward; TMA / wgmma with a warp-
-// specialised producer for the forward.
+// Not yet: TMA / wgmma with a warp-specialised producer, forward and
+// backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -833,6 +869,384 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward on tensor cores
+
+// columns of S a warp holds at once (keys in dq, query rows in dk / dv):
+// the products run over the 64-column tile in chunks, so one chunk's score
+// and dP fragments are all that is live beside the accumulators.  dk / dv
+// hold two accumulators (dK and dV) and walk 16-row chunks in a loop that
+// is not unrolled; that fits 128 registers with no spill at D = 64, so 4
+// CTAs share an SM (ptxas, chip_smoke.py's "ptxas" phase)
+constexpr int kDqChunk = 32;
+constexpr int kDkvChunk = 16;
+
+// lane offsets (elements) into a [rows][D + 8] bf16 tile for the ldmatrix
+// reads of a 16-row block at a 16-column offset: as the B operand of a
+// product whose rows are the tile's rows (non-transposed: keys of K in
+// Q K^T), and transposed (the tile's rows are the product's depth: V in
+// P V)
+__device__ __forceinline__ int b_off(int lane, int LD) {
+  return ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int bt_off(int lane, int LD) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+}
+// ... and as the A operand (16 rows x 16 columns, row-major)
+__device__ __forceinline__ int a_off(int lane, int LD) {
+  return (lane & 15) * LD + (lane >> 4) * 8;
+}
+
+// 4 bytes global -> shared (src_bytes = 0 writes a zero)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// acc (16 x D) += a (16 x 16 in registers) * the 16 x D tile at `t` (rows
+// of `t` are the product's depth: ldmatrix.trans)
+template <int D>
+__device__ __forceinline__ void mma_rows_tn(float (&acc)[D / 8][4],
+                                            const uint32_t (&a)[4],
+                                            const __nv_bfloat16* t) {
+#pragma unroll
+  for (int j2 = 0; j2 < D / 16; ++j2) {
+    uint32_t bb[4];
+    ldsm_x4_t(bb, t + j2 * 16);
+    mma_bf16(acc[2 * j2], a, bb[0], bb[1]);
+    mma_bf16(acc[2 * j2 + 1], a, bb[2], bb[3]);
+  }
+}
+
+// s (16 rows x NC * 8 columns) = A (16 x D at `a_row`, ldmatrix rows) *
+// B^T, B the NC * 8 rows of D at `b` (non-transposed ldmatrix offsets)
+template <int D, int NC>
+__device__ __forceinline__ void mma_nt(float (&s)[NC][4],
+                                       const __nv_bfloat16* a_row,
+                                       const __nv_bfloat16* b, int LD) {
+#pragma unroll
+  for (int j = 0; j < NC; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_row + kk * 16);
+#pragma unroll
+    for (int j2 = 0; j2 < NC / 2; ++j2) {
+      uint32_t bb[4];
+      ldsm_x4(bb, b + j2 * 16 * LD + kk * 16);
+      mma_bf16(s[2 * j2], a, bb[0], bb[1]);
+      mma_bf16(s[2 * j2 + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// whether query row r attends key c, leaving out the segment test
+__device__ __forceinline__ bool band_ok(const Problem& P, int r, int c) {
+  bool ok = r < P.T && c < P.T;
+  if (P.causal) {
+    ok = ok && r >= c;
+    if (P.window > 0) ok = ok && r - c < P.window;
+  }
+  return ok;
+}
+
+// whether the (q tile, k tile) pair holds a masked entry
+__device__ __forceinline__ bool tile_needs_mask(const Problem& P, int q0,
+                                                int k0) {
+  return P.seg != nullptr || q0 + kMmaTile > P.T || k0 + kMmaTile > P.T ||
+         (P.causal && (k0 + kMmaTile - 1 > q0 ||
+                       (P.window > 0 && q0 + kMmaTile - 1 - k0 >= P.window)));
+}
+
+// dq: one CTA of 4 warps per (query head in its KV group, batch * KV head,
+// 64-row q tile); each warp owns 16 query rows and walks the k tiles.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 4 : 2)
+    flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dq, Problem P) {
+  constexpr int LD = D + 8;
+  constexpr int DB = D / 8;            // 8-column blocks of dQ
+  constexpr int NC = kDqChunk / 8;     // 8-key blocks of a chunk
+  const int G = P.H / P.KV;
+  const int bkv = blockIdx.y, b = bkv / P.KV, kvh = bkv % P.KV;
+  const int h = kvh * G + blockIdx.x;
+  const int n_tiles = (P.T + kMmaTile - 1) / kMmaTile;
+  const int qt = P.causal ? n_tiles - 1 - static_cast<int>(blockIdx.z)
+                          : static_cast<int>(blockIdx.z);
+  const int q0 = qt * kMmaTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad_row = lane >> 2, quad_col = (lane & 3) * 2;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* dOs = Qs + kMmaTile * LD;
+  __nv_bfloat16* Ks = dOs + kMmaTile * LD;     // [2][kMmaTile][LD]
+  __nv_bfloat16* Vs = Ks + 2 * kMmaTile * LD;  // [2][kMmaTile][LD]
+
+  int lo, hi;
+  k_range(P, q0, lo, hi);
+  stage_async<D>(Qs, q, b, h, P.H, P.T, q0);
+  stage_async<D>(dOs, dout, b, h, P.H, P.T, q0);
+  stage_async<D>(Ks, k, b, kvh, P.KV, P.T, lo * kMmaTile);
+  stage_async<D>(Vs, v, b, kvh, P.KV, P.T, lo * kMmaTile);
+  cp_async_commit();
+
+  // this lane's two rows (quad_row, quad_row + 8 of the warp's 16); a row
+  // at or past T reads lse = delta = 0 and is not written
+  const size_t bh = static_cast<size_t>(b) * P.H + h;
+  int row[2], seg_r[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    row[rr] = q0 + warp * 16 + quad_row + rr * 8;
+    const bool live = row[rr] < P.T;
+    seg_r[rr] = P.seg && live
+                    ? P.seg[static_cast<size_t>(b) * P.T + row[rr]] : -1;
+    lse2[rr] = live ? lse[bh * P.T + row[rr]] * kLog2e : 0.f;
+    dl[rr] = live ? delta[bh * P.T + row[rr]] : 0.f;
+  }
+  const float sc2 = P.scale * kLog2e;
+  const float sl2 = P.slopes ? P.slopes[h] / P.scale : 0.f;
+  float acc[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int ao = (warp * 16) * LD + a_off(lane, LD);
+  const int bo = b_off(lane, LD), bto = bt_off(lane, LD);
+
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int st = (kt - lo) & 1;
+    if (kt < hi) {  // the next tile loads while this one computes
+      stage_async<D>(Ks + (st ^ 1) * kMmaTile * LD, k, b, kvh, P.KV, P.T,
+                     (kt + 1) * kMmaTile);
+      stage_async<D>(Vs + (st ^ 1) * kMmaTile * LD, v, b, kvh, P.KV, P.T,
+                     (kt + 1) * kMmaTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Kt = Ks + st * kMmaTile * LD;
+    const __nv_bfloat16* Vt = Vs + st * kMmaTile * LD;
+    const int k0 = kt * kMmaTile;
+    const bool need_mask = tile_needs_mask(P, q0, k0);
+
+#pragma unroll
+    for (int c = 0; c < kMmaTile; c += kDqChunk) {
+      // S = Q K^T and dP = dO V^T for this chunk's keys, 16 rows a warp
+      float s[NC][4], dp[NC][4];
+      mma_nt<D, NC>(s, Qs + ao, Kt + c * LD + bo, LD);
+      mma_nt<D, NC>(dp, dOs + ao, Vt + c * LD + bo, LD);
+      // p = exp(s - lse) and dS = p (dP - delta), in bf16 as dQ's A operand
+      uint32_t dsf[NC][2];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row[e >> 1], col = k0 + c + j * 8 + quad_col + (e & 1);
+          float x = s[j][e];
+          if (P.slopes) x += sl2 * static_cast<float>(col - r);
+          if (need_mask) {
+            bool ok = band_ok(P, r, col);
+            if (P.seg)
+              ok = ok && __ldg(P.seg + static_cast<size_t>(b) * P.T + col) ==
+                             seg_r[e >> 1];
+            if (!ok) x = -INFINITY;
+          }
+          const float p = ex2(fmaf(x, sc2, -lse2[e >> 1]));
+          ds[e] = p * (dp[j][e] - dl[e >> 1]);
+        }
+        dsf[j][0] = pack_bf16(ds[0], ds[1]);
+        dsf[j][1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dQ += dS K: dS's accumulator layout is the A operand's
+#pragma unroll
+      for (int kk = 0; kk < NC / 2; ++kk) {
+        const uint32_t a[4] = {dsf[2 * kk][0], dsf[2 * kk][1],
+                               dsf[2 * kk + 1][0], dsf[2 * kk + 1][1]};
+        mma_rows_tn<D>(acc, a, Kt + (c + kk * 16) * LD + bto);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (row[rr] >= P.T) continue;
+    __nv_bfloat16* out =
+        dq + ((static_cast<size_t>(b) * P.T + row[rr]) * P.H + h) * D +
+        quad_col;
+#pragma unroll
+    for (int j = 0; j < DB; ++j)
+      *reinterpret_cast<uint32_t*>(out + j * 8) = pack_bf16(
+          acc[j][2 * rr] * P.scale, acc[j][2 * rr + 1] * P.scale);
+  }
+}
+
+// dk / dv: one CTA of 4 warps per (batch * KV head, 64-row k tile) for the
+// whole query-head group; each warp owns 16 keys.  The products are the
+// transposed ones (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T come out
+// in the A operand's layout for dV += P^T dO and dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 4 : 2)
+    flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, Problem P) {
+  constexpr int LD = D + 8;
+  constexpr int DB = D / 8;            // 8-column blocks of dK / dV
+  constexpr int NC = kDkvChunk / 8;    // 8-row blocks of a q chunk
+  const int G = P.H / P.KV;
+  // grid (batch * KV head, k tile): the low k tiles, which see the most q
+  // tiles under a causal mask, launch first
+  const int bkv = blockIdx.x, b = bkv / P.KV, kvh = bkv % P.KV;
+  const int k0 = blockIdx.y * kMmaTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad_row = lane >> 2, quad_col = (lane & 3) * 2;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* Vs = Ks + kMmaTile * LD;
+  __nv_bfloat16* Qs = Vs + kMmaTile * LD;      // [2][kMmaTile][LD]
+  __nv_bfloat16* dOs = Qs + 2 * kMmaTile * LD;  // [2][kMmaTile][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kMmaTile * LD);  // [2][64]
+  float* Ds = Ls + 2 * kMmaTile;                                  // [2][64]
+
+  // q tiles that see this k tile; the CTA walks (g, q tile) in this order
+  int lo = 0, hi = (P.T - 1) / kMmaTile;
+  if (P.causal) {
+    lo = k0 / kMmaTile;
+    if (P.window > 0)
+      hi = min(hi, (k0 + kMmaTile - 1 + P.window - 1) / kMmaTile);
+  }
+  const int n_q = hi - lo + 1, n_it = G * n_q;
+  // the Q and dO tiles of iteration `it`, with its rows' lse and delta
+  auto stage_it = [&](int it, int st) {
+    const int h = kvh * G + it / n_q, q0 = (lo + it % n_q) * kMmaTile;
+    stage_async<D>(Qs + st * kMmaTile * LD, q, b, h, P.H, P.T, q0);
+    stage_async<D>(dOs + st * kMmaTile * LD, dout, b, h, P.H, P.T, q0);
+    const int i = threadIdx.x & (kMmaTile - 1), t = q0 + i;
+    const float* src = (threadIdx.x < kMmaTile ? lse : delta) +
+                       (static_cast<size_t>(b) * P.H + h) * P.T;
+    float* dst = (threadIdx.x < kMmaTile ? Ls : Ds) + st * kMmaTile + i;
+    cp_async4(dst, src + (t < P.T ? t : 0), t < P.T ? 4 : 0);
+  };
+  stage_async<D>(Ks, k, b, kvh, P.KV, P.T, k0);
+  stage_async<D>(Vs, v, b, kvh, P.KV, P.T, k0);
+  stage_it(0, 0);  // n_it >= 1: lo <= hi
+  cp_async_commit();
+
+  // this lane's two keys (quad_row, quad_row + 8 of the warp's 16)
+  int key[2], seg_k[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    key[rr] = k0 + warp * 16 + quad_row + rr * 8;
+    seg_k[rr] = P.seg && key[rr] < P.T
+                    ? P.seg[static_cast<size_t>(b) * P.T + key[rr]] : -1;
+  }
+  const float sc2 = P.scale * kLog2e;
+  float dk_acc[DB][4], dv_acc[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  const int ao = (warp * 16) * LD + a_off(lane, LD);
+  const int bo = b_off(lane, LD), bto = bt_off(lane, LD);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) {  // the next Q / dO tile loads while this computes
+      stage_it(it + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int h = kvh * G + it / n_q, q0 = (lo + it % n_q) * kMmaTile;
+    const float sl2 = P.slopes ? __ldg(P.slopes + h) / P.scale : 0.f;
+    const __nv_bfloat16* Qt = Qs + st * kMmaTile * LD;
+    const __nv_bfloat16* dOt = dOs + st * kMmaTile * LD;
+    const float* Lt = Ls + st * kMmaTile;
+    const float* Dt = Ds + st * kMmaTile;
+    const bool need_mask = tile_needs_mask(P, q0, k0);
+
+#pragma unroll 1
+    for (int c = 0; c < kMmaTile; c += kDkvChunk) {
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x this chunk's q rows
+      float s[NC][4], dp[NC][4];
+      mma_nt<D, NC>(s, Ks + ao, Qt + c * LD + bo, LD);
+      mma_nt<D, NC>(dp, Vs + ao, dOt + c * LD + bo, LD);
+      // P^T and dS^T; lse and delta belong to the columns (q rows)
+      uint32_t pf[NC][2], dsf[NC][2];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int ql = c + j * 8 + quad_col;  // tile row of element e & 1 = 0
+        const float2 l2 = *reinterpret_cast<const float2*>(Lt + ql);
+        const float2 d2 = *reinterpret_cast<const float2*>(Dt + ql);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = q0 + ql + (e & 1), kc = key[e >> 1];
+          float x = s[j][e];
+          if (P.slopes) x += sl2 * static_cast<float>(kc - r);
+          if (need_mask) {  // rows past T too: their lse = delta = 0
+            bool ok = band_ok(P, r, kc);
+            if (P.seg)
+              ok = ok && __ldg(P.seg + static_cast<size_t>(b) * P.T + r) ==
+                             seg_k[e >> 1];
+            if (!ok) x = -INFINITY;
+          }
+          p[e] = ex2(fmaf(x, sc2, -(e & 1 ? l2.y : l2.x) * kLog2e));
+          ds[e] = p[e] * (dp[j][e] - (e & 1 ? d2.y : d2.x));
+        }
+        pf[j][0] = pack_bf16(p[0], p[1]);  // p in dO's dtype
+        pf[j][1] = pack_bf16(p[2], p[3]);
+        dsf[j][0] = pack_bf16(ds[0], ds[1]);  // ds in q's dtype
+        dsf[j][1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dV += P^T dO and dK += dS^T Q over the chunk's q rows
+#pragma unroll
+      for (int kk = 0; kk < NC / 2; ++kk) {
+        const uint32_t ap[4] = {pf[2 * kk][0], pf[2 * kk][1],
+                                pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
+        const uint32_t ad[4] = {dsf[2 * kk][0], dsf[2 * kk][1],
+                                dsf[2 * kk + 1][0], dsf[2 * kk + 1][1]};
+        mma_rows_tn<D>(dv_acc, ap, dOt + (c + kk * 16) * LD + bto);
+        mma_rows_tn<D>(dk_acc, ad, Qt + (c + kk * 16) * LD + bto);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  // the group's fp32 sums, rounded once
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (key[rr] >= P.T) continue;
+    const size_t at =
+        ((static_cast<size_t>(b) * P.T + key[rr]) * P.KV + kvh) * D +
+        quad_col;
+#pragma unroll
+    for (int j = 0; j < DB; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + at + j * 8) = pack_bf16(
+          dk_acc[j][2 * rr] * P.scale, dk_acc[j][2 * rr + 1] * P.scale);
+      *reinterpret_cast<uint32_t*>(dv + at + j * 8) =
+          pack_bf16(dv_acc[j][2 * rr], dv_acc[j][2 * rr + 1]);
+    }
+  }
+}
+
 template <typename K>
 int set_smem(K kern, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -878,30 +1292,59 @@ template <typename T, int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, int B,
            const Problem& P, cudaStream_t s) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  const size_t smem = smem_bytes(D, 4);
-  if (int e = set_smem(kern, smem)) return e;
-  dim3 grid((P.T + kTile - 1) / kTile, B * P.H);
-  kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), P);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2) {  // bf16: tensor cores
+    using bf = __nv_bfloat16;
+    auto kern = flash_bwd_dq_mma_kernel<D>;
+    const size_t smem = static_cast<size_t>(6) * kMmaTile * (D + 8) *
+                        sizeof(bf);  // Q, dO, 2 x K, 2 x V
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid(P.H / P.KV, B * P.KV, (P.T + kMmaTile - 1) / kMmaTile);
+    kern<<<grid, kMmaThreads, smem, s>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k),
+        static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
+        static_cast<bf*>(dq), P);
+    return static_cast<int>(cudaGetLastError());
+  } else {  // fp32: the scalar path (tensor cores would mean TF32)
+    auto kern = flash_bwd_dq_kernel<T, D>;
+    const size_t smem = smem_bytes(D, 4);
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid((P.T + kTile - 1) / kTile, B * P.H);
+    kern<<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), P);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, void* dk, void* dv, int B,
             const Problem& P, cudaStream_t s) {
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  const size_t smem = smem_bytes(D, 4);
-  if (int e = set_smem(kern, smem)) return e;
-  dim3 grid((P.T + kTile - 1) / kTile, B * P.KV);
-  kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), P);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2) {  // bf16: tensor cores
+    using bf = __nv_bfloat16;
+    auto kern = flash_bwd_dkv_mma_kernel<D>;
+    const size_t smem =  // K, V, 2 x Q, 2 x dO; 2 x lse and delta rows
+        static_cast<size_t>(6) * kMmaTile * (D + 8) * sizeof(bf) +
+        static_cast<size_t>(4) * kMmaTile * sizeof(float);
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid(B * P.KV, (P.T + kMmaTile - 1) / kMmaTile);
+    kern<<<grid, kMmaThreads, smem, s>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k),
+        static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
+        static_cast<bf*>(dk), static_cast<bf*>(dv), P);
+    return static_cast<int>(cudaGetLastError());
+  } else {  // fp32: the scalar path
+    auto kern = flash_bwd_dkv_kernel<T, D>;
+    const size_t smem = smem_bytes(D, 4);
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid((P.T + kTile - 1) / kTile, B * P.KV);
+    kern<<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), P);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 bool bad_shape(int B, int T, int H, int KV, int D, int dtype) {

@@ -27,8 +27,10 @@ Beside the kernels:
   whole ``[T, T]`` score matrix with each TPU kernel's rounding points
   (dots of input-dtype values summed in fp32, fp32 softmax, ``p`` and
   ``ds`` rounded to the operand dtype before their dots).  dk/dv sum
-  the head group in fp32 and round once (the TPU wrapper rounds each
-  head, then sums — the same in fp32);
+  the head group in fp32 and round once.  The TPU wrapper rounds each
+  head's dk/dv, then sums the group: the two agree in fp32, and in bf16
+  differ by that rounding under GQA (bit-equal where each KV head has
+  one query head);
 * :class:`FlashAttention` — forward saves ``(q, k, v, o, lse,
   segment_ids, alibi_slopes)``; backward computes ``delta =
   rowsum(dO * o)`` (minus the lse cotangent) and calls dq and dk/dv.

@@ -13,8 +13,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the sources in the checkout (one ``nvcc`` per source, ``sm_90a``,
    started together) and prints the build seconds and ``ptxas``'s
    register and spill lines; then the paged kernel's and the bf16 flash
-   forward's per instantiation, and fails if the tensor-core forward
-   spills at head_dim 64 or 128.
+   kernels' on tensor cores (forward, dq, dk/dv) per instantiation, and
+   fails if any of the three spills at head_dim 64 or 128.
 3. Reference — a small fp32 Llama-shaped model served greedily through
    the paged engine (the kernel decoding) must give exactly the tokens
    of a plain dense-cache greedy loop (``Transformer.decode``, no
@@ -117,7 +117,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    largest reference magnitude, or absolute below magnitude 1 (dk/dv sum
    G * T products: at MQA, 32 heads of 2048 rows); bf16 within 2e-2 of
    the largest reference magnitude (p and ds are rounded to bf16 before
-   their products, and outputs once).  At the
+   their products, and outputs once).  Every case reruns dq and dk/dv:
+   the reruns must be bit-identical (no atomics; every sum in a fixed
+   order).  In bf16 the three kernels run on tensor cores, in fp32 on
+   scalar FMA.  At the
    training shape, times (L2 flushed) of each kernel, its plain
    version, and as the yardstick ``F.scaled_dot_product_attention(...,
    is_causal=True, enable_gqa=True)`` forward and its autograd backward
@@ -291,20 +294,26 @@ def _ptxas_entries(log: str) -> dict:
     return out
 
 
+FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                     "flash_bwd_dkv_mma_kernel")
+
+
 def ptxas_phase(logs: dict) -> dict:
-    """Registers and spills of the paged kernel and the bf16 flash forward
-    (``flash_fwd_mma_kernel<D>``), per instantiation; the tensor-core
-    forward must not spill at head_dim 64 or 128."""
+    """Registers and spills of the paged kernel and the bf16 flash kernels
+    on tensor cores (forward, dq and dk/dv, ``flash_*_mma_kernel<D>``),
+    per instantiation; none of the three may spill at head_dim 64 or
+    128."""
     info = {"phase": "ptxas"}
-    for src, key in (("paged_attention", "paged_attention_kernel"),
-                     ("flash_attention", "flash_fwd_mma_kernel")):
+    for src, keys in (("paged_attention", ("paged_attention_kernel",)),
+                      ("flash_attention", FLASH_MMA_KERNELS)):
         if src not in logs:  # built by an earlier run: no report here
             info[src] = "built earlier; no ptxas report in this process"
             continue
         info[src] = {n: r for n, r in _ptxas_entries(logs[src]).items()
-                     if key in n}
-        if not info[src]:
-            raise AssertionError(f"no {key} in the {src} ptxas report")
+                     if any(key in n for key in keys)}
+        for key in keys:
+            if not any(key in n for n in info[src]):
+                raise AssertionError(f"no {key} in the {src} ptxas report")
     for name, r in (info["flash_attention"].items()
                     if isinstance(info["flash_attention"], dict) else ()):
         # the mangled name carries D as its template argument: Li64E
@@ -1513,6 +1522,16 @@ def flash_case(torch, name, over, dtype, seed, flush, timed):
            "B_T_H_KV_D": [c["B"], c["T"], c["H"], c["KV"], c["D"]],
            "causal": c["causal"], "window": c["window"], "segments": c["seg"],
            "alibi": c["alibi"], "tolerance": tol}
+    # reruns give the same bits: no atomics, every sum in a fixed order
+    again = {"dq": (fa.flash_backward_dq(*bwd, *opts),),
+             "dkv": fa.flash_backward_dkv(*bwd, *opts)}
+    res["rerun_bit_identical"] = {
+        n: torch.equal(a, b) for kname in again
+        for n, a, b in zip(("dq",) if kname == "dq" else ("dk", "dv"),
+                           outs[kname], again[kname])}
+    if not all(res["rerun_bit_identical"].values()):
+        raise AssertionError(f"flash backward {name} {dname}: a rerun "
+                             f"differs: {res['rerun_bit_identical']}")
     for kname in ("fwd", "dq", "dkv"):
         abs_err = rel_err = 0.0
         for out, ref in zip(outs[kname], refs[kname]):

@@ -56,8 +56,8 @@ CLASSES = (("fce_fwd", re.compile(r"fce_fwd")),
            ("fce_dx", re.compile(r"fce_dx_kernel")),
            ("fce_dw", re.compile(r"fce_dw_kernel")),
            ("flash_fwd", re.compile(r"flash_fwd_(mma_)?kernel")),
-           ("flash_dq", re.compile(r"flash_bwd_dq_kernel")),
-           ("flash_dkv", re.compile(r"flash_bwd_dkv_kernel")),
+           ("flash_dq", re.compile(r"flash_bwd_dq_(mma_)?kernel")),
+           ("flash_dkv", re.compile(r"flash_bwd_dkv_(mma_)?kernel")),
            ("optimizer", re.compile(r"adam", re.I)),
            # the only fp32 GEMMs of the step are the LM head's three
            ("gemm_fp32_head", re.compile(r"f32f32|sgemm", re.I)),

@@ -98,6 +98,51 @@ def test_plain_versions_match_the_jax_kernels(name):
                                    rtol=0, err_msg=f"{name}: {what}")
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_backward_in_bf16_matches_the_jax_kernels(name):
+    """The backward's bf16 rounding points against the JAX kernels in
+    bf16, both fed JAX's o and lse.  dq agrees within 1e-5 absolute (the
+    same bf16 roundings of ds, fp32 sums in other orders).  dk and dv are
+    bit-equal where each KV head has one query head.  Under GQA the JAX
+    wrapper rounds each query head's dk / dv to bf16 and then sums the
+    group (byteps_tpu/ops/flash_attention.py:690-691), where the port
+    sums the group in fp32 and rounds once: there they agree within 1e-2
+    of the largest magnitude."""
+    B, T, H, KV, D, causal, window, segs, alibi, block = CASES[name]
+    q, k, v, do, seg, slopes = _inputs(3, B, T, H, KV, D, segs, alibi)
+    scale = D ** -0.5
+    jq, jk, jv, jdo = (_j(x).astype(jnp.bfloat16) for x in (q, k, v, do))
+    jo, jlse = _flash_forward(jq, jk, jv, causal, scale, block, block, True,
+                              _j(seg), window, _j(slopes))
+    jdq, jdk, jdv = _flash_backward(
+        jq, jk, jv, jo, jlse, jdo, None, causal, scale, block, block, True,
+        _j(seg), window, _j(slopes))
+    qt, kt, vt, dot = (_t(x).to(torch.bfloat16) for x in (q, k, v, do))
+    o = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(
+        torch.bfloat16)
+    lse = torch.from_numpy(np.array(jlse)).reshape(B, H, T)
+    delta = (dot.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    opts = (causal, scale, _t(seg), window, _t(slopes))
+    dq = fa.flash_backward_dq(qt, kt, vt, dot, lse, delta, *opts)
+    dk, dv = fa.flash_backward_dkv(qt, kt, vt, dot, lse, delta, *opts)
+
+    def f32(x):
+        return np.asarray(x.astype(jnp.float32)) if isinstance(
+            x, jax.Array) else x.float().numpy()
+
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    np.testing.assert_allclose(f32(dq), f32(jdq), atol=1e-5, rtol=0,
+                               err_msg=f"{name}: dq")
+    for got, want, what in ((dk, jdk, "dk"), (dv, jdv, "dv")):
+        got, want = f32(got), f32(want)
+        if H == KV:
+            np.testing.assert_array_equal(got, want, err_msg=f"{name}: "
+                                                             f"{what}")
+        else:
+            top = np.abs(want).max()
+            assert np.abs(got - want).max() <= 1e-2 * top, (name, what)
+
+
 def test_lse_variant_with_an_lse_cotangent_matches_jax_vjp():
     """``flash_attention_with_lse``: o and lse ``[B, T, H]``, and the
     gradients for cotangents on both outputs (the lse one folds into

@@ -17,7 +17,8 @@ of the largest reference magnitude, absolute below magnitude 1 (dk/dv
 sum over the whole head group); bf16 2e-2 of the largest reference
 magnitude (p and ds are rounded to bf16 before their products, at
 other running maxima in the online forward than in the dense plain
-version, and every output is rounded to bf16 once).  Fused LM-head
+version, and every output is rounded to bf16 once); reruns of every
+kernel bit-identical (no atomics).  Fused LM-head
 cross-entropy (forward, dlogits + dx, dW): fp32 lse and target logit
 within 1e-5 relative, dx and dW within 1e-4 of the largest reference
 magnitude (fp32 sums of H or N products in other orders); bf16 within
@@ -330,6 +331,10 @@ def _rel_err(out, ref, dtype):
     (100, 2, 1, 16, True, None, False, False),     # head_dim 16
     (77, 4, 2, 32, True, 20, True, True),          # head_dim 32, all options
     (130, 4, 2, 128, True, None, False, False),    # head_dim 128
+    (128, 8, 1, 64, True, None, False, False),     # G = 8
+    (200, 4, 2, 128, True, 40, True, True),        # head_dim 128, all options
+    (65, 4, 2, 64, True, None, False, False),      # one live row past a tile
+    (2000, 8, 2, 64, True, None, False, False),    # a 16-row tail tile
 ])
 def test_flash_kernels_match_plain_versions(dtype, tol, T, H, KV, D, causal,
                                             window, seg, alibi):
@@ -353,6 +358,10 @@ def test_flash_kernels_match_plain_versions(dtype, tol, T, H, KV, D, causal,
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     o2, lse2 = fa.flash_forward(q, k, v, *args)  # a rerun: the same bits
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    dq2 = fa.flash_backward_dq(q, k, v, do, lse_ref, delta, *args)
+    dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse_ref, delta, *args)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(
+        dv, dv2)
     for name, out, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
         assert out.shape == ref.shape and out.dtype == ref.dtype, name

@@ -44,6 +44,19 @@ from byteps_tpu_torch.serving import metrics as sm
 from byteps_tpu_torch.serving.prefix import PagedPrefixCache
 from byteps_tpu_torch.serving.spec import NgramProposer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These CPU tests run thousands of tiny torch ops beside other test
+    workers: one intra-op thread each keeps them from oversubscribing the
+    host.  The streams are the same at one thread and at the default
+    count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 M = 8
 KW = dict(vocab_size=61, num_layers=2, num_heads=2, d_model=32, d_ff=64,
           max_seq_len=64)

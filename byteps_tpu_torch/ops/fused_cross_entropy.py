@@ -21,6 +21,17 @@ where they lie (no copy); only a ``w`` laid out ``[H, V]`` itself is
 transposed into a copy.  x and w must share a dtype on the card (float32
 or bfloat16); targets are int32 or int64.
 
+In bf16 the forward, dlogits and dx kernels come in two designs, chosen
+by the C side on a stated rule on the operands: where TMA can describe
+them (16-byte-aligned bases, H and the row strides multiples of 8), a
+persistent kernel on TMA loads and ``wgmma`` tensor-core products;
+elsewhere (e.g. H = 36) the first design's ``mma.sync`` kernels.  fp32
+always takes scalar FMA (tensor cores would mean TF32), and dW the first
+design.  :func:`_tma_ok` states the same rule (the forward sizes its
+splits by it); the library counts the TMA kernels it launches, and every
+call checks that count against the rule's prediction, so the two cannot
+part silently.
+
 The backward walks the vocabulary in chunks of :data:`VOCAB_CHUNK`
 columns, in order: the dlogits kernel writes ``(softmax - onehot) * dl``
 of the chunk, rounded to the operand dtype, into one ``[N, chunk]``
@@ -45,12 +56,16 @@ Beside the kernels:
   tensors launch the kernels or raise — no fallback;
 * launch counters ``fwd_launches`` (one a forward call), ``dx_launches``
   (one a vocabulary chunk: the dlogits and dx kernels), ``dw_launches``
-  (one a chunk), and ``plain_calls`` for CPU dispatches.
+  (one a chunk), and ``plain_calls`` for CPU dispatches;
+  ``tma_launches`` counts the TMA kernels the library reports launching
+  (one a bf16 forward, one dlogits and one dx a chunk where they took
+  that design).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -66,10 +81,12 @@ fwd_launches = 0
 dx_launches = 0
 dw_launches = 0
 plain_calls = 0
+tma_launches = 0
 
 VOCAB_CHUNK = 8192     # vocabulary columns of one backward chunk
 _FWD_BLOCKS = 4 * 132  # forward blocks to aim for: ~4 per H100 SM
 _ROWS = 128            # rows (and vocabulary columns) of a kernel tile
+_TMA_COLS = 256        # vocabulary columns of a TMA kernel's tile (TN)
 _lib = None
 
 
@@ -92,6 +109,8 @@ def _library():
         for fn in (lib.bps_fce_fwd, lib.bps_fce_dlogits, lib.bps_fce_dx,
                    lib.bps_fce_dw):
             fn.restype = i
+        lib.bps_fce_tma_launches.argtypes = []
+        lib.bps_fce_tma_launches.restype = ll
         _lib = lib
     return _lib
 
@@ -145,6 +164,41 @@ def _kernel_args(x, w, targets):
         else targets.long()
     return (x.contiguous(), rows, rows.stride(0), t.contiguous(),
             int(t.dtype == torch.int64))
+
+
+def _tma_ok(H: int, ldw: int, ldd: int, *operands) -> bool:
+    """Whether a kernel on TMA and ``wgmma`` takes these operands (the C
+    side's ``tma_ok``, which dispatches): every operand bf16 with a
+    16-byte-aligned base; H and the row strides of W (``ldw``) and the
+    dlogits scratch (``ldd``) multiples of 8 elements (16 bytes)."""
+    return (H % 8 == 0 and ldw % 8 == 0 and ldd % 8 == 0
+            and all(a.dtype == torch.bfloat16 and a.data_ptr() % 16 == 0
+                    for a in operands))
+
+
+def _count_tma(lib, before: int, want: int, what: str) -> None:
+    """Add the TMA kernels the library launched since it read ``before``
+    to ``tma_launches``; they must be the ``want`` that :func:`_tma_ok`
+    predicted."""
+    global tma_launches
+    took = lib.bps_fce_tma_launches() - before
+    if took != want:
+        raise RuntimeError(f"fused cross-entropy {what}: the library "
+                           f"launched {took} TMA kernels, the path rule "
+                           f"predicted {want}")
+    tma_launches += took
+
+
+def _fwd_splits(N: int, V: int, tma: bool, sms: int) -> int:
+    """Vocabulary splits of the forward.  The TMA kernel is persistent
+    (one CTA an SM over (row tile, split) units): the smallest number of
+    splits that makes the units a whole number of waves, at most one a
+    vocabulary tile.  The first design aims at ~4 blocks an SM."""
+    row_blocks = -(-N // _ROWS)
+    if tma:
+        return max(1, min(-(-V // _TMA_COLS),
+                          sms // math.gcd(row_blocks, sms)))
+    return max(1, min(-(-V // _ROWS), -(-_FWD_BLOCKS // row_blocks)))
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -224,18 +278,21 @@ def fce_forward(x, w, targets):
         plain_calls += 1
         return fce_forward_reference(x, w, targets)
     x, rows, ldw, t, t64 = _kernel_args(x, w, targets)
-    row_blocks, vtiles = -(-N // _ROWS), -(-V // _ROWS)
-    splits = max(1, min(vtiles, -(-_FWD_BLOCKS // row_blocks)))
+    tma = _tma_ok(H, ldw, 8, x, rows)
+    splits = _fwd_splits(N, V, tma, _build.sm_count(x.device))
     f32 = dict(dtype=torch.float32, device=x.device)
     part = torch.empty((3, splits, N), **f32)
     lse, tl = torch.empty(N, **f32), torch.empty(N, **f32)
-    rc = _library().bps_fce_fwd(
+    lib = _library()
+    before = lib.bps_fce_tma_launches()
+    rc = lib.bps_fce_fwd(
         x.data_ptr(), rows.data_ptr(), t.data_ptr(), t64, part.data_ptr(),
         lse.data_ptr(), tl.data_ptr(), N, H, V, ldw, splits,
         int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "forward")
     fwd_launches += 1
+    _count_tma(lib, before, int(tma), "forward")
     return lse, tl
 
 
@@ -259,6 +316,9 @@ def fce_backward(x, w, targets, lse, dl, need_dx: bool = True,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     vc = _chunk(V)
     d = torch.empty((N, vc), dtype=x.dtype, device=x.device)  # dlogits
+    # TMA kernels a chunk launches: dlogits reads x, W and d, dx d and W
+    tma = (int(_tma_ok(H, ldw, vc, x, rows, d))
+           + int(need_dx and _tma_ok(H, ldw, vc, d, rows)))
     dx = acc = dw = None
     if need_dx:
         dx = torch.empty_like(x)
@@ -271,6 +331,7 @@ def fce_backward(x, w, targets, lse, dl, need_dx: bool = True,
     for c0 in range(0, V, vc):
         vw = min(vc, V - c0)
         wc = rows.data_ptr() + c0 * ldw * elt
+        before = lib.bps_fce_tma_launches()
         _raise_on(lib.bps_fce_dlogits(
             x.data_ptr(), wc, t.data_ptr(), t64, lse.data_ptr(),
             dl.data_ptr(), d.data_ptr(), N, H, vw, c0, V, ldw, vc, dt,
@@ -281,6 +342,7 @@ def fce_backward(x, w, targets, lse, dl, need_dx: bool = True,
                 dx.data_ptr(), N, H, vw, vc, ldw, int(c0 == 0),
                 int(c0 + vw == V), dt, stream), "dx")
             dx_launches += 1
+        _count_tma(lib, before, tma, "backward chunk")
         if need_dw:
             _raise_on(lib.bps_fce_dw(
                 d.data_ptr(), x.data_ptr(), dw.data_ptr() + c0 * H * elt, N,

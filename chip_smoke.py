@@ -12,9 +12,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 2. Build — compiles every kernel of the serving and training paths from
    the sources in the checkout (one ``nvcc`` per source, ``sm_90a``,
    started together) and prints the build seconds and ``ptxas``'s
-   register and spill lines; then the paged kernel's and the bf16 flash
-   kernels' on tensor cores (forward, dq, dk/dv) per instantiation, and
-   fails if any of the three spills at head_dim 64 or 128.
+   register and spill lines; then the paged kernel's, the bf16 flash
+   kernels' on tensor cores (forward, dq, dk/dv) per instantiation and
+   the fused-CE kernels' on TMA and wgmma (forward, dlogits, dx), and
+   fails if any flash one of them spills at head_dim 64 or 128, or any
+   fused-CE one at all.
 3. Reference — a small fp32 Llama-shaped model served greedily through
    the paged engine (the kernel decoding) must give exactly the tokens
    of a plain dense-cache greedy loop (``Transformer.decode``, no
@@ -139,25 +141,39 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    first; the warm-up loss equal to phase 8's within 1e-3 relative (the
    same bf16 operands, fp32 sums in other orders); per step 1 forward,
    16 dx and 16 dW launches of the fused-CE kernels (16 vocabulary
-   chunks) and 16 of each flash kernel; no plain version called.
+   chunks), the forward and the dlogits and dx of all 16 chunks on the
+   bf16 kernels on TMA and wgmma (33 TMA launches the library counts),
+   and 16 of each flash kernel; no plain version called.
 12. Evaluation — ``Trainer.evaluate`` of phase 11's trained model with
    the fused-head loss on 2 fresh batches: only the fused forward kernel
-   (and the flash forward) launches; the mean loss equals the plain
-   head's under ``no_grad`` within 1e-3 relative; the perplexity.
+   (and the flash forward) launches, on TMA and wgmma; the mean loss
+   equals the plain head's under ``no_grad`` within 1e-3 relative; the
+   perplexity.
 13. Fused-CE kernels — forward, dlogits + dx and dW against their plain
    versions at the training shape (N=8192, H=2048, V=128256, w the tied
-   ``[V, H]`` table's transpose view) in bf16 and fp32, and at N=8188,
-   V=50257 (both edges ragged); a quarter of the targets -100, a
-   non-uniform loss cotangent.  fp32: lse and loss within 1e-5 relative,
-   dx and dW within 1e-4 of the largest reference magnitude; bf16 within
-   2e-2 of it (dlogits rounded to bf16 before each product on both
-   sides).  At the training shape in bf16, times with the L2 flushed:
-   the forward with CUDA events, the backward's kernels by device time
-   under ``torch.profiler``, the plain versions, and as yardsticks the
-   cuBLAS GEMM of each product alone (``x @ W^T``, ``dlogits @ W``,
-   ``dlogits^T @ x``; never called by the port); the bound is the
-   kernel's FLOPs over 989 TFLOP/s (or its bytes over 3.35 TB/s if
-   larger).
+   ``[V, H]`` table's transpose view) in bf16 and fp32, at N=8188,
+   V=50257 (both edges ragged), and at N=8188, H=2044, V=50257 (rows TMA
+   cannot describe); a quarter of the targets -100, a non-uniform loss
+   cotangent.  lse and loss within 1e-5 relative in both dtypes (fp32
+   sums of exact products on both sides); fp32 dx and dW within 1e-4 of
+   the largest reference magnitude, bf16 within 2e-2 of it (dlogits
+   rounded to bf16 before each product on both sides).  Which kernels
+   ran, by their profiler names and by the TMA launches the library
+   counts (``tma_launches``): the first two bf16 cases the kernels on
+   TMA and wgmma (the forward, and dlogits and dx of every chunk), the
+   H = 2044 bf16 case and fp32 the first design.  At the training shape
+   in bf16, times with the L2 flushed: the forward with CUDA events, the
+   backward's kernels by device time under ``torch.profiler``, the plain
+   versions, and as yardsticks cuBLAS's GEMMs of the products each
+   kernel computes (``x @ W^T`` for the forward; ``x @ W^T`` and
+   ``dlogits @ W`` for dlogits + dx, and the latter alone; ``dlogits^T
+   @ x`` for dW; never called by the port), with each time's TFLOP/s;
+   the bound is the kernel's FLOPs over 989 TFLOP/s (or its bytes over
+   3.35 TB/s if larger).  Then the same forward and backward on a copy
+   of the table with rows of stride H + 1 (the first design, loading W
+   element by element), and the TMA backward again: dW's time behind
+   each design, and the median SM clock and power draw ``nvidia-smi``
+   reads while each design's backward runs back to back for 2 s.
 
 14. Generate reference — the phase-7 fp32 model with
    ``attn_impl="flash"``, B=2, a prompt of 128 (the flash prefill), 32
@@ -266,6 +282,36 @@ def _line(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def _clock_under(torch, fn, seconds=2.0):
+    """Median SM clock (MHz) and power draw (W) that ``nvidia-smi`` reads
+    every 50 ms while ``fn`` runs back to back for ``seconds`` (None where
+    it read nothing)."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    rows = []
+    for ln in out.splitlines()[2:]:   # the first reads may precede fn
+        try:
+            rows.append(tuple(float(v) for v in ln.split(",")))
+        except ValueError:
+            continue
+    if not rows:
+        return {"sm_mhz": None, "power_w": None, "samples": 0}
+    mid = len(rows) // 2
+    return {"sm_mhz": sorted(r[0] for r in rows)[mid],
+            "power_w": sorted(r[1] for r in rows)[mid],
+            "samples": len(rows)}
+
+
 # ----------------------------------------------------------------- build
 
 
@@ -296,16 +342,20 @@ def _ptxas_entries(log: str) -> dict:
 
 FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                      "flash_bwd_dkv_mma_kernel")
+FCE_TMA_KERNELS = ("fce_fwd_tma_kernel", "fce_dlogits_tma_kernel",
+                   "fce_dx_tma_kernel")
 
 
 def ptxas_phase(logs: dict) -> dict:
-    """Registers and spills of the paged kernel and the bf16 flash kernels
+    """Registers and spills of the paged kernel, the bf16 flash kernels
     on tensor cores (forward, dq and dk/dv, ``flash_*_mma_kernel<D>``),
-    per instantiation; none of the three may spill at head_dim 64 or
-    128."""
+    per instantiation, and the fused-CE kernels on TMA and wgmma
+    (forward, dlogits, dx); none of the flash three may spill at head_dim
+    64 or 128, none of the fused-CE three at all."""
     info = {"phase": "ptxas"}
     for src, keys in (("paged_attention", ("paged_attention_kernel",)),
-                      ("flash_attention", FLASH_MMA_KERNELS)):
+                      ("flash_attention", FLASH_MMA_KERNELS),
+                      ("fused_cross_entropy", FCE_TMA_KERNELS)):
         if src not in logs:  # built by an earlier run: no report here
             info[src] = "built earlier; no ptxas report in this process"
             continue
@@ -319,6 +369,10 @@ def ptxas_phase(logs: dict) -> dict:
         # the mangled name carries D as its template argument: Li64E
         if ("Li64E" in name or "Li128E" in name) and (
                 r.get("spill_stores") or r.get("spill_loads")):
+            raise AssertionError(f"{name} spills: {r}")
+    for name, r in (info["fused_cross_entropy"].items()
+                    if isinstance(info["fused_cross_entropy"], dict) else ()):
+        if r.get("spill_stores") or r.get("spill_loads"):
             raise AssertionError(f"{name} spills: {r}")
     return info
 
@@ -1129,7 +1183,7 @@ def _zero_counts():
 
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = fa.plain_calls = 0
     fce.fwd_launches = fce.dx_launches = fce.dw_launches = 0
-    fce.plain_calls = 0
+    fce.plain_calls = fce.tma_launches = 0
     da.launches = da.plain_calls = 0
     qd.launches = qd.plain_calls = 0
 
@@ -1294,6 +1348,7 @@ def train_phase(torch, seed: int, fused_head: bool = False, then=None):
     step_ms = []
     for _ in range(TRAIN_TIMED):
         before = _flash_counts() + _fce_counts()
+        tma0 = fce.tma_launches
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         trainer.fit(model, {}, [batch])
@@ -1304,6 +1359,11 @@ def train_phase(torch, seed: int, fused_head: bool = False, then=None):
         if per != want:
             raise AssertionError(f"launches this step (flash fwd/dq/dkv, "
                                  f"fused CE fwd/dx/dw) {per}, want {want}")
+        if fused_head and fce.tma_launches - tma0 != 1 + 2 * nc:
+            raise AssertionError(f"{fce.tma_launches - tma0} fused-CE TMA "
+                                 f"kernels launched in a step, want "
+                                 f"{1 + 2 * nc} (forward, dlogits and dx "
+                                 f"of every chunk)")
     launches = _flash_counts() + _fce_counts()
     if fa.plain_calls or fce.plain_calls:
         raise AssertionError(f"{fa.plain_calls} flash and {fce.plain_calls} "
@@ -1330,7 +1390,8 @@ def train_phase(torch, seed: int, fused_head: bool = False, then=None):
             "step_ms_max": float(np.max(step_ms)), "step_ms": step_ms,
             "tokens_per_s": tokens / (float(np.median(step_ms)) / 1e3),
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "flash_launches": launches[:3], "fce_launches": launches[3:]}
+            "flash_launches": launches[:3], "fce_launches": launches[3:],
+            "fce_tma_launches": fce.tma_launches}
     extra = then(trainer, model) if then is not None else None
     api.shutdown()
     del model, opt, trainer, batch
@@ -1362,6 +1423,9 @@ def eval_phase(torch, seed: int, trainer, model) -> dict:
     if counts != want or fa.plain_calls or fce.plain_calls:
         raise AssertionError(f"evaluate launched (flash fwd/dq/dkv, fused CE "
                              f"fwd/dx/dw) {counts}, want {want}")
+    if fce.tma_launches != len(batches):
+        raise AssertionError(f"{fce.tma_launches} of {len(batches)} fused "
+                             f"forwards took the TMA kernel")
     plain = lm_loss_fn(model)
     with torch.no_grad():
         want = float(np.mean([plain(model, {}, {
@@ -1603,9 +1667,16 @@ def flash_kernel_phase(torch, seed: int):
 # ------------------------------------------------------- fused-CE kernels
 
 FCE_MAIN = dict(N=TRAIN_B * MAX_SEQ, H=2048, V=128256)
-FCE_CASES = (("training_shape", {}),
-             ("ragged_8188_50257", {"N": 8188, "V": 50257}))
-FCE_KERNELS = ("fce_dlogits_kernel", "fce_dx_kernel", "fce_dw_kernel")
+# (name, shape over FCE_MAIN, whether bf16 takes the kernels on TMA and
+# wgmma): H = 2044 rows are 4088 bytes, which TMA cannot describe, so
+# bf16 there keeps the first design's mma.sync kernels
+FCE_CASES = (("training_shape", {}, True),
+             ("ragged_8188_50257", {"N": 8188, "V": 50257}, True),
+             ("first_design_8188_2044_50257",
+              {"N": 8188, "H": 2044, "V": 50257}, False))
+# name prefixes of the backward's kernels: both designs (fce_dx_kernel,
+# fce_dx_tma_kernel, ...)
+FCE_KERNELS = ("fce_dlogits", "fce_dx_", "fce_dw_")
 
 
 def _fce_inputs(torch, seed, c, dtype):
@@ -1633,18 +1704,35 @@ def _fce_bounds(fce, c, elt):
     return _bounds(fce.fce_flops(N, H, V), nbytes, elt)
 
 
-def _device_ms(torch, fn, names, flush, reps=3) -> dict:
+def _device_ms(torch, fn, names, flush, reps=3):
     """Device ms per call of ``fn`` of the kernels whose names contain
-    each of ``names`` (L2 flushed before each call)."""
+    each of ``names`` (L2 flushed before each call), and the names of
+    every kernel that ran."""
     fn()
     times = _kernel_us(torch, fn, flush, reps)
     ms = {n: sum(t for k, t in times.items() if n in k) / 1e3 for n in names}
     if not all(ms.values()):
         raise AssertionError(f"the profiler saw no device time for {ms}")
-    return ms
+    return ms, set(times)
 
 
-def fce_case(torch, name, over, dtype, seed, flush, timed):
+def _fce_path_check(kernels, tma: bool, what: str, forward=True) -> None:
+    """The fused-CE kernels that ran (profiler names) are the TMA design's
+    forward (if ``forward`` ran), dlogits and dx where ``tma``, else the
+    first design's; dW is the first design's either way."""
+    new = FCE_TMA_KERNELS
+    old = ("fce_fwd_kernel", "fce_dlogits_kernel", "fce_dx_kernel")
+    want, absent = (new, old) if tma else (old, new)
+    ran = [k for k in kernels if "fce_" in k]
+    missing = [n for n in want[0 if forward else 1:] + ("fce_dw_kernel",)
+               if not any(n in k for k in ran)]
+    stray = [k for k in ran if any(n in k for n in absent)]
+    if missing or stray:
+        raise AssertionError(f"fused CE {what}: kernels {sorted(ran)}; "
+                             f"missing {missing}, not expected {stray}")
+
+
+def fce_case(torch, name, over, takes_tma, dtype, seed, flush, timed):
     from byteps_tpu_torch.ops import fused_cross_entropy as fce
 
     c = {**FCE_MAIN, **over}
@@ -1652,9 +1740,25 @@ def fce_case(torch, name, over, dtype, seed, flush, timed):
     x, table, t, dl = _fce_inputs(torch, seed, c, dtype)
     w = table.t()                     # the tied head's [H, V] view
     valid = t >= 0
-    lse, tl = fce.fce_forward(x, w, t)
     lse_r, tl_r = fce.fce_forward_reference(x, w, t)
-    dx, dw = fce.fce_backward(x, w, t, lse_r, dl)
+    got = {}
+
+    def run():
+        got["fwd"] = fce.fce_forward(x, w, t)
+        got["bwd"] = fce.fce_backward(x, w, t, lse_r, dl)
+
+    tma_path = takes_tma and dtype == torch.bfloat16
+    tma0 = fce.tma_launches
+    # the flush leads the profiled run: the profiler may miss the first
+    # kernel it sees
+    _fce_path_check(_kernel_us(torch, run, flush), tma_path,
+                    f"{name} {dname}")
+    (lse, tl), (dx, dw) = got["fwd"], got["bwd"]
+    tma = fce.tma_launches - tma0
+    want_tma = 1 + 2 * fce.vocab_chunks(c["V"]) if tma_path else 0
+    if tma != want_tma:
+        raise AssertionError(f"fused CE {name} {dname}: the library "
+                             f"launched {tma} TMA kernels, want {want_tma}")
     dx_r = fce.fce_backward_dx_reference(x, w, t, lse_r, dl)
     dw_r = fce.fce_backward_dw_reference(x, w, t, lse_r, dl)
     torch.cuda.synchronize()
@@ -1663,9 +1767,11 @@ def fce_case(torch, name, over, dtype, seed, flush, timed):
             "dx": ((dx, dx_r),), "dw": ((dw, dw_r),)}
     fp32 = dtype == torch.float32
     res = {"case": name, "dtype": dname, "N_H_V": [c["N"], c["H"], c["V"]],
-           "ignored_rows": int((~valid).sum().item())}
+           "ignored_rows": int((~valid).sum().item()), "tma_launches": tma}
     for kname, pairs in outs.items():
-        tol = (1e-5 if kname == "fwd" else 1e-4) if fp32 else 2e-2
+        # lse and loss: fp32 sums of exact products on both sides, in
+        # either dtype
+        tol = 1e-5 if kname == "fwd" else 1e-4 if fp32 else 2e-2
         abs_err = rel_err = 0.0
         for out, ref in pairs:
             if not (torch.isfinite(out.float()).all()
@@ -1689,11 +1795,43 @@ def fce_case(torch, name, over, dtype, seed, flush, timed):
     bwd = (x, w, t, lse_r, dl)
     res["fwd_ms"] = _time_ms(torch, lambda: fce.fce_forward(x, w, t), flush,
                              iters=10)
-    dev = _device_ms(torch, lambda: fce.fce_backward(*bwd), FCE_KERNELS,
-                     flush)
-    res["dlogits_ms"] = dev["fce_dlogits_kernel"]
-    res["dx_ms"] = dev["fce_dlogits_kernel"] + dev["fce_dx_kernel"]
-    res["dw_ms"] = dev["fce_dw_kernel"]
+    dev, ran = _device_ms(torch, lambda: fce.fce_backward(*bwd),
+                          FCE_KERNELS, flush)
+    _fce_path_check(ran, tma_path, f"{name} {dname} timed", forward=False)
+    res["dlogits_ms"] = dev["fce_dlogits"]
+    res["dx_product_ms"] = dev["fce_dx_"]
+    res["dx_ms"] = dev["fce_dlogits"] + dev["fce_dx_"]
+    res["dw_ms"] = dev["fce_dw_"]
+    # the same work on the first design (W rows of stride H + 1, which TMA
+    # cannot describe; that design then loads W element by element), then
+    # the TMA design again: dW's time behind each design's dlogits and dx,
+    # and the SM clock and power each backward runs at
+    tab1 = torch.empty((c["V"], c["H"] + 1), dtype=dtype,
+                       device="cuda")[:, :c["H"]]
+    tab1.copy_(table)
+    w1 = tab1.t()
+    res["odd_stride_fwd_ms"] = _time_ms(
+        torch, lambda: fce.fce_forward(x, w1, t), flush, iters=10)
+    dev1, ran = _device_ms(
+        torch, lambda: fce.fce_backward(x, w1, t, lse_r, dl), FCE_KERNELS,
+        flush)
+    _fce_path_check(ran, False, f"{name} {dname} timed, W stride H + 1",
+                    forward=False)
+    dev2, ran = _device_ms(torch, lambda: fce.fce_backward(*bwd),
+                           FCE_KERNELS, flush)
+    _fce_path_check(ran, tma_path, f"{name} {dname} timed again",
+                    forward=False)
+    res["clock_tma_design"] = _clock_under(
+        torch, lambda: fce.fce_backward(*bwd))
+    res["clock_odd_stride"] = _clock_under(
+        torch, lambda: fce.fce_backward(x, w1, t, lse_r, dl))
+    del tab1, w1
+    res["odd_stride_dlogits_ms"] = dev1["fce_dlogits"]
+    res["odd_stride_dx_product_ms"] = dev1["fce_dx_"]
+    res["dw_ms_after_odd_stride"] = dev1["fce_dw_"]
+    res["dw_ms_after_tma_design_again"] = dev2["fce_dw_"]
+    res["dlogits_ms_again"] = dev2["fce_dlogits"]
+    res["dx_product_ms_again"] = dev2["fce_dx_"]
     res["backward_event_ms"] = _time_ms(
         torch, lambda: fce.fce_backward(*bwd), flush, iters=3)
     res["fwd_plain_ms"] = _time_ms(
@@ -1702,17 +1840,32 @@ def fce_case(torch, name, over, dtype, seed, flush, timed):
         torch, lambda: fce.fce_backward_dx_reference(*bwd), flush, iters=2)
     res["dw_plain_ms"] = _time_ms(
         torch, lambda: fce.fce_backward_dw_reference(*bwd), flush, iters=2)
-    # the yardsticks: cuBLAS's GEMM of each product alone
+    # the yardsticks: cuBLAS's GEMMs of the products each kernel computes
+    # (dlogits + dx: both x @ W^T and dlogits @ W; each alone too)
     d = torch.randn((c["N"], c["V"]), device="cuda").to(dtype)
     res["fwd_library_ms"] = _time_ms(torch, lambda: torch.matmul(x, w),
                                      flush, iters=5)
-    res["dx_library_ms"] = _time_ms(torch, lambda: torch.matmul(d, table),
-                                    flush, iters=5)
+    res["dx_product_library_ms"] = _time_ms(
+        torch, lambda: torch.matmul(d, table), flush, iters=5)
+    res["dx_library_ms"] = _time_ms(
+        torch, lambda: (torch.matmul(x, w), torch.matmul(d, table)), flush,
+        iters=5)
     res["dw_library_ms"] = _time_ms(torch, lambda: torch.matmul(d.t(), x),
                                     flush, iters=5)
     del d
     for kname, (b, by) in _fce_bounds(fce, c, x.element_size()).items():
         res[f"{kname}_bound_ms"], res[f"{kname}_bound_by"] = b, by
+    # achieved rates: each product is 2·N·V·H FLOPs
+    n = fce.fce_flops(c["N"], c["H"], c["V"])["fwd"]
+    for kname, ms, flops in (("fwd", res["fwd_ms"], n),
+                             ("dlogits", res["dlogits_ms"], n),
+                             ("dx_product", res["dx_product_ms"], n),
+                             ("dx", res["dx_ms"], 2 * n),
+                             ("dw", res["dw_ms"], n),
+                             ("fwd_library", res["fwd_library_ms"], n),
+                             ("dx_library", res["dx_library_ms"], 2 * n),
+                             ("dw_library", res["dw_library_ms"], n)):
+        res[f"{kname}_tflops"] = flops / ms / 1e9
     return res
 
 
@@ -1720,9 +1873,10 @@ def fce_kernel_phase(torch, seed: int):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     main = None
     for dtype in (torch.bfloat16, torch.float32):
-        for name, over in FCE_CASES:
+        for name, over, takes_tma in FCE_CASES:
             timed = not over and dtype == torch.bfloat16
-            r = fce_case(torch, name, over, dtype, seed, flush, timed)
+            r = fce_case(torch, name, over, takes_tma, dtype, seed, flush,
+                         timed)
             _line(r)
             if timed:
                 main = r
@@ -2295,7 +2449,8 @@ def main() -> int:
             "plain_ms": fce_main[f"{kname}_plain_ms"],
             "bound_ms": fce_main[f"{kname}_bound_ms"],
             "bound_by": fce_main[f"{kname}_bound_by"],
-            "library_ms": fce_main[f"{kname}_library_ms"]})
+            "library_ms": fce_main[f"{kname}_library_ms"],
+            "tflops": fce_main[f"{kname}_tflops"]})
     for kname, mode, run in (("decode_attention", "bfloat16", "fp_flat_rerun"),
                              ("decode_attention_int8", "int8",
                               "int8_cache_rerun")):

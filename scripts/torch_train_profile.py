@@ -50,11 +50,12 @@ LLAMA_3_2_1B = dict(
                   ("original_max_position_embeddings", 8192),
                   ("rope_type", "llama3")))
 SEQ = 2048
-# kernel-name classes, first match wins
-CLASSES = (("fce_fwd", re.compile(r"fce_fwd")),
-           ("fce_dlogits", re.compile(r"fce_dlogits_kernel")),
-           ("fce_dx", re.compile(r"fce_dx_kernel")),
-           ("fce_dw", re.compile(r"fce_dw_kernel")),
+# kernel-name classes, first match wins; the fused-CE classes take both
+# designs of each kernel (fce_dx_kernel and fce_dx_tma_kernel, ...)
+CLASSES = (("fce_fwd", re.compile(r"fce_fwd_")),
+           ("fce_dlogits", re.compile(r"fce_dlogits_")),
+           ("fce_dx", re.compile(r"fce_dx_")),
+           ("fce_dw", re.compile(r"fce_dw_")),
            ("flash_fwd", re.compile(r"flash_fwd_(mma_)?kernel")),
            ("flash_dq", re.compile(r"flash_bwd_dq_(mma_)?kernel")),
            ("flash_dkv", re.compile(r"flash_bwd_dkv_(mma_)?kernel")),

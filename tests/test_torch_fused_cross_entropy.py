@@ -15,7 +15,10 @@ before each product on both sides; the products sum in other orders).
 Also: ignored (-100) rows give loss 0 and zero gradient; a vocabulary
 the Pallas ``fit_block`` refuses (61) against dense ``F.cross_entropy``;
 the autograd Function against dense autograd; ``gradcheck`` in fp64; the
-chunked plain versions equal to one chunk.
+chunked plain versions equal to one chunk; the rule that sends bf16
+operands to the kernels on TMA and wgmma (read from dtypes, shapes,
+strides and addresses, so CPU tensors show it) and the persistent
+forward's vocabulary splits.
 """
 
 import jax
@@ -168,3 +171,73 @@ def test_chunked_plain_versions_equal_one_chunk_and_blocks_change_nothing():
     with pytest.raises(ValueError, match="positive"):
         fce.fused_linear_cross_entropy(x, w, t, block_n=0)
     assert fce.vocab_chunks(128256) == 16 and fce.vocab_chunks(61) == 1
+
+
+def _table(V, H, dtype, layout):
+    """A ``[V, H]`` head table laid out as the case names: its own
+    tensor, a view one element past an aligned base, a view whose row
+    stride is H + 1, or a view 8 elements into rows of H + 8."""
+    if layout == "offset":
+        return torch.zeros(V * H + 1, dtype=dtype)[1:].view(V, H)
+    if layout == "stride":
+        return torch.zeros(V, H + 1, dtype=dtype)[:, :H]
+    if layout == "wide":
+        return torch.zeros(V, H + 8, dtype=dtype)[:, 8:]
+    return torch.zeros(V, H, dtype=dtype)
+
+
+@pytest.mark.parametrize("H,dtype,layout,want", [
+    (2048, torch.bfloat16, "table", True),    # the training width
+    (72, torch.bfloat16, "table", True),      # a multiple of 8, not of 64
+    (64, torch.bfloat16, "wide", True),       # row stride H + 8, aligned
+    (36, torch.bfloat16, "table", False),     # rows of 72 bytes
+    (2048, torch.float32, "table", False),    # fp32 keeps scalar FMA
+    (64, torch.bfloat16, "offset", False),    # base 2 bytes off 16
+    (64, torch.bfloat16, "stride", False),    # row stride H + 1
+])
+def test_tma_rule_on_the_kernel_operands(H, dtype, layout, want):
+    """The rule that sends bf16 to the kernels on TMA and wgmma, on the
+    operands the wrapper hands the C side (CPU tensors: the rule reads
+    dtypes, shapes, strides and addresses only)."""
+    N, V = 24, 100
+    x = torch.zeros(N, H, dtype=dtype)
+    w = _table(V, H, dtype, layout).t()
+    x, rows, ldw, _, _ = fce._kernel_args(x, w, torch.zeros(N).long())
+    assert fce._tma_ok(H, ldw, fce._chunk(V), x, rows) is want
+
+
+class _Library:
+    """Stands in for the kernel library's count of TMA launches."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def bps_fce_tma_launches(self):
+        return self.n
+
+
+@pytest.mark.parametrize("took,want,ok", [(3, 3, True), (0, 0, True),
+                                          (0, 1, False), (2, 1, False)])
+def test_tma_launches_are_held_to_the_rule(took, want, ok, monkeypatch):
+    """The wrapper counts the TMA launches the library reports and raises
+    where they are not the ones the path rule predicted."""
+    monkeypatch.setattr(fce, "tma_launches", 5)
+    lib = _Library(10 + took)
+    if ok:
+        fce._count_tma(lib, 10, want, "forward")
+        assert fce.tma_launches == 5 + took
+    else:
+        with pytest.raises(RuntimeError, match="predicted"):
+            fce._count_tma(lib, 10, want, "forward")
+        assert fce.tma_launches == 5
+
+
+def test_forward_splits_fill_whole_waves_on_the_tma_path():
+    """The persistent forward's (row tile, split) units are a whole number
+    of waves of 132 SMs at the training and ragged shapes; a split is at
+    least one vocabulary tile; the first design keeps ~4 blocks an SM."""
+    for N, V in ((8192, 128256), (8188, 50257)):
+        s = fce._fwd_splits(N, V, True, 132)
+        assert s == 33 and (-(-N // 128) * s) % 132 == 0
+    assert fce._fwd_splits(300, 1000, True, 132) == 4   # 4 tiles of 256
+    assert fce._fwd_splits(8192, 128256, False, 132) == 9

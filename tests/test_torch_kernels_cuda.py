@@ -23,7 +23,9 @@ cross-entropy (forward, dlogits + dx, dW): fp32 lse and target logit
 within 1e-5 relative, dx and dW within 1e-4 of the largest reference
 magnitude (fp32 sums of H or N products in other orders); bf16 within
 2e-2 of the largest reference magnitude (dlogits is rounded to bf16
-before each product, in both).  Decode attention (fp and int8 caches):
+before each product, in both), on the kernels on TMA and wgmma where
+their rule takes the shape and on the first design where it does not
+(H = 36), with bit-identical reruns.  Decode attention (fp and int8 caches):
 fp32 1e-4 absolute (online softmax over splits vs one dense softmax);
 bf16 and int8 2e-2 of the largest reference magnitude (p is rounded to
 bf16 before the PV product at other running maxima).  The int8 product:
@@ -467,6 +469,50 @@ def test_fused_ce_kernels_match_plain_versions(dtype, tol, N, H, V, tgt_dtype,
         err = _rel_err(out, ref, torch.bfloat16)  # of the largest magnitude
         assert err <= tol, (name, err)
     assert (dx[t < 0] == 0).all()  # ignored rows get no gradient
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,V,table,tma", [
+    (300, 72, 1000, True, True),     # one chunk; N, H, V all ragged
+    (200, 320, 16484, True, True),   # three chunks, the last 100 wide; a
+                                     # dx column tile of one 64-wide box
+    (517, 200, 9000, True, True),    # two chunks, the last 808 wide
+    (130, 64, 8192, False, True),    # w laid out [H, V] itself (copied)
+    (77, 36, 300, True, False),      # H % 8 != 0: the first design
+])
+def test_fused_ce_bf16_paths_match_plain_versions_and_rerun_identically(
+        N, H, V, table, tma):
+    """bf16 on the kernels on TMA and wgmma where the rule takes the
+    shape (the path counter says which ran), against the plain versions
+    within 2e-2 of the largest reference magnitude; forward, dx and dW
+    reruns bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, w, t, dl = _fce_inputs(12, N, H, V, torch.bfloat16, torch.int64,
+                              table)
+    n0 = fce.tma_launches
+    lse, tl = fce.fce_forward(x, w, t)
+    lse_r, tl_r = fce.fce_forward_reference(x, w, t)
+    dx, dw = fce.fce_backward(x, w, t, lse_r, dl)
+    # the library's count: the forward, and dlogits and dx of each chunk
+    assert fce.tma_launches - n0 == (1 + 2 * fce.vocab_chunks(V) if tma
+                                     else 0)
+    dx_r = fce.fce_backward_dx_reference(x, w, t, lse_r, dl)
+    dw_r = fce.fce_backward_dw_reference(x, w, t, lse_r, dl)
+    torch.cuda.synchronize()
+    for name, out, ref in (("lse", lse, lse_r), ("tl", tl, tl_r)):
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        assert err <= 1e-5, (name, err)
+    for name, out, ref in (("dx", dx, dx_r), ("dw", dw, dw_r)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype, name
+        assert torch.isfinite(out.float()).all(), name
+        err = _rel_err(out, ref, torch.bfloat16)
+        assert err <= 2e-2, (name, err)
+    assert (dx[t < 0] == 0).all()
+    lse2, tl2 = fce.fce_forward(x, w, t)
+    dx2, dw2 = fce.fce_backward(x, w, t, lse_r, dl)
+    for a, b in ((lse, lse2), (tl, tl2), (dx, dx2), (dw, dw2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

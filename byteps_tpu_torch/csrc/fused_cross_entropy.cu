@@ -7,7 +7,8 @@
 //                                             at :184)
 //   * fce_dlogits_tma_kernel + fce_dx_tma_kernel (bf16 on TMA and wgmma),
 //     fce_dlogits_kernel + fce_dx_kernel   <- `_dx_kernel` (:115, :265)
-//   * fce_dw_kernel                        <- `_dw_kernel` (:144, :282)
+//   * fce_dw_tma_kernel (bf16 on TMA and wgmma), fce_dw_kernel
+//                                          <- `_dw_kernel` (:144, :282)
 // Python binding, build and the plain PyTorch versions live in
 // byteps_tpu_torch/ops/fused_cross_entropy.py.
 //
@@ -50,11 +51,15 @@
 // dx), 67 TFLOP/s fp32 FMA.  Bytes over 3.35 TB/s (x, W, the dlogits
 // scratch) are far smaller.  Only wgmma reaches the bf16 rate; the staged
 // bytes a FLOP (85 FLOPs a staged byte in the 128 x 256 tile, 64 in the
-// 128 x 128 one) then decide whether L2 keeps up.
+// 128 x 128 one) then decide whether L2 keeps up.  With all four bf16
+// kernels on wgmma the backward draws the card's power limit and runs at
+// a lower SM clock than the first design.
 //
-// Design of the bf16 kernels on TMA and wgmma (forward, dlogits, dx),
+// Design of the bf16 kernels on TMA and wgmma (forward, dlogits, dx, dW),
 // which take every shape TMA can describe: bf16, H, ldw and ldd
 // multiples of 8 (16-byte row strides) and 16-byte-aligned bases (`tma_ok`;
+// dW takes the same rule on x, its output rows and d, with the table's
+// stride, so a backward chunk runs one design throughout;
 // the Python wrapper's `_tma_ok` states it too, and the wrapper checks
 // every call's prediction against the launches `bps_fce_tma_launches`
 // reports):
@@ -70,14 +75,18 @@
 //     forward, (row tile, split) units) in a fixed order, rows fastest
 //     where the CTAs resident together should share W's tiles (forward,
 //     dlogits: W is read from device memory about once a pass, x from L2)
-//     and columns fastest in dx (the CTAs of one dlogits row block share
-//     it);
+//     and columns fastest in dx and dW (the CTAs of one dlogits row or
+//     column block share it; dW's x, 32 MB at the training shape, stays
+//     in L2);
 //   * the ragged edges are TMA's: rows and columns outside a tensor map
 //     arrive as zeros (d's map is Vw wide, so stale scratch columns of the
 //     last chunk read as 0; W's maps end at the table's last row), and the
-//     epilogues mask rows >= N and columns >= V, Vw or H;
+//     epilogues mask rows >= N (dW: >= Vw) and columns >= V, Vw or H;
 //   * dx's B operand is W_c read as the [Vw, H] rows it is: N-contiguous
-//     (MN-major) 64 x 64 boxes, wgmma's transpose-B mode, no copy;
+//     (MN-major) 64 x 64 boxes, wgmma's transpose-B mode, no copy; dW
+//     reads both operands so: A = d^T as one 64(v) x 64(n) box per
+//     consumer warpgroup (transpose-A), B = x as four 64(h) x 64(n) boxes,
+//     K = N; one produce / consume loop serves all four kernels;
 //   * epilogues on the accumulator fragments (thread of warp w, lane l of a
 //     warpgroup: rows 16w + l/4 and +8, columns 8j + 2(l%4) + {0, 1}, j <
 //     32): the forward folds each tile into the online (max, sum, target
@@ -88,12 +97,13 @@
 //     within the quad (4-byte pairs take four times the store
 //     instructions); dx keeps the fp32 cross-chunk sum, a row's 32
 //     reads of it issued before its stores (read one by one behind the
-//     stores, their latencies add up over the epilogue).
+//     stores, their latencies add up over the epilogue); dW writes its
+//     bf16 rows 16 bytes a lane after the same quad transpose.
 //   No split-K and no atomics: every output element is owned by one tile,
 //   so reruns stay bit-identical.
 //
-// The first design, which fp32 (scalar FMA, never TF32), dW and the shapes
-// TMA cannot describe keep:
+// The first design, which fp32 (scalar FMA, never TF32) and the shapes TMA
+// cannot describe keep:
 //   * every product is a 128 x 128 block tile with a K loop in 32-deep
 //     steps: both operand tiles are staged through shared memory, the next
 //     step's tiles are loaded into registers while the current one is
@@ -724,9 +734,10 @@ __device__ __forceinline__ void regs_inc() {
 // address, leading and stride byte offsets (16-byte units), swizzle 128B.
 //   K-major (rows of 64 depth values): SBO 1024 = the next 8 rows; LBO
 //     unused (1); the k16 step advances the start by 32 bytes.
-//   MN-major (dx's B, rows of 64 N values, one row per depth): LBO = the
-//     next 64 N values (the next box, 8192 bytes), SBO 1024 = the next 8
-//     depths; the k16 step advances the start by 2048 bytes.
+//   MN-major (dx's B, dW's A and B: rows of 64 M or N values, one row per
+//     depth): LBO = the next 64 values (the next box, 8192 bytes; unused
+//     for A's 64 rows), SBO 1024 = the next 8 depths; the k16 step
+//     advances the start by 2048 bytes.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -752,9 +763,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A[64 x 16] B[16 x 256] of the warpgroup; A K-major, B K-major
-// (TB = 0) or MN-major (TB = 1); scale_d = 0 overwrites d
-template <int TB>
+// d (+)= A[64 x 16] B[16 x 256] of the warpgroup; each operand K-major
+// (TA, TB = 0) or MN-major (1: wgmma's transpose); scale_d = 0 overwrites d
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
                                           uint64_t db, int scale_d) {
   asm volatile(
@@ -768,7 +779,7 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -796,7 +807,7 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -847,26 +858,35 @@ struct Pos {
   }
 };
 
-// Producer (one thread): the nk stages of one output tile.  A: rows
-// [a_row, a_row + 128) of `ma` (depth inner); B K-major (BMN false): rows
-// [b_row, b_row + 256) of `mb`; B MN-major: depth rows of `mb` with the
-// tile's N values [b_col, b_col + 256) inner, as boxes of 64, the boxes
-// wholly past n_end skipped (they would feed only discarded columns).
-template <bool BMN>
+// Producer (one thread): the nk stages of one output tile.  An operand
+// is K-major (MN false: `rows` rows of its map from `at`, depth inner;
+// A's 128, B's 256) or MN-major (MN true: depth rows of its map with the
+// tile's M or N values [at, at + 128 or 256) inner, as boxes of 64, the
+// boxes wholly past `end` skipped: they would feed only discarded rows or
+// columns).  dx reads B MN-major, dW both.
+template <bool AMN, bool BMN>
 __device__ __forceinline__ void produce(const CUtensorMap* ma,
                                         const CUtensorMap* mb, const Ring& r,
-                                        int nk, int a_row, int b_at,
-                                        int n_end, Pos& ps) {
-  const int boxes = BMN ? min(4, (n_end - b_at + 63) / 64) : 1;
-  const uint32_t bytes = kABytes + (BMN ? boxes * kBoxBytes : kBBytes);
+                                        int nk, int a_at, int a_end, int b_at,
+                                        int b_end, Pos& ps) {
+  const int aboxes = AMN ? min(2, (a_end - a_at + 63) / 64) : 1;
+  const int bboxes = BMN ? min(4, (b_end - b_at + 63) / 64) : 1;
+  const uint32_t bytes = (AMN ? aboxes * kBoxBytes : kABytes) +
+                         (BMN ? bboxes * kBoxBytes : kBBytes);
   for (int kb = 0; kb < nk; ++kb) {
     mbar_wait(&r.empty[ps.stage], ps.phase ^ 1);
     uint64_t* full = &r.full[ps.stage];
     mbar_expect_tx(full, bytes);
-    tma_load(r.a + ps.stage * kABytes, ma, full, kb * TK, a_row);
+    unsigned char* a = r.a + ps.stage * kABytes;
+    if (AMN) {
+      for (int q = 0; q < aboxes; ++q)
+        tma_load(a + q * kBoxBytes, ma, full, a_at + 64 * q, kb * TK);
+    } else {
+      tma_load(a, ma, full, kb * TK, a_at);
+    }
     unsigned char* b = r.b + ps.stage * kBBytes;
     if (BMN) {
-      for (int q = 0; q < boxes; ++q)
+      for (int q = 0; q < bboxes; ++q)
         tma_load(b + q * kBoxBytes, mb, full, b_at + 64 * q, kb * TK);
     } else {
       tma_load(b, mb, full, kb * TK, b_at);
@@ -878,8 +898,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* ma,
 // Consumer warpgroup wg (0 or 1): acc = its 64 rows of the tile's product
 // over nk stages.  A stage is released once the products that read it are
 // done: one wgmma group stays in flight while the next stage is waited
-// for.
-template <int TB>
+// for.  The warpgroup's 64 A rows lie 8192 bytes into the stage in both
+// forms (64 K-major rows of 128 bytes, or its own MN-major box).
+template <int TA, int TB>
 __device__ __forceinline__ void consume(float (&acc)[128], const Ring& r,
                                         int nk, int wg, Pos& ps) {
   int prev = 0;
@@ -890,10 +911,11 @@ __device__ __forceinline__ void consume(float (&acc)[128], const Ring& r,
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < TK / 16; ++k) {
-      const uint64_t da = sw128_desc(a + 32 * k, 16, 1024);
+      const uint64_t da = TA ? sw128_desc(a + 2048 * k, kBoxBytes, 1024)
+                             : sw128_desc(a + 32 * k, 16, 1024);
       const uint64_t db = TB ? sw128_desc(b + 2048 * k, kBoxBytes, 1024)
                              : sw128_desc(b + 32 * k, 16, 1024);
-      wgmma_256<TB>(acc, da, db, (kb | k) != 0);
+      wgmma_256<TA, TB>(acc, da, db, (kb | k) != 0);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -978,7 +1000,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       for (int vt = static_cast<int>(static_cast<long long>(sp) * nvt /
                                      splits);
            vt < vt1; ++vt)
-        produce<false>(&mx, &mw, r, nk, tm * TM, vt * TN, 0, ps);
+        produce<false, false>(&mx, &mw, r, nk, tm * TM, 0, vt * TN, 0, ps);
     }
     return;
   }
@@ -1001,7 +1023,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         static_cast<int>(static_cast<long long>(sp + 1) * nvt / splits);
     for (int vt = static_cast<int>(static_cast<long long>(sp) * nvt / splits);
          vt < vt1; ++vt) {
-      consume<0>(acc, r, nk, wg, ps);
+      consume<0, 0>(acc, r, nk, wg, ps);
       const int n0 = vt * TN;
       if (n0 + TN <= V)
         fold<false>(acc, f, n0, V, tg, m, l, tl);
@@ -1132,7 +1154,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     if (threadIdx.x != 0) return;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int tm = t % ntm, tn = t / ntm;
-      produce<false>(&mx, &mw, r, nk, tm * TM, tn * TN, 0, ps);
+      produce<false, false>(&mx, &mw, r, nk, tm * TM, 0, tn * TN, 0, ps);
     }
     return;
   }
@@ -1153,7 +1175,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       ls[h] = live ? lse[row] * kLog2e : 0.f;
       g[h] = live ? dl[row] : 0.f;
     }
-    consume<0>(acc, r, nk, wg, ps);
+    consume<0, 0>(acc, r, nk, wg, ps);
     const int n0 = tn * TN;
     if (n0 + TN <= Vw)
       store_dlogits<false>(acc, f, n0, N, Vw, tg, ls, g, d, ldd);
@@ -1181,7 +1203,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     if (threadIdx.x != 0) return;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int tm = t / ntn, tn = t % ntn;
-      produce<true>(&md, &mw, r, nk, tm * TM, tn * TN, H, ps);
+      produce<false, true>(&md, &mw, r, nk, tm * TM, 0, tn * TN, H, ps);
     }
     return;
   }
@@ -1191,7 +1213,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int tm = t / ntn, tn = t % ntn;  // columns fastest
     const Frag f = frag(tm * TM, wg);
-    consume<1>(acc, r, nk, wg, ps);
+    consume<0, 1>(acc, r, nk, wg, ps);
     const int n0 = tn * TN;
     // a row's 32 reads of the sum are issued together, ahead of its
     // stores, so their latencies overlap
@@ -1223,6 +1245,63 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
               __floats2bfloat162_rn(v0, v1);
         else
           *reinterpret_cast<float2*>(acc_buf + at) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// dW over one chunk: tile (row tile of Vw, column tile of H) of dwc [Vw, H]
+// = d[:, :Vw]^T x, the contraction over all N rows in 64-deep steps (both
+// operands MN-major: d's rows hold v, x's rows h), rounded to bf16 once.
+// Rows >= Vw and columns >= H are not stored (H is a multiple of 8, so a
+// lane's 8 columns are all in or all out).
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    fce_dw_tma_kernel(const __grid_constant__ CUtensorMap md,
+                      const __grid_constant__ CUtensorMap mx,
+                      __nv_bfloat16* __restrict__ dwc, int N, int H,
+                      int Vw) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = ring_init(smem_raw);
+  const int ntm = (Vw + TM - 1) / TM, ntn = (H + TN - 1) / TN;
+  const int nk = (N + TK - 1) / TK, tiles = ntm * ntn;
+  Pos ps;
+  if (threadIdx.x < 128) {
+    regs_dec<40>();
+    if (threadIdx.x != 0) return;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int tm = t / ntn, tn = t % ntn;
+      produce<true, true>(&md, &mx, r, nk, tm * TM, Vw, tn * TN, H, ps);
+    }
+    return;
+  }
+  regs_inc<232>();
+  const int wg = (threadIdx.x >> 7) - 1;
+  float acc[128];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int tm = t / ntn, tn = t % ntn;  // columns fastest
+    const Frag f = frag(tm * TM, wg);
+    consume<1, 1>(acc, r, nk, wg, ps);
+    // 16-byte stores of 8 columns a lane, after a transpose within the
+    // quad; every lane of the quad takes part, rows >= Vw store nothing
+    const int n0 = tn * TN, lane_t = f.col0 >> 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = f.row0 + 8 * h;
+      const bool live = row < Vw;
+      __nv_bfloat16* out = dwc + static_cast<long long>(row) * H + n0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        uint32_t v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * q + i;
+          v[i] = pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+        quad_transpose(v, lane_t);
+        const int c = 8 * (4 * q + lane_t);
+        if (live && n0 + c < H)
+          *reinterpret_cast<uint4*>(out + c) =
+              make_uint4(v[0], v[1], v[2], v[3]);
       }
     }
   }
@@ -1368,6 +1447,21 @@ int dx_tma(const void* d, const void* wc, float* acc, void* dx, int N, int H,
                     static_cast<__nv_bfloat16*>(dx), N, H, Vw, first, last);
 }
 
+int dw_tma(const void* d, const void* x, void* dwc, int N, int H, int Vw,
+           long long ldd, cudaStream_t s) {
+  CUtensorMap md, mx;
+  // d's map is Vw wide: the last chunk's stale scratch columns read as
+  // zeros; both maps end at row N
+  if (!tensor_map(&md, d, Vw, N, ldd, 64, TK) ||
+      !tensor_map(&mx, x, H, N, H, 64, TK))
+    return kBadMap;
+  static bool allowed = false;
+  const int ntm = (Vw + TM - 1) / TM, ntn = (H + TN - 1) / TN;
+  // columns fastest: the CTAs of one d column block share its tiles in L2
+  return launch_tma(fce_dw_tma_kernel, allowed, ntm * ntn, s, md, mx,
+                    static_cast<__nv_bfloat16*>(dwc), N, H, Vw);
+}
+
 int blocks(int n) { return (n + BM - 1) / BM; }
 
 template <typename T>
@@ -1412,9 +1506,13 @@ int dx_chunk(const void* d, const void* wc, float* acc, void* dx, int N, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// dW takes the chunk's rule, the table's row stride included, so that a
+// backward chunk runs one design throughout
 template <typename T>
 int dw_chunk(const void* d, const void* x, void* dwc, int N, int H, int Vw,
-             long long ldd, cudaStream_t s) {
+             long long ldd, long long ldw, cudaStream_t s) {
+  if (!kIsF32<T> && tma_ok(x, dwc, d, H, ldw, ldd))
+    return dw_tma(d, x, dwc, N, H, Vw, ldd, s);
   fce_dw_kernel<T><<<dim3(blocks(Vw), blocks(H)), kThreads, 0, s>>>(
       static_cast<const T*>(d), static_cast<const T*>(x),
       static_cast<T*>(dwc), N, H, Vw, ldd);
@@ -1434,8 +1532,9 @@ bool bad(int N, int H, int V, int dtype) {
 // d [N, ldd]; dW rows [V, H] contiguous (dwc: the chunk's first row).
 // Each returns cudaGetLastError() after its launches (0 = launched), or
 // cudaErrorInvalidValue for a shape the kernels do not take (or a tensor
-// map the driver refuses).  bf16 forward, dlogits and dx take the kernels
-// on TMA and wgmma where `tma_ok` holds, the first design elsewhere.
+// map the CUDA driver refuses).  bf16 forward, dlogits, dx and dW take
+// the kernels on TMA and wgmma where `tma_ok` holds, the first design
+// elsewhere.
 
 // forward: part is scratch [3, splits, N] fp32; lse, tl out
 extern "C" int bps_fce_fwd(const void* x, const void* w, const void* tgt,
@@ -1482,13 +1581,14 @@ extern "C" int bps_fce_dx(const void* d, const void* wc, float* acc, void* dx,
 // the TMA kernels launched so far: the wrapper reads it around each call
 extern "C" long long bps_fce_tma_launches() { return tma_launches; }
 
-// dW rows [c0, c0 + Vw) of one chunk
+// dW rows [c0, c0 + Vw) of one chunk (ldw: the table's row stride, for
+// the path rule)
 extern "C" int bps_fce_dw(const void* d, const void* x, void* dwc, int N,
-                          int H, int Vw, long long ldd, int dtype,
-                          void* stream) {
+                          int H, int Vw, long long ldd, long long ldw,
+                          int dtype, void* stream) {
   if (bad(N, H, Vw, dtype) || blocks(H) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype ? dw_chunk<__nv_bfloat16>(d, x, dwc, N, H, Vw, ldd, s)
-               : dw_chunk<float>(d, x, dwc, N, H, Vw, ldd, s);
+  return dtype ? dw_chunk<__nv_bfloat16>(d, x, dwc, N, H, Vw, ldd, ldw, s)
+               : dw_chunk<float>(d, x, dwc, N, H, Vw, ldd, ldw, s);
 }

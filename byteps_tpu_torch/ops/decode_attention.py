@@ -21,9 +21,14 @@ shares each staged K/V chunk across the query heads of its KV head.
 
 What bounds it: HBM bytes — :func:`kv_bytes_read`, the K/V rows (and
 int8 scales) of the attended keys — at about ``2 G / elt`` FLOPs per
-byte.  The design (flash-decoding: chunks of 64 keys walked in splits
-that fill the card, merged by a small combine kernel) is set out in the
-CUDA source.
+byte.  Two designs, set out in the CUDA source, chosen by one rule
+(:func:`_ring_ok`, which the C side checks): a bf16 q with at most 32
+query heads a KV head takes the kernel on tensor cores — chunks of 64
+keys streamed through a ``cp.async`` ring, a few long splits
+(:func:`_splits`) merged inside the same launch by the last CTA of each
+(slot, KV head) through a cached ticket buffer; an fp32 q (and wider
+groups) keeps the first design, flash-decoding over many short splits
+merged by a small combine kernel.
 
 Beside the kernel:
 
@@ -35,15 +40,17 @@ Beside the kernel:
   version; CUDA tensors launch the kernel or raise.  No fallback.
 * :func:`decode_attention_usable` — the port's copy of the JAX gate
   (``decode_attention.py:297``) that ``init_cache(layout="auto")`` reads.
-* ``launches`` — kernel launches made by the wrapper; ``plain_calls`` —
-  dispatches to the plain version on CPU tensors.
+* ``launches`` — calls that launched a kernel (one launch each on the
+  ring design; the first design adds its combine kernel where it
+  splits); ``plain_calls`` — dispatches to the plain version on CPU
+  tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -58,8 +65,11 @@ plain_calls = 0
 
 HEAD_DIMS = (16, 32, 64, 128)
 CHUNK = 64             # keys per chunk of the kernel
+RING_MAX_GROUP = 32    # query heads a KV head the ring design takes
+RING_MIN_CHUNKS = 8    # chunks a ring split streams, where the cache has them
 _SMEM_LIMIT = 232448   # bytes of shared memory one Hopper block may use
 _lib = None
+_tickets: Dict[torch.device, torch.Tensor] = {}
 
 
 def build():
@@ -74,9 +84,9 @@ def _library():
         lib = _build.load("decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bps_decode_attention.argtypes = (
-            [p] * 9 + [i] * 13 + [ctypes.c_float, p])
+            [p] * 8 + [i] * 14 + [ctypes.c_float, p])
         lib.bps_decode_attention.restype = i
-        lib.bps_decode_attention_smem.argtypes = [i, i, i, i]
+        lib.bps_decode_attention_smem.argtypes = [i, i, i, i, i]
         lib.bps_decode_attention_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
@@ -186,14 +196,40 @@ def decode_attention_reference(q, ck, cv, pos: int, *, k_scale=None,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
-def _splits(B: int, KV: int, n_chunks: int, device) -> tuple:
-    """``(splits, chunks per split)``: enough splits of the attended
-    chunks to put about eight CTAs on every SM (a CTA has one chunk's
-    loads in flight at a time), none of them empty."""
-    sms = _build.sm_count(device)
-    want = max(1, math.ceil(8 * sms / (B * KV)))
-    per = math.ceil(n_chunks / min(want, n_chunks))
+def _ring_ok(dtype: torch.dtype, group: int) -> bool:
+    """Whether a call takes the design on tensor cores (the C side's
+    ``ring_ok``, which refuses any other ring launch): a bf16 q (with a
+    bf16 or int8 cache) and at most :data:`RING_MAX_GROUP` query heads a
+    KV head.  An fp32 q keeps the first design."""
+    return dtype == torch.bfloat16 and group <= RING_MAX_GROUP
+
+
+def _splits(B: int, KV: int, n_chunks: int, sms: int, ring: bool) -> tuple:
+    """``(splits, chunks per split)`` over the ``n_chunks`` attended
+    chunks, none of them empty; a pure function of shapes (and, through
+    ``n_chunks``, of ``pos``).  Ring design: about one CTA an SM, each
+    split at least :data:`RING_MIN_CHUNKS` chunks where the cache has
+    them, so its ring streams (B = 8, KV = 8, 2048 keys: 2 splits of 16).
+    First design: enough splits to put about eight CTAs on every SM (a
+    CTA has one chunk's loads in flight at a time)."""
+    if ring:
+        want = max(1, sms // (B * KV))
+        k = min(want, max(1, n_chunks // RING_MIN_CHUNKS))
+    else:
+        k = min(max(1, math.ceil(8 * sms / (B * KV))), n_chunks)
+    per = math.ceil(n_chunks / k)
     return math.ceil(n_chunks / per), per
+
+
+def _ticket_buffer(device, n: int) -> torch.Tensor:
+    """``n`` int32 zeros on ``device``, allocated once (grown when a call
+    needs more): the ring kernel's per-(slot, KV head) merge tickets,
+    which each launch leaves at zero."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                             device=device)
+    return buf
 
 
 def decode_attention(q, ck, cv, pos: int, *, k_scale=None, v_scale=None,
@@ -226,29 +262,33 @@ def decode_attention(q, ck, cv, pos: int, *, k_scale=None, v_scale=None,
                              f"aligned")
     lib = _library()
     dtype = int(q.dtype == torch.bfloat16)
-    smem = lib.bps_decode_attention_smem(H // KV, D, dtype, int(quant))
-    if smem > _SMEM_LIMIT:
+    ring = _ring_ok(q.dtype, H // KV)
+    smem = lib.bps_decode_attention_smem(H // KV, D, dtype, int(quant),
+                                         int(ring))
+    if not 0 < smem <= _SMEM_LIMIT:
         raise ValueError(f"{H // KV} query heads per KV head at head_dim {D} "
                          f"need {smem} bytes of shared memory (> "
                          f"{_SMEM_LIMIT})")
     c_lo, c_hi = _first_key(pos, window) // CHUNK, pos // CHUNK
-    nsplit, per = _splits(B, KV, c_hi - c_lo + 1, q.device)
+    nsplit, per = _splits(B, KV, c_hi - c_lo + 1,
+                          _build.sm_count(q.device), ring)
     out = torch.empty_like(q)
-    part = [None, None, None]
+    part = tickets = None
     if nsplit > 1:
-        part = [torch.empty((nsplit, B, H), dtype=torch.float32,
-                            device=q.device) for _ in range(2)]
-        part.append(torch.empty((nsplit, B, H, D), dtype=torch.float32,
-                                device=q.device))
+        # m and l [nsplit, B, H], then acc [nsplit, B, H, D]
+        part = torch.empty(nsplit * B * H * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        if ring:
+            tickets = _ticket_buffer(q.device, B * KV)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     rc = lib.bps_decode_attention(
         q.data_ptr(), ckf.data_ptr(), cvf.data_ptr(), ptr(k_scale),
-        ptr(v_scale), out.data_ptr(), *(ptr(t) for t in part), B, S, H, KV,
+        ptr(v_scale), out.data_ptr(), ptr(part), ptr(tickets), B, S, H, KV,
         D, pos, window or 0, c_lo, c_hi, nsplit, per, dtype, int(quant),
-        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        int(ring), D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {rc}")

@@ -21,16 +21,17 @@ where they lie (no copy); only a ``w`` laid out ``[H, V]`` itself is
 transposed into a copy.  x and w must share a dtype on the card (float32
 or bfloat16); targets are int32 or int64.
 
-In bf16 the forward, dlogits and dx kernels come in two designs, chosen
-by the C side on a stated rule on the operands: where TMA can describe
-them (16-byte-aligned bases, H and the row strides multiples of 8), a
-persistent kernel on TMA loads and ``wgmma`` tensor-core products;
-elsewhere (e.g. H = 36) the first design's ``mma.sync`` kernels.  fp32
-always takes scalar FMA (tensor cores would mean TF32), and dW the first
-design.  :func:`_tma_ok` states the same rule (the forward sizes its
-splits by it); the library counts the TMA kernels it launches, and every
-call checks that count against the rule's prediction, so the two cannot
-part silently.
+In bf16 every kernel (forward, dlogits, dx and dW) comes in two designs,
+chosen by the C side on a stated rule on the operands: where TMA can
+describe them (16-byte-aligned bases, H and the row strides multiples of
+8; dW holds to the table's stride too, so a backward chunk runs one
+design throughout), a persistent kernel on TMA loads and ``wgmma``
+tensor-core products; elsewhere (e.g. H = 36, or a table of row stride
+H + 1) the first design's ``mma.sync`` kernels.  fp32 always takes
+scalar FMA (tensor cores would mean TF32).  :func:`_tma_ok` states the
+same rule (the forward sizes its splits by it); the library counts the
+TMA kernels it launches, and every call checks that count against the
+rule's prediction, so the two cannot part silently.
 
 The backward walks the vocabulary in chunks of :data:`VOCAB_CHUNK`
 columns, in order: the dlogits kernel writes ``(softmax - onehot) * dl``
@@ -58,8 +59,8 @@ Beside the kernels:
   (one a vocabulary chunk: the dlogits and dx kernels), ``dw_launches``
   (one a chunk), and ``plain_calls`` for CPU dispatches;
   ``tma_launches`` counts the TMA kernels the library reports launching
-  (one a bf16 forward, one dlogits and one dx a chunk where they took
-  that design).
+  (one a bf16 forward, one dlogits, one dx and one dW a chunk where they
+  took that design).
 """
 
 from __future__ import annotations
@@ -105,7 +106,7 @@ def _library():
         lib.bps_fce_dlogits.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i,
                                         ll, ll, i, p]
         lib.bps_fce_dx.argtypes = [p, p, p, p, i, i, i, ll, ll, i, i, i, p]
-        lib.bps_fce_dw.argtypes = [p, p, p, i, i, i, ll, i, p]
+        lib.bps_fce_dw.argtypes = [p, p, p, i, i, i, ll, ll, i, p]
         for fn in (lib.bps_fce_fwd, lib.bps_fce_dlogits, lib.bps_fce_dx,
                    lib.bps_fce_dw):
             fn.restype = i
@@ -316,9 +317,6 @@ def fce_backward(x, w, targets, lse, dl, need_dx: bool = True,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     vc = _chunk(V)
     d = torch.empty((N, vc), dtype=x.dtype, device=x.device)  # dlogits
-    # TMA kernels a chunk launches: dlogits reads x, W and d, dx d and W
-    tma = (int(_tma_ok(H, ldw, vc, x, rows, d))
-           + int(need_dx and _tma_ok(H, ldw, vc, d, rows)))
     dx = acc = dw = None
     if need_dx:
         dx = torch.empty_like(x)
@@ -328,6 +326,11 @@ def fce_backward(x, w, targets, lse, dl, need_dx: bool = True,
             if V > vc else None)
     if need_dw:
         dw = torch.empty((V, H), dtype=x.dtype, device=x.device)
+    # TMA kernels a chunk launches: dlogits reads x, W and d, dx d and W,
+    # dW d and x and writes dW's rows (held to W's stride too)
+    tma = (int(_tma_ok(H, ldw, vc, x, rows, d))
+           + int(need_dx and _tma_ok(H, ldw, vc, d, rows))
+           + int(need_dw and _tma_ok(H, ldw, vc, d, x, dw)))
     for c0 in range(0, V, vc):
         vw = min(vc, V - c0)
         wc = rows.data_ptr() + c0 * ldw * elt
@@ -342,12 +345,12 @@ def fce_backward(x, w, targets, lse, dl, need_dx: bool = True,
                 dx.data_ptr(), N, H, vw, vc, ldw, int(c0 == 0),
                 int(c0 + vw == V), dt, stream), "dx")
             dx_launches += 1
-        _count_tma(lib, before, tma, "backward chunk")
         if need_dw:
             _raise_on(lib.bps_fce_dw(
                 d.data_ptr(), x.data_ptr(), dw.data_ptr() + c0 * H * elt, N,
-                H, vw, vc, dt, stream), "dW")
+                H, vw, vc, ldw, dt, stream), "dW")
             dw_launches += 1
+        _count_tma(lib, before, tma, "backward chunk")
     return dx, (None if dw is None else dw.t())
 
 

@@ -13,10 +13,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the sources in the checkout (one ``nvcc`` per source, ``sm_90a``,
    started together) and prints the build seconds and ``ptxas``'s
    register and spill lines; then the paged kernel's, the bf16 flash
-   kernels' on tensor cores (forward, dq, dk/dv) per instantiation and
-   the fused-CE kernels' on TMA and wgmma (forward, dlogits, dx), and
-   fails if any flash one of them spills at head_dim 64 or 128, or any
-   fused-CE one at all.
+   kernels' on tensor cores (forward, dq, dk/dv) per instantiation, the
+   fused-CE kernels' on TMA and wgmma (forward, dlogits, dx, dW) and the
+   decode kernel's on tensor cores per instantiation, and fails if any
+   flash one of them spills at head_dim 64 or 128, any fused-CE one at
+   all, or a decode one of one row tile (up to 16 query heads a KV head).
 3. Reference — a small fp32 Llama-shaped model served greedily through
    the paged engine (the kernel decoding) must give exactly the tokens
    of a plain dense-cache greedy loop (``Transformer.decode``, no
@@ -141,9 +142,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    first; the warm-up loss equal to phase 8's within 1e-3 relative (the
    same bf16 operands, fp32 sums in other orders); per step 1 forward,
    16 dx and 16 dW launches of the fused-CE kernels (16 vocabulary
-   chunks), the forward and the dlogits and dx of all 16 chunks on the
-   bf16 kernels on TMA and wgmma (33 TMA launches the library counts),
-   and 16 of each flash kernel; no plain version called.
+   chunks), the forward and the dlogits, dx and dW of all 16 chunks on
+   the bf16 kernels on TMA and wgmma (49 TMA launches the library
+   counts), and 16 of each flash kernel; no plain version called.
 12. Evaluation — ``Trainer.evaluate`` of phase 11's trained model with
    the fused-head loss on 2 fresh batches: only the fused forward kernel
    (and the flash forward) launches, on TMA and wgmma; the mean loss
@@ -160,8 +161,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    rounded to bf16 before each product on both sides).  Which kernels
    ran, by their profiler names and by the TMA launches the library
    counts (``tma_launches``): the first two bf16 cases the kernels on
-   TMA and wgmma (the forward, and dlogits and dx of every chunk), the
-   H = 2044 bf16 case and fp32 the first design.  At the training shape
+   TMA and wgmma (the forward, and dlogits, dx and dW of every chunk),
+   the H = 2044 bf16 case and fp32 the first design.  At the training shape
    in bf16, times with the L2 flushed: the forward with CUDA events, the
    backward's kernels by device time under ``torch.profiler``, the plain
    versions, and as yardsticks cuBLAS's GEMMs of the products each
@@ -170,10 +171,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    @ x`` for dW; never called by the port), with each time's TFLOP/s;
    the bound is the kernel's FLOPs over 989 TFLOP/s (or its bytes over
    3.35 TB/s if larger).  Then the same forward and backward on a copy
-   of the table with rows of stride H + 1 (the first design, loading W
-   element by element), and the TMA backward again: dW's time behind
-   each design, and the median SM clock and power draw ``nvidia-smi``
-   reads while each design's backward runs back to back for 2 s.
+   of the table with rows of stride H + 1 (the first design throughout:
+   W loaded element by element, and dW, held to the chunk's rule, on its
+   ``mma.sync`` kernel), and the TMA backward again: dW's time on each
+   design, and the median SM clock and power draw ``nvidia-smi`` reads
+   while each design's backward runs back to back for 2 s.
 
 14. Generate reference — the phase-7 fp32 model with
    ``attn_impl="flash"``, B=2, a prompt of 128 (the flash prefill), 32
@@ -203,19 +205,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and of (d) under ``torch.profiler``: kernels and device ms per step,
    the device's idle share, the costliest kernels.
 16. Decode-attention kernel — against its plain version at H=32, KV=8,
-   D=64, B=8, S=2048: pos 0, 1000 and 2047, window 256, S=2000 (a
-   ragged tail), MHA at head_dim 32, head_dim 128, MQA; each in fp32,
-   bf16 and int8 with bf16 q.  fp32 within 1e-4 absolute, bf16 and int8
-   within 2e-2 of the largest reference magnitude (p is rounded to bf16
-   before the PV product at other running maxima).  At pos 2047, with
-   the L2 flushed before each call, device time per call from CUDA graphs
-   of 20 (flush, call) pairs less the flushes alone (no host gaps between
-   launches): the kernel (with its split combine), the plain version, and
-   as the yardstick
-   (never called by the port) ``F.scaled_dot_product_attention(...,
-   enable_gqa=True)`` on the rows ``[:pos+1]`` (dequantized to bf16 for
-   the int8 mode); the bound is the attended K/V bytes (and scales) over
-   3.35 TB/s.
+   D=64, B=8, S=2048: pos 0, 1000 and 2047 (the ring design's splits of
+   >= 8 chunks checked there), window 256, S=2000 (a ragged tail), one
+   slot at pos 1300 (a ragged last split), MHA at head_dim 32, head_dim
+   128, MQA; each in fp32, bf16 and int8 with bf16 q.  A bf16 q runs the
+   kernel on tensor cores, one launch a call by profiler name (its split
+   merge inside; the names are taken in a fresh process of this script,
+   ``--decode-kernel-names``: by phase 16 this long run's profiler
+   records no device event), within 2 bf16 ulps of each output row's largest
+   reference magnitude (p is rounded to bf16 before the PV product at
+   other running maxima, and the output once); fp32 the first design
+   (its combine kernel where it splits), within 1e-4 absolute; every
+   case reruns bit-identically.  At pos 2047, with the L2 flushed before
+   each call, device time per call from CUDA graphs of 20 (flush, call)
+   pairs less the flushes alone (no host gaps between launches): the
+   kernel, the plain version, and as the yardstick (never called by the
+   port) ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on the
+   rows ``[:pos+1]`` (dequantized to bf16 for the int8 mode); the kernel
+   and the yardstick again behind a flush that reads (leaving no dirty
+   lines to write back); the bound is the attended K/V bytes (and
+   scales) over 3.35 TB/s.
 17. Int8 product kernel — against its plain version at Llama-3.2-1B's
    projection shapes (2048->2048, 2048->512, 2048->8192, 8192->2048) at
    M=8 and M=15360, and the probe's [8, 768] x [768, 3072]; bf16 and fp32
@@ -343,19 +352,25 @@ def _ptxas_entries(log: str) -> dict:
 FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                      "flash_bwd_dkv_mma_kernel")
 FCE_TMA_KERNELS = ("fce_fwd_tma_kernel", "fce_dlogits_tma_kernel",
-                   "fce_dx_tma_kernel")
+                   "fce_dx_tma_kernel", "fce_dw_tma_kernel")
+DECODE_RING_KERNEL = "decode_ring_kernel"
 
 
 def ptxas_phase(logs: dict) -> dict:
     """Registers and spills of the paged kernel, the bf16 flash kernels
     on tensor cores (forward, dq and dk/dv, ``flash_*_mma_kernel<D>``),
-    per instantiation, and the fused-CE kernels on TMA and wgmma
-    (forward, dlogits, dx); none of the flash three may spill at head_dim
-    64 or 128, none of the fused-CE three at all."""
+    per instantiation, the fused-CE kernels on TMA and wgmma (forward,
+    dlogits, dx, dW) and the decode kernel on tensor cores
+    (``decode_ring_kernel<cache, D, row tiles>``); none of the flash three
+    may spill at head_dim 64 or 128, none of the fused-CE four at all, and
+    no decode instantiation of one row tile (up to 16 query heads a KV
+    head: every model the port runs; two row tiles at head_dim 128 hold
+    256 fp32 accumulators a thread and may)."""
     info = {"phase": "ptxas"}
     for src, keys in (("paged_attention", ("paged_attention_kernel",)),
                       ("flash_attention", FLASH_MMA_KERNELS),
-                      ("fused_cross_entropy", FCE_TMA_KERNELS)):
+                      ("fused_cross_entropy", FCE_TMA_KERNELS),
+                      ("decode_attention", (DECODE_RING_KERNEL,))):
         if src not in logs:  # built by an earlier run: no report here
             info[src] = "built earlier; no ptxas report in this process"
             continue
@@ -373,6 +388,12 @@ def ptxas_phase(logs: dict) -> dict:
     for name, r in (info["fused_cross_entropy"].items()
                     if isinstance(info["fused_cross_entropy"], dict) else ()):
         if r.get("spill_stores") or r.get("spill_loads"):
+            raise AssertionError(f"{name} spills: {r}")
+    for name, r in (info["decode_attention"].items()
+                    if isinstance(info["decode_attention"], dict) else ()):
+        # the last template argument, the row tiles: ...Li1EE
+        if "Li1EE" in name and (r.get("spill_stores")
+                                or r.get("spill_loads")):
             raise AssertionError(f"{name} spills: {r}")
     return info
 
@@ -1359,11 +1380,11 @@ def train_phase(torch, seed: int, fused_head: bool = False, then=None):
         if per != want:
             raise AssertionError(f"launches this step (flash fwd/dq/dkv, "
                                  f"fused CE fwd/dx/dw) {per}, want {want}")
-        if fused_head and fce.tma_launches - tma0 != 1 + 2 * nc:
+        if fused_head and fce.tma_launches - tma0 != 1 + 3 * nc:
             raise AssertionError(f"{fce.tma_launches - tma0} fused-CE TMA "
                                  f"kernels launched in a step, want "
-                                 f"{1 + 2 * nc} (forward, dlogits and dx "
-                                 f"of every chunk)")
+                                 f"{1 + 3 * nc} (forward, dlogits, dx and "
+                                 f"dW of every chunk)")
     launches = _flash_counts() + _fce_counts()
     if fa.plain_calls or fce.plain_calls:
         raise AssertionError(f"{fa.plain_calls} flash and {fce.plain_calls} "
@@ -1556,6 +1577,20 @@ def _graph_ms(torch, fn, flush, iters=20, reps=3) -> float:
     return (replay_ms(calls) - replay_ms(flushes)) / iters
 
 
+class _ReadFlush:
+    """An L2 flush by reading 256 MB (a sum), which leaves clean lines
+    behind: the write flush (``zero_`` of 256 MB) leaves up to 50 MB of
+    dirty lines whose write-back the next call pays for."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.buf = torch.ones(64 << 20, device="cuda")
+        self.out = torch.empty((), device="cuda")
+
+    def zero_(self):
+        self.torch.sum(self.buf, dim=0, out=self.out)
+
+
 def _sdpa_kernels(torch, fn) -> list:
     """Names of the CUDA kernels one call of ``fn`` ran, by device time."""
     times = _kernel_us(torch, fn)
@@ -1718,13 +1753,14 @@ def _device_ms(torch, fn, names, flush, reps=3):
 
 def _fce_path_check(kernels, tma: bool, what: str, forward=True) -> None:
     """The fused-CE kernels that ran (profiler names) are the TMA design's
-    forward (if ``forward`` ran), dlogits and dx where ``tma``, else the
-    first design's; dW is the first design's either way."""
+    forward (if ``forward`` ran), dlogits, dx and dW where ``tma``, else
+    the first design's, and none of the other design's."""
     new = FCE_TMA_KERNELS
-    old = ("fce_fwd_kernel", "fce_dlogits_kernel", "fce_dx_kernel")
+    old = ("fce_fwd_kernel", "fce_dlogits_kernel", "fce_dx_kernel",
+           "fce_dw_kernel")
     want, absent = (new, old) if tma else (old, new)
     ran = [k for k in kernels if "fce_" in k]
-    missing = [n for n in want[0 if forward else 1:] + ("fce_dw_kernel",)
+    missing = [n for n in want[0 if forward else 1:]
                if not any(n in k for k in ran)]
     stray = [k for k in ran if any(n in k for n in absent)]
     if missing or stray:
@@ -1755,7 +1791,7 @@ def fce_case(torch, name, over, takes_tma, dtype, seed, flush, timed):
                     f"{name} {dname}")
     (lse, tl), (dx, dw) = got["fwd"], got["bwd"]
     tma = fce.tma_launches - tma0
-    want_tma = 1 + 2 * fce.vocab_chunks(c["V"]) if tma_path else 0
+    want_tma = 1 + 3 * fce.vocab_chunks(c["V"]) if tma_path else 0
     if tma != want_tma:
         raise AssertionError(f"fused CE {name} {dname}: the library "
                              f"launched {tma} TMA kernels, want {want_tma}")
@@ -1803,9 +1839,10 @@ def fce_case(torch, name, over, takes_tma, dtype, seed, flush, timed):
     res["dx_ms"] = dev["fce_dlogits"] + dev["fce_dx_"]
     res["dw_ms"] = dev["fce_dw_"]
     # the same work on the first design (W rows of stride H + 1, which TMA
-    # cannot describe; that design then loads W element by element), then
-    # the TMA design again: dW's time behind each design's dlogits and dx,
-    # and the SM clock and power each backward runs at
+    # cannot describe; that design then loads W element by element, and
+    # dW, held to the chunk's rule, takes its first design too), then the
+    # TMA design again: dW's time on each design, and the SM clock and
+    # power each backward runs at
     tab1 = torch.empty((c["V"], c["H"] + 1), dtype=dtype,
                        device="cuda")[:, :c["H"]]
     tab1.copy_(table)
@@ -1828,8 +1865,8 @@ def fce_case(torch, name, over, takes_tma, dtype, seed, flush, timed):
     del tab1, w1
     res["odd_stride_dlogits_ms"] = dev1["fce_dlogits"]
     res["odd_stride_dx_product_ms"] = dev1["fce_dx_"]
-    res["dw_ms_after_odd_stride"] = dev1["fce_dw_"]
-    res["dw_ms_after_tma_design_again"] = dev2["fce_dw_"]
+    res["dw_first_design_ms"] = dev1["fce_dw_"]
+    res["dw_ms_again"] = dev2["fce_dw_"]
     res["dlogits_ms_again"] = dev2["fce_dlogits"]
     res["dx_product_ms_again"] = dev2["fce_dx_"]
     res["backward_event_ms"] = _time_ms(
@@ -2141,11 +2178,17 @@ def generate_phase(torch, seed: int):
 
 DECODE_MAIN = dict(B=GEN_B, S=MAX_SEQ, H=32, KV=8, D=64, pos=MAX_SEQ - 1,
                    window=None)
-DECODE_CASES = (("pos_2047", {}), ("pos_0", {"pos": 0}),
-                ("pos_1000", {"pos": 1000}), ("window256", {"window": 256}),
-                ("s2000_ragged", {"S": 2000, "pos": 1999}),
-                ("mha_head_dim32", {"KV": 32, "D": 32}),
-                ("head_dim128", {"D": 128}), ("mqa", {"KV": 1}))
+# (name, shape over DECODE_MAIN, what the ring design's split plan must
+# be there: "long" = splits of >= RING_MIN_CHUNKS chunks, "ragged" = a
+# last split shorter than the others)
+DECODE_CASES = (("pos_2047", {}, "long"), ("pos_0", {"pos": 0}, None),
+                ("pos_1000", {"pos": 1000}, None),
+                ("window256", {"window": 256}, None),
+                ("s2000_ragged", {"S": 2000, "pos": 1999}, None),
+                ("one_slot_ragged_split", {"B": 1, "pos": 1300}, "ragged"),
+                ("mha_head_dim32", {"KV": 32, "D": 32}, None),
+                ("head_dim128", {"D": 128}, None), ("mqa", {"KV": 1}, None))
+DECODE_BF16_ULPS = 2  # ring design: ulps of each output row's largest
 
 
 def _decode_inputs(torch, seed, c, mode):
@@ -2169,32 +2212,112 @@ def _decode_inputs(torch, seed, c, mode):
             None, None)
 
 
-def decode_case(torch, name, over, mode, seed, flush, timed):
+def _decode_kernels(torch, fn, flush, tries=3) -> list:
+    """Names of the decode kernels one call of ``fn`` launched, one entry
+    a launch, by the profiler (CPU and CUDA activities, as phase 15 takes
+    them: after such a profile, CUDA-only profiles saw none of these
+    kernels).  The flush and a sync lead the call, since the profiler can
+    miss what is launched while it starts; a profile that saw no decode
+    kernel is taken again on a fresh call, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            flush.zero_()
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        ran = [n for n in names if "decode_" in n]
+        if ran:
+            return ran
+        seen.append([n[:60] for n in names])
+    print(json.dumps({"decode_profile_saw": seen,
+                      "events": len(prof.events())}), file=sys.stderr)
+    return []
+
+
+def _decode_call(torch, seed, over, mode):
+    """The case's inputs and a function making one wrapper call on them."""
+    from byteps_tpu_torch.ops import decode_attention as da
+
+    c = {**DECODE_MAIN, **over}
+    q, ck, cv, ks, vs = _decode_inputs(torch, seed, c, mode)
+    args = (q, ck, cv, c["pos"])
+    kw = {"k_scale": ks, "v_scale": vs, "window": c["window"]}
+    return c, args, kw, lambda: da.decode_attention(*args, **kw)
+
+
+def decode_kernel_names(torch, seed: int) -> dict:
+    """``{"case/mode": names}``: the decode kernels one call of each
+    phase-16 case launched, by the profiler.  Run in a fresh process
+    (``--decode-kernel-names``): by phase 16 the long run of this script
+    has a profiler that records no device event (seen on the H100)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for mode in ("bfloat16", "int8", "float32"):
+        for name, over, _ in DECODE_CASES:
+            _, _, _, call = _decode_call(torch, seed, over, mode)
+            call()
+            out[f"{name}/{mode}"] = _decode_kernels(torch, call, flush)
+    return out
+
+
+def decode_case(torch, name, over, plan, mode, seed, flush, timed, ran):
+    """One case of phase 16: the kernel against its plain version, the
+    kernels one call launched (``ran``, profiler names), a rerun's bits,
+    the split plan the case is for, and at the main shape the times."""
     import torch.nn.functional as F
 
     from byteps_tpu_torch.ops import decode_attention as da
 
-    c = {**DECODE_MAIN, **over}
+    c, args, kw, call = _decode_call(torch, seed, over, mode)
     B, S, H, KV, D, pos, w = (c[k] for k in ("B", "S", "H", "KV", "D",
                                              "pos", "window"))
-    q, ck, cv, ks, vs = _decode_inputs(torch, seed, c, mode)
-    args = (q, ck, cv, pos)
-    kw = {"k_scale": ks, "v_scale": vs, "window": w}
-    out = da.decode_attention(*args, **kw)
+    q, ck, cv, ks, vs = *args[:3], kw["k_scale"], kw["v_scale"]
+    ring = mode != "float32"          # a bf16 q: the design on tensor cores
+    lo = (max(pos - w + 1, 0) if w else 0) // da.CHUNK
+    n = pos // da.CHUNK - lo + 1
+    nsplit, per = da._splits(B, KV, n, torch.cuda.get_device_properties(
+        0).multi_processor_count, ring)
+    if ring and ((plan == "long" and not (nsplit > 1
+                                          and per >= da.RING_MIN_CHUNKS))
+                 or (plan == "ragged" and not (nsplit > 1 and n % per))):
+        raise AssertionError(f"decode {name}: plan ({nsplit}, {per}) over "
+                             f"{n} chunks is not {plan}")
+    out = call()
+    want = (["decode_ring_kernel"] if ring else
+            ["decode_attention_kernel"]
+            + (["decode_attention_combine"] if nsplit > 1 else []))
+    if len(ran) != len(want) or not all(
+            sum(x in k for k in ran) == 1 for x in want):
+        raise AssertionError(f"decode {name} {mode}: kernels {ran}, want "
+                             f"one each of {want}")
     ref = da.decode_attention_reference(*args, **kw)
+    again = da.decode_attention(*args, **kw)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"decode {name} {mode}: a rerun differs")
     if not (torch.isfinite(out.float()).all()
             and torch.isfinite(ref.float()).all()):
         raise AssertionError(f"decode {name} {mode}: non-finite output")
     abs_err = (out.float() - ref.float()).abs().max().item()
-    top = ref.float().abs().max().item()
-    tol = 1e-4 if mode == "float32" else 2e-2
-    err = abs_err if mode == "float32" else abs_err / top
+    if ring:      # both sides round p and the output to bf16
+        err, tol = _row_ulps(torch, out, ref), DECODE_BF16_ULPS
+    else:         # online softmax over splits vs one dense softmax
+        err, tol = abs_err, 1e-4
     if err > tol:
         raise AssertionError(f"decode {name} {mode}: error {err} > {tol}")
     res = {"case": name, "mode": mode, "B_S_H_KV_D": [B, S, H, KV, D],
-           "pos": pos, "window": w, "max_abs_err": abs_err, "err": err,
-           "tolerance": tol}
+           "pos": pos, "window": w, "splits_per": [nsplit, per],
+           "kernels": [k[:80] for k in ran], "max_abs_err": abs_err,
+           "err": err,
+           "err_unit": "bf16 ulps of the row's max" if ring else "absolute",
+           "tolerance": tol, "rerun_identical": True}
     if not timed:
         return res
     res["kernel_ms"] = _graph_ms(torch, lambda: da.decode_attention(
@@ -2217,6 +2340,16 @@ def decode_case(torch, name, over, mode, seed, flush, timed):
         torch, lambda: F.scaled_dot_product_attention(qd, kd, vd,
                                                       enable_gqa=True),
         flush)
+    # both again behind a flush that leaves the L2 clean: what the dirty
+    # lines' write-back adds to a call of a few microseconds
+    clean = _ReadFlush(torch)
+    res["kernel_ms_clean_l2"] = _graph_ms(torch, lambda: da.decode_attention(
+        *args, **kw), clean)
+    res["library_ms_clean_l2"] = _graph_ms(
+        torch, lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                      enable_gqa=True),
+        clean)
+    del clean
     elt = ck.element_size()
     nbytes = (da.kv_bytes_read(B, pos, KV * D, elt, w,
                                kv_heads=KV if mode == "int8" else 0)
@@ -2231,12 +2364,17 @@ def decode_case(torch, name, over, mode, seed, flush, timed):
 
 
 def decode_kernel_phase(torch, seed: int) -> dict:
+    names = json.loads(subprocess.run(
+        [sys.executable, __file__, "--seed", str(seed),
+         "--decode-kernel-names"], capture_output=True, text=True,
+        check=True, timeout=600).stdout.strip().splitlines()[-1])
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     main = {}
     for mode in ("bfloat16", "int8", "float32"):
-        for name, over in DECODE_CASES:
+        for name, over, plan in DECODE_CASES:
             timed = not over and mode != "float32"
-            r = decode_case(torch, name, over, mode, seed, flush, timed)
+            r = decode_case(torch, name, over, plan, mode, seed, flush,
+                            timed, names[f"{name}/{mode}"])
             _line(r)
             if timed:
                 main[mode] = r
@@ -2334,6 +2472,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and inputs")
+    ap.add_argument("--decode-kernel-names", action="store_true",
+                    help="print only the decode kernels each phase-16 "
+                         "case launches (phase 16 runs this in a fresh "
+                         "process)")
     args = ap.parse_args()
     import torch
 
@@ -2347,6 +2489,9 @@ def main() -> int:
     # three digits); stated and set, not assumed
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.decode_kernel_names:
+        _line(decode_kernel_names(torch, args.seed))
+        return 0
     smi = _smi()
     _line({"phase": "device", "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda,

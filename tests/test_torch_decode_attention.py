@@ -8,6 +8,13 @@ online softmax, the plain version takes one dense softmax over the same
 keys; the two sum the same fp32 products in other orders.  The int8 mode
 runs both on the same ``_quantize_kv`` values, which are bit-equal
 between the packages.
+
+Also, without a card: the kernel's split plan (``_splits``) covers every
+attended chunk once with no empty split, and the ring design's splits
+stream at least 8 chunks where the cache has them; the wrapper's launch,
+driven through a stand-in for the CUDA library, takes the design its rule
+names (``_ring_ok``: bf16 q on tensor cores, fp32 on the first design)
+with that plan, and hands the ring its ticket buffer.
 """
 
 import jax.numpy as jnp
@@ -125,3 +132,113 @@ def test_bound_bytes_count_the_attended_rows():
     assert da.kv_bytes_read(8, 2047, 512, 1, kv_heads=8) == 17825792
     assert da.kv_bytes_read(1, 1000, 64, 4, window=256) == 256 * 2 * 64 * 4
     assert da.decode_flops(1, 4, 16, 9) == 4 * 4 * 16 * 10
+
+
+def _chunks_seen(pos, window, nsplit, per):
+    """The chunks each CTA of one (slot, KV head) streams, as the kernel
+    computes them (j0 = c_lo + split * per, up to c_hi), in split order."""
+    c_lo = (max(pos - window + 1, 0) if window else 0) // da.CHUNK
+    c_hi = pos // da.CHUNK
+    seen = []
+    for split in range(nsplit):
+        j0 = c_lo + split * per
+        j1 = min(c_hi + 1, j0 + per)
+        assert j0 < j1, (split, j0, j1)         # no split is empty
+        seen += range(j0, j1)
+    return seen, list(range(c_lo, c_hi + 1))
+
+
+@pytest.mark.parametrize("ring", [True, False])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("B,KV,S", [
+    (8, 8, 2048),    # Llama-3.2-1B generation: 2 ring splits of 16 chunks
+    (1, 8, 2048),    # one slot: 4 ring splits of 8
+    (8, 1, 2000),    # MQA, S % 64 != 0
+    (3, 4, 160),     # a short cache: one split
+    (64, 8, 4096),   # more (slot, KV head) pairs than SMs: one split
+])
+def test_split_plan_covers_every_attended_chunk_once(ring, sms, B, KV, S):
+    rng = np.random.RandomState(S + sms)
+    cursors = {0, 1, 63, 64, 65, 511, 512, S - 1, S - 2,
+               *(int(x) for x in rng.randint(0, S, size=12))}
+    for pos in sorted(p for p in cursors if p < S):
+        for window in (None, 1, 37, 256, 1000):
+            lo = (max(pos - window + 1, 0) if window else 0) // da.CHUNK
+            n = pos // da.CHUNK - lo + 1
+            nsplit, per = da._splits(B, KV, n, sms, ring)
+            assert 1 <= nsplit <= n and per >= 1
+            seen, want = _chunks_seen(pos, window, nsplit, per)
+            assert seen == want, (pos, window, nsplit, per)
+            if ring:
+                # a split streams >= 8 chunks where the cache has them,
+                # and the CTAs stay within one an SM where they can
+                assert per >= min(n, da.RING_MIN_CHUNKS)
+                assert nsplit == 1 or B * KV * nsplit <= sms
+
+
+def test_ring_split_plan_at_the_generation_shape():
+    # B = 8, KV = 8 at 2048 keys on 132 SMs: 2 splits of 16 chunks, 128
+    # CTAs; 21 chunks for one slot: 2 splits of 11 and 10 (ragged)
+    assert da._splits(8, 8, 32, 132, True) == (2, 16)
+    assert da._splits(1, 8, 21, 132, True) == (2, 11)
+    assert da._splits(8, 8, 32, 132, False) == (16, 2)   # the first design
+
+
+class _FakeLib:
+    """Stands in for the CUDA library: records each launch's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def bps_decode_attention_smem(self, G, D, dtype, quant, ring):
+        return 1024
+
+    def bps_decode_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("dtype,quant,H,KV,ring", [
+    (torch.bfloat16, False, 32, 8, True),
+    (torch.bfloat16, True, 32, 32, True),    # int8 cache, bf16 q
+    (torch.bfloat16, False, 32, 1, True),    # MQA: 32 heads, two row tiles
+    (torch.bfloat16, False, 64, 1, False),   # 64 heads a KV head
+    (torch.float32, False, 32, 8, False),
+    (torch.float32, True, 32, 32, False),
+])
+def test_launch_takes_the_design_its_rule_names(monkeypatch, dtype, quant,
+                                                H, KV, ring):
+    lib = _FakeLib()
+    monkeypatch.setattr(da, "_library", lambda: lib)
+    monkeypatch.setattr(da, "_tickets", {})
+    monkeypatch.setattr(da._build, "on_cuda", lambda *a: True)
+    monkeypatch.setattr(da._build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+    B, S, D, pos = 2, 1500, 64, 1400
+    q = torch.zeros(B, 1, H, D, dtype=dtype)
+    cdt = torch.int8 if quant else dtype
+    ck = torch.zeros(B, S, KV * D, dtype=cdt)
+    scales = ((torch.zeros(B, S, KV), torch.zeros(B, S, KV)) if quant
+              else (None, None))
+    before = da.launches
+    out = da.decode_attention(q, ck, ck.clone(), pos, k_scale=scales[0],
+                              v_scale=scales[1])
+    assert da.launches == before + 1 and len(lib.calls) == 1
+    assert out.shape == q.shape and out.dtype == dtype
+    args = lib.calls[0]
+    part, tickets = args[6], args[7]
+    (B_, S_, H_, KV_, D_, pos_, window, c_lo, c_hi, nsplit, per, dt, q8,
+     rg) = args[8:22]
+    assert (B_, S_, H_, KV_, D_, pos_, window) == (B, S, H, KV, D, pos, 0)
+    assert (c_lo, c_hi) == (0, pos // da.CHUNK)
+    assert (nsplit, per) == da._splits(B, KV, c_hi + 1, 132, ring)
+    assert (dt, q8, rg) == (int(dtype == torch.bfloat16), int(quant),
+                            int(ring))
+    assert da._ring_ok(dtype, H // KV) is ring
+    assert (part is None) == (nsplit == 1)
+    assert (tickets is not None) == (ring and nsplit > 1)

@@ -18,7 +18,9 @@ the autograd Function against dense autograd; ``gradcheck`` in fp64; the
 chunked plain versions equal to one chunk; the rule that sends bf16
 operands to the kernels on TMA and wgmma (read from dtypes, shapes,
 strides and addresses, so CPU tensors show it) and the persistent
-forward's vocabulary splits.
+forward's vocabulary splits; the backward's prediction of TMA launches
+(dlogits, dx and dW of every chunk) held to a stand-in library that
+applies the C rule, on bf16, fp32 and a table of row stride H + 1.
 """
 
 import jax
@@ -241,3 +243,71 @@ def test_forward_splits_fill_whole_waves_on_the_tma_path():
         assert s == 33 and (-(-N // 128) * s) % 132 == 0
     assert fce._fwd_splits(300, 1000, True, 132) == 4   # 4 tiles of 256
     assert fce._fwd_splits(8192, 128256, False, 132) == 9
+
+
+class _RuleLibrary:
+    """Stands in for the kernel library's backward: each entry point counts
+    a TMA launch where the C ``tma_ok`` holds for its operands (H, the row
+    strides ldw and ldd multiples of 8 elements, bf16 bases 16-byte
+    aligned), as the C side dispatches."""
+
+    def __init__(self):
+        self.n = 0
+        self.names = []
+
+    def bps_fce_tma_launches(self):
+        return self.n
+
+    def _rule(self, name, H, ldw, ldd, dtype, *ptrs):
+        self.names.append(name)
+        self.n += int(dtype == 1 and H % 8 == 0 and ldw % 8 == 0
+                      and ldd % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+        return 0
+
+    def bps_fce_dlogits(self, x, wc, t, t64, lse, dl, d, N, H, Vw, c0, V,
+                        ldw, ldd, dtype, stream):
+        return self._rule("dlogits", H, ldw, ldd, dtype, x, wc, d)
+
+    def bps_fce_dx(self, d, wc, acc, dx, N, H, Vw, ldd, ldw, first, last,
+                   dtype, stream):
+        return self._rule("dx", H, ldw, ldd, dtype, d, wc)
+
+    def bps_fce_dw(self, d, x, dwc, N, H, Vw, ldd, ldw, dtype, stream):
+        return self._rule("dw", H, ldw, ldd, dtype, x, dwc, d)
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("dtype,layout,need,per_chunk", [
+    (torch.bfloat16, "table", (True, True), 3),   # every operand qualifies
+    (torch.bfloat16, "table", (False, True), 2),  # no dx: dlogits and dW
+    (torch.bfloat16, "table", (True, False), 2),  # no dW
+    (torch.float32, "table", (True, True), 0),    # fp32 keeps scalar FMA
+    (torch.bfloat16, "stride", (True, True), 0),  # row stride H + 1: dW too
+])
+def test_backward_predicts_the_tma_launches_of_every_chunk(
+        monkeypatch, dtype, layout, need, per_chunk):
+    """The wrapper's prediction for a backward chunk (dlogits, dx, dW),
+    held by ``_count_tma`` to what a library applying the C rule
+    launches: 3 a chunk where every operand qualifies, 0 in fp32, and on a
+    table of row stride H + 1 none, dW included (the chunk's one rule
+    reads the table's stride)."""
+    lib = _RuleLibrary()
+    monkeypatch.setattr(fce, "_library", lambda: lib)
+    monkeypatch.setattr(fce._build, "on_cuda", lambda *a: True)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+    monkeypatch.setattr(fce, "tma_launches", 0)
+    N, H, V = 16, 64, 20000            # three vocabulary chunks
+    x = torch.zeros(N, H, dtype=dtype)
+    w = _table(V, H, dtype, layout).t()
+    t = torch.zeros(N, dtype=torch.long)
+    lse, dl = torch.zeros(N), torch.ones(N)
+    dx, dw = fce.fce_backward(x, w, t, lse, dl, *need)
+    nc = fce.vocab_chunks(V)
+    assert nc == 3
+    assert fce.tma_launches == per_chunk * nc
+    assert len(lib.names) == nc * (1 + sum(need))
+    assert (dx is not None, dw is not None) == need

@@ -14,10 +14,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    started together) and prints the build seconds and ``ptxas``'s
    register and spill lines; then the paged kernel's, the bf16 flash
    kernels' on tensor cores (forward, dq, dk/dv) per instantiation, the
-   fused-CE kernels' on TMA and wgmma (forward, dlogits, dx, dW) and the
-   decode kernel's on tensor cores per instantiation, and fails if any
-   flash one of them spills at head_dim 64 or 128, any fused-CE one at
-   all, or a decode one of one row tile (up to 16 query heads a KV head).
+   fused-CE kernels' on TMA and wgmma (forward, dlogits, dx, dW), the
+   decode kernel's on tensor cores per instantiation and the int8
+   product's swap (per row-fragment count) and tma kernels, and fails if
+   any flash one of them spills at head_dim 64 or 128, any fused-CE or
+   int8 one at all, or a decode one of one row tile (up to 16 query heads
+   a KV head).
 3. Reference — a small fp32 Llama-shaped model served greedily through
    the paged engine (the kernel decoding) must give exactly the tokens
    of a plain dense-cache greedy loop (``Transformer.decode``, no
@@ -198,9 +200,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    called; (b) ``cache_layout="grouped"`` (no kernel): its divergence from
    (a) must not be "real"; (c) ``kv_quant=True`` flat (the int8 mode), run
    twice, the same counts; (d) after ``quantize_params``, the flat bf16
-   cache, run twice: 112 ``quant_linear`` launches per forward.  Each run
-   prints prefill ms, decode ms per token (p50 and max, CUDA events
-   between steps), tokens/s, peak memory and launches; counts are set to
+   cache, run twice: 112 ``quant_linear`` launches per forward, the
+   prefill's on the tma design and every decode step's on swap (the
+   library's counts by design).  Each run prints prefill ms, decode ms
+   per token (p50 and max, CUDA events between steps), tokens/s, peak
+   memory and launches; counts are set to
    0 just before each run and read just after.  Eight decode steps of (a)
    and of (d) under ``torch.profiler``: kernels and device ms per step,
    the device's idle share, the costliest kernels.
@@ -225,18 +229,28 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and the yardstick again behind a flush that reads (leaving no dirty
    lines to write back); the bound is the attended K/V bytes (and
    scales) over 3.35 TB/s.
-17. Int8 product kernel — against its plain version at Llama-3.2-1B's
-   projection shapes (2048->2048, 2048->512, 2048->8192, 8192->2048) at
-   M=8 and M=15360, and the probe's [8, 768] x [768, 3072]; bf16 and fp32
-   x, with and without bias.  bf16 within one bf16 ulp of the largest
-   output (2^-7 of it: the same rounding points, fp32 sums in other
-   orders), fp32 within 1e-5 of it.  bf16 device times per call, the L2
-   flushed, from CUDA graphs as in phase 16: the kernel (with its split-K
-   combine), the
-   plain version, and ``F.linear`` on the dequantized bf16 weight
-   (cuBLAS, the yardstick); the bound is max(bytes over 3.35 TB/s,
-   FLOPs over 989 TFLOP/s).  The kernels line reports the sum over one
-   layer's seven projections at M=8 (a decode step is 16 of them).
+17. Int8 product kernel — against its plain version at M = 1, 8, 16,
+   40, 64, 65, 4096 and 15360 rows on Llama-3.2-1B's projection shapes
+   (2048->2048, 2048->512, 2048->8192, 8192->2048), the probe's 768->3072
+   and a ragged 208->1000; bf16 x with and without bias and with fp32
+   output (the untied quantized head's mode), fp32 x at M = 8 and 15360.
+   Each case holds the design the rule names (``_design``: swap up to 64
+   bf16 rows, tma above, the tile design for fp32 x) to the launches the
+   library counted by design, and a bf16 case to one kernel of that design
+   by profiler name (the names taken in a fresh process of this script,
+   ``--quant-kernel-names``, as phase 16's are: the split merge of swap
+   runs inside its one launch, no combine kernel).  bf16 within one bf16
+   ulp of the largest output (2^-7 of it: the same rounding points, fp32
+   sums in other orders), fp32 within 1e-5 of it; every case reruns
+   bit-identically.  At M = 8 and 15360, bf16 x without bias: device
+   times per call, the L2 flushed, from CUDA graphs as in phase 16 (50
+   pairs, best of 5, at M = 8): the rule's design, the tile design
+   (``quant_linear_design``), the plain version, and ``F.linear`` on the
+   dequantized bf16 weight (cuBLAS, the yardstick); the bound is
+   max(bytes over 3.35 TB/s, FLOPs over 989 TFLOP/s).  The kernels line
+   reports the sums over one layer's seven projections at M = 8 and, as
+   ``prefill_layer``, at M = 15360, and the main path's launches by
+   design (phase 15 (d)).
 
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels":
 [...]}`` JSON object, and ``{"ok": true, "device": {...}}``.
@@ -354,6 +368,7 @@ FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
 FCE_TMA_KERNELS = ("fce_fwd_tma_kernel", "fce_dlogits_tma_kernel",
                    "fce_dx_tma_kernel", "fce_dw_tma_kernel")
 DECODE_RING_KERNEL = "decode_ring_kernel"
+QUANT_KERNELS = ("quant_swap_kernel", "quant_tma_kernel")
 
 
 def ptxas_phase(logs: dict) -> dict:
@@ -361,16 +376,19 @@ def ptxas_phase(logs: dict) -> dict:
     on tensor cores (forward, dq and dk/dv, ``flash_*_mma_kernel<D>``),
     per instantiation, the fused-CE kernels on TMA and wgmma (forward,
     dlogits, dx, dW) and the decode kernel on tensor cores
-    (``decode_ring_kernel<cache, D, row tiles>``); none of the flash three
-    may spill at head_dim 64 or 128, none of the fused-CE four at all, and
-    no decode instantiation of one row tile (up to 16 query heads a KV
-    head: every model the port runs; two row tiles at head_dim 128 hold
-    256 fp32 accumulators a thread and may)."""
+    (``decode_ring_kernel<cache, D, row tiles>``) and the int8 product's
+    swap (``quant_swap_kernel<row fragments>``) and tma kernels; none of
+    the flash three may spill at head_dim 64 or 128, none of the fused-CE
+    four or the int8 ones at all, and no decode instantiation of one row
+    tile (up to 16 query heads a KV head: every model the port runs; two
+    row tiles at head_dim 128 hold 256 fp32 accumulators a thread and
+    may)."""
     info = {"phase": "ptxas"}
     for src, keys in (("paged_attention", ("paged_attention_kernel",)),
                       ("flash_attention", FLASH_MMA_KERNELS),
                       ("fused_cross_entropy", FCE_TMA_KERNELS),
-                      ("decode_attention", (DECODE_RING_KERNEL,))):
+                      ("decode_attention", (DECODE_RING_KERNEL,)),
+                      ("quant_dot", QUANT_KERNELS)):
         if src not in logs:  # built by an earlier run: no report here
             info[src] = "built earlier; no ptxas report in this process"
             continue
@@ -385,10 +403,11 @@ def ptxas_phase(logs: dict) -> dict:
         if ("Li64E" in name or "Li128E" in name) and (
                 r.get("spill_stores") or r.get("spill_loads")):
             raise AssertionError(f"{name} spills: {r}")
-    for name, r in (info["fused_cross_entropy"].items()
-                    if isinstance(info["fused_cross_entropy"], dict) else ()):
-        if r.get("spill_stores") or r.get("spill_loads"):
-            raise AssertionError(f"{name} spills: {r}")
+    for src in ("fused_cross_entropy", "quant_dot"):
+        for name, r in (info[src].items() if isinstance(info[src], dict)
+                        else ()):
+            if r.get("spill_stores") or r.get("spill_loads"):
+                raise AssertionError(f"{name} spills: {r}")
     for name, r in (info["decode_attention"].items()
                     if isinstance(info["decode_attention"], dict) else ()):
         # the last template argument, the row tiles: ...Li1EE
@@ -1207,6 +1226,7 @@ def _zero_counts():
     fce.plain_calls = fce.tma_launches = 0
     da.launches = da.plain_calls = 0
     qd.launches = qd.plain_calls = 0
+    qd.design_launches = dict.fromkeys(qd.DESIGNS, 0)
 
 
 def _fce_counts():
@@ -1930,6 +1950,7 @@ def _gen_counts() -> dict:
 
     return {"flash_fwd": fa.fwd_launches, "decode": da.launches,
             "quant_dot": qd.launches,
+            "quant_dot_by_design": dict(qd.design_launches),
             "plain": fa.plain_calls + da.plain_calls + qd.plain_calls}
 
 
@@ -1961,9 +1982,12 @@ def generate_reference_phase(torch, seed: int) -> dict:
         out = generate(m, prompt, n, temperature=0, **kw)
         torch.cuda.synchronize()
         counts = _gen_counts()
-        if counts != want:
-            raise AssertionError(f"generate {kw}: launches {counts}, want "
-                                 f"{want}")
+        by = counts.pop("quant_dot_by_design")
+        # fp32 x takes the tile design (its split-K adds a combine launch)
+        if counts != want or by["swap"] or by["tma"] or \
+                not want["quant_dot"] <= by["tile"] <= 2 * want["quant_dot"]:
+            raise AssertionError(f"generate {kw}: launches {counts} {by}, "
+                                 f"want {want}")
         return out["tokens"].cpu().numpy()
 
     flat_want = {"flash_fwd": L, "decode": (n - 1) * L, "quant_dot": 0,
@@ -2085,6 +2109,7 @@ def generate_phase(torch, seed: int):
     prompt = torch.from_numpy(np.random.RandomState(seed).randint(
         0, cfg.vocab_size, size=(GEN_B, GEN_PROMPT))).cuda()
     fp_want = {"flash_fwd": L, "decode": steps * L, "quant_dot": 0,
+               "quant_dot_by_design": {"tile": 0, "swap": 0, "tma": 0},
                "plain": 0}
 
     def run(name, want, **kw):
@@ -2147,7 +2172,11 @@ def generate_phase(torch, seed: int):
     profiles = {"fp_flat": _decode_profile(torch, model, prompt,
                                            layout="flat")}
     quantize_params(model)
-    q_want = {**fp_want, "quant_dot": GEN_NEW * 7 * L}
+    # bf16 x: the prefill's 15360 rows on the tma design, each decode
+    # step's 8 on swap, one launch a call
+    q_want = {**fp_want, "quant_dot": GEN_NEW * 7 * L,
+              "quant_dot_by_design": {"tile": 0, "swap": steps * 7 * L,
+                                      "tma": 7 * L}}
     for name in ("int8_weights", "int8_weights_rerun"):
         runs[name] = run(name, q_want, cache_layout="flat")
     profiles["int8_weights"] = _decode_profile(torch, model, prompt,
@@ -2212,13 +2241,14 @@ def _decode_inputs(torch, seed, c, mode):
             None, None)
 
 
-def _decode_kernels(torch, fn, flush, tries=3) -> list:
-    """Names of the decode kernels one call of ``fn`` launched, one entry
-    a launch, by the profiler (CPU and CUDA activities, as phase 15 takes
-    them: after such a profile, CUDA-only profiles saw none of these
-    kernels).  The flush and a sync lead the call, since the profiler can
-    miss what is launched while it starts; a profile that saw no decode
-    kernel is taken again on a fresh call, up to ``tries`` times."""
+def _decode_kernels(torch, fn, flush, tries=3, part="decode_") -> list:
+    """Names of the decode kernels (names holding ``part``) one call of
+    ``fn`` launched, one entry a launch, by the profiler (CPU and CUDA
+    activities, as phase 15 takes them: after such a profile, CUDA-only
+    profiles saw none of these kernels).  The flush and a sync lead the
+    call, since the profiler can miss what is launched while it starts; a
+    profile that saw none of these kernels is taken again on a fresh call,
+    up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2232,7 +2262,7 @@ def _decode_kernels(torch, fn, flush, tries=3) -> list:
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
-        ran = [n for n in names if "decode_" in n]
+        ran = [n for n in names if part in n]
         if ran:
             return ran
         seen.append([n[:60] for n in names])
@@ -2384,88 +2414,176 @@ def decode_kernel_phase(torch, seed: int) -> dict:
 
 # ------------------------------------------------------ int8 product
 
-# Llama-3.2-1B's projections (K -> N) and how many a layer runs
+# Llama-3.2-1B's projections (K -> N) and how many a layer runs; then the
+# probe's shape and a ragged one (N, and K % 64 != 0)
 QUANT_SHAPES = (("q_o_2048x2048", 2048, 2048, 2),
                 ("k_v_2048x512", 2048, 512, 2),
                 ("gate_up_2048x8192", 2048, 8192, 2),
-                ("down_8192x2048", 8192, 2048, 1))
-QUANT_ROWS = (GEN_B, GEN_B * GEN_PROMPT)   # decode, prefill
+                ("down_8192x2048", 8192, 2048, 1),
+                ("probe_768x3072", 768, 3072, 0),
+                ("ragged_208x1000", 208, 1000, 0))
+QUANT_ROWS = (1, GEN_B, 16, 40, 64, 65, 4096, GEN_B * GEN_PROMPT)
+QUANT_TIMED = (GEN_B, GEN_B * GEN_PROMPT)   # decode, prefill
+# (name, x dtype, output dtype, bias): bf16 x takes swap (<= 64 rows) or
+# tma; fp32 output from bf16 x is the untied quantized head's mode; fp32 x
+# the tile design
+QUANT_MODES = (("bf16", "bfloat16", "bfloat16", False),
+               ("bf16_bias", "bfloat16", "bfloat16", True),
+               ("bf16_fp32_out_bias", "bfloat16", "float32", True),
+               ("fp32", "float32", "float32", False),
+               ("fp32_bias", "float32", "float32", True))
 
 
-def quant_case(torch, name, M, K, N, dtype, bias, seed, flush, timed):
+def _quant_modes(M):
+    """The modes a row count runs: every bf16 one; fp32 x at the timed
+    rows only."""
+    return [m for m in QUANT_MODES if m[1] == "bfloat16" or M in QUANT_TIMED]
+
+
+def _quant_call(torch, seed, M, K, N, mode):
+    """The case's inputs and a function making one wrapper call on them."""
+    from byteps_tpu_torch.ops import quant_dot as qd
+
+    _, xdt, odt, bias = mode
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device="cuda").to(getattr(torch,
+                                                                   xdt))
+    w, scale = qd.quantize_weight(
+        torch.randn((N, K), generator=g, device="cuda") * 0.02)
+    b = torch.randn((N,), generator=g, device="cuda") if bias else None
+    odt = getattr(torch, odt)
+    return (x, w, scale, b, odt), lambda: qd.quant_linear(x, w, scale, b, odt)
+
+
+def quant_kernel_names(torch, seed: int) -> dict:
+    """``{"shape/M/mode": names}``: the int8-product kernels one call of
+    each bf16 phase-17 case launched, by the profiler.  Run in a fresh
+    process (``--quant-kernel-names``), as phase 16's names are."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for M in QUANT_ROWS:
+        for name, K, N, _ in QUANT_SHAPES:
+            for mode in _quant_modes(M):
+                if mode[1] != "bfloat16":
+                    continue
+                _, call = _quant_call(torch, seed, M, K, N, mode)
+                call()
+                out[f"{name}/{M}/{mode[0]}"] = [
+                    k[:60] for k in _decode_kernels(torch, call, flush,
+                                                    part="quant_")]
+        torch.cuda.empty_cache()
+    return out
+
+
+def quant_case(torch, name, M, K, N, mode, seed, flush, timed, ran):
+    """One case of phase 17: the kernel against its plain version, the
+    design the rule names against the launches the library counted, the
+    kernels one call launched (``ran``, profiler names; bf16 x), a rerun's
+    bits, and at the timed rows the times of both designs, the plain
+    version, cuBLAS on the dequantized weight and the bound."""
     import torch.nn.functional as F
 
     from byteps_tpu_torch.ops import quant_dot as qd
 
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
-    w, scale = qd.quantize_weight(
-        torch.randn((N, K), generator=g, device="cuda") * 0.02)
-    b = torch.randn((N,), generator=g, device="cuda") if bias else None
-    out = qd.quant_linear(x, w, scale, b)
-    ref = qd.quant_linear_reference(x, w, scale, b)
+    (x, w, scale, b, odt), call = _quant_call(torch, seed, M, K, N, mode)
+    before = dict(qd.design_launches)
+    out = call()
     torch.cuda.synchronize()
+    took = {k: qd.design_launches[k] - before[k] for k in qd.DESIGNS}
+    design = qd._design(x.dtype, M, N, K, x.data_ptr(), w.data_ptr(),
+                        out.data_ptr())
+    want = (qd.SWAP if M <= qd.SWAP_MAX_ROWS else qd.TMA) \
+        if x.dtype == torch.bfloat16 else qd.TILE
+    if design != want or not took[qd.DESIGNS[want]] or sum(
+            took.values()) != took[qd.DESIGNS[want]]:
+        raise AssertionError(f"quant {name} M={M} {mode[0]}: rule "
+                             f"{qd.DESIGNS[design]}, launched {took}, want "
+                             f"{qd.DESIGNS[want]}")
+    if ran is not None:
+        kern = "quant_swap_kernel" if want == qd.SWAP else "quant_tma_kernel"
+        if len(ran) != 1 or kern not in ran[0]:
+            raise AssertionError(f"quant {name} M={M} {mode[0]}: kernels "
+                                 f"{ran}, want one {kern}")
+    again = call()
+    ref = qd.quant_linear_reference(x, w, scale, b, odt)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"quant {name} M={M} {mode[0]}: a rerun "
+                             f"differs")
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"quant {name} M={M}: non-finite output")
     top = ref.float().abs().max().item()
     abs_err = (out.float() - ref.float()).abs().max().item()
-    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    tol = 2.0 ** -7 if x.dtype == torch.bfloat16 else 1e-5
     if abs_err > tol * top:
-        raise AssertionError(f"quant {name} M={M} {dtype} bias={bias}: "
-                             f"error {abs_err} > {tol} x {top}")
-    res = {"case": name, "M_K_N": [M, K, N],
-           "dtype": str(dtype).split(".")[-1], "bias": bias,
+        raise AssertionError(f"quant {name} M={M} {mode[0]}: error "
+                             f"{abs_err} > {tol} x {top}")
+    res = {"case": name, "M_K_N": [M, K, N], "mode": mode[0],
+           "design": qd.DESIGNS[design], "launched": took,
+           "kernels": ran, "rerun_identical": True,
            "max_abs_err": abs_err, "err": abs_err / top,
            "err_bf16_ulps_of_max": abs_err / (2.0 ** -7 * top),
            "tolerance": tol}
     if not timed:
         return res
-    iters = 20 if M <= 64 else 3
-    res["kernel_ms"] = _graph_ms(
-        torch, lambda: qd.quant_linear(x, w, scale), flush, iters)
+    few = M <= qd.SWAP_MAX_ROWS
+    iters, reps = (50, 5) if few else (3, 3)
+    res["design_ms"] = _graph_ms(torch, lambda: qd.quant_linear(x, w, scale),
+                                 flush, iters, reps)
+    res["tile_ms"] = _graph_ms(torch, lambda: qd.quant_linear_design(
+        x, w, scale, design=qd.TILE), flush, iters, reps)
     res["plain_ms"] = _graph_ms(
         torch, lambda: qd.quant_linear_reference(x, w, scale), flush,
         min(iters, 5))
     wbf = (w.float() * scale[:, None]).to(torch.bfloat16)
     res["library_ms"] = _graph_ms(torch, lambda: F.linear(x, wbf), flush,
-                                  iters)
+                                  iters, reps)
     elt = x.element_size()
     nbytes = M * K * elt + N * K + 4 * N + M * N * elt
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = qd.quant_flops(M, N, K) / PEAK_FLOPS["bfloat16"] * 1e3
     res["bound_ms"] = max(t_bytes, t_ops)
     res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    res["design_tflops"] = qd.quant_flops(M, N, K) / res["design_ms"] / 1e9
     return res
 
 
 def quant_kernel_phase(torch, seed: int) -> dict:
-    """Every case checked; bf16 without bias timed.  Returns the sums of
-    one layer's seven decode (M=8) projections."""
+    """Every case checked; bf16 x without bias timed at the decode and
+    prefill rows.  Returns the sums over one layer's seven projections at
+    each: ``{"decode": {...}, "prefill": {...}}``."""
+    names = json.loads(subprocess.run(
+        [sys.executable, __file__, "--seed", str(seed),
+         "--quant-kernel-names"], capture_output=True, text=True,
+        check=True, timeout=600).stdout.strip().splitlines()[-1])
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    layer = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-             "bound_ms": 0.0, "max_abs_err": 0.0, "bytes_bound": True}
-    cases = [(n, M, K, N, c) for M in QUANT_ROWS
-             for n, K, N, c in QUANT_SHAPES]
-    cases.append(("probe_768x3072", 8, 768, 3072, 0))
-    for name, M, K, N, count in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            for bias in (False, True):
-                timed = dtype == torch.bfloat16 and not bias
-                r = quant_case(torch, name, M, K, N, dtype, bias, seed, flush,
-                               timed)
+    layers = {}
+    for M in QUANT_ROWS:
+        layer = {"rows": M, "design_ms": 0.0, "tile_ms": 0.0,
+                 "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                 "max_abs_err": 0.0, "bytes_bound": True}
+        for name, K, N, count in QUANT_SHAPES:
+            for mode in _quant_modes(M):
+                timed = M in QUANT_TIMED and mode[0] == "bf16"
+                r = quant_case(torch, name, M, K, N, mode, seed, flush, timed,
+                               names.get(f"{name}/{M}/{mode[0]}"))
                 _line(r)
-                if timed and M == GEN_B and count:
-                    for k in ("kernel_ms", "plain_ms", "library_ms",
-                              "bound_ms"):
+                if timed and count:
+                    for k in ("design_ms", "tile_ms", "plain_ms",
+                              "library_ms", "bound_ms"):
                         layer[k] += count * r[k]
                     layer["max_abs_err"] = max(layer["max_abs_err"],
                                                r["max_abs_err"])
                     layer["bytes_bound"] &= r["bound_by"] == "bytes"
-        torch.cuda.empty_cache()
-    layer["bound_by"] = "bytes" if layer.pop("bytes_bound") else "operations"
-    _line({"phase": "quant_dot_decode_layer", **layer})
-    return layer
+            torch.cuda.empty_cache()
+        if M in QUANT_TIMED:
+            layer["bound_by"] = ("bytes" if layer.pop("bytes_bound")
+                                 else "operations")
+            key = "decode" if M == GEN_B else "prefill"
+            layers[key] = layer
+            _line({"phase": f"quant_dot_{key}_layer", **layer})
+    return layers
 
 
 def main() -> int:
@@ -2476,6 +2594,10 @@ def main() -> int:
                     help="print only the decode kernels each phase-16 "
                          "case launches (phase 16 runs this in a fresh "
                          "process)")
+    ap.add_argument("--quant-kernel-names", action="store_true",
+                    help="print only the int8-product kernels each bf16 "
+                         "phase-17 case launches (phase 17 runs this in a "
+                         "fresh process)")
     args = ap.parse_args()
     import torch
 
@@ -2491,6 +2613,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.decode_kernel_names:
         _line(decode_kernel_names(torch, args.seed))
+        return 0
+    if args.quant_kernel_names:
+        _line(quant_kernel_names(torch, args.seed))
         return 0
     smi = _smi()
     _line({"phase": "device", "nvidia_smi": smi,
@@ -2541,7 +2666,7 @@ def main() -> int:
     gen_info, gen_launches = generate_phase(torch, args.seed)
     _line(gen_info)
     decode_main = decode_kernel_phase(torch, args.seed)
-    quant_layer = quant_kernel_phase(torch, args.seed)
+    quant_layers = quant_kernel_phase(torch, args.seed)
     print(_smi(), flush=True)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -2608,16 +2733,21 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    dec, pre = quant_layers["decode"], quant_layers["prefill"]
     kernels.append({
         "name": "quant_dot", "route": "cuda",
         "source": "byteps_tpu_torch/csrc/quant_dot.cu",
         "replaces": "scripts/dot_probe.py:27",
         "launches": gen_launches["int8_weights_rerun"]["quant_dot"],
-        "max_abs_err": quant_layer["max_abs_err"],
-        "ms": quant_layer["kernel_ms"], "plain_ms": quant_layer["plain_ms"],
-        "bound_ms": quant_layer["bound_ms"],
-        "bound_by": quant_layer["bound_by"],
-        "library_ms": quant_layer["library_ms"]})
+        "launches_by_design":
+            gen_launches["int8_weights_rerun"]["quant_dot_by_design"],
+        "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
+        "ms": dec["design_ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"], "tile_ms": dec["tile_ms"],
+        "prefill_layer": {k: pre[k] for k in (
+            "rows", "design_ms", "tile_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")}})
     _line({"kernels": kernels})
     _line({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

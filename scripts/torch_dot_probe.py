@@ -10,7 +10,10 @@ variant inside a dependent chain of ``--steps`` steps, ``x <- tanh(y[:,
 :768])`` (the same weight re-read every step, as in decode):
 
 * ``int8 kernel`` — ``ops.quant_dot.quant_linear`` on the int8 weight and
-  its per-column scales (the hand-written kernel);
+  its per-column scales (the hand-written kernel, in the design its rule
+  names for 8 bf16 rows: ``swap``; the line says which);
+* ``int8 tile`` — the same through the first design
+  (``quant_linear_design(..., design=TILE)``);
 * ``bf16 F.linear`` — cuBLAS on the dequantized bf16 weight;
 * ``int8 plain`` — the kernel's plain PyTorch version.
 
@@ -20,7 +23,8 @@ Per step, CUDA events over a replay minus a replay of the ``tanh`` step
 alone, best of ``--reps``: microseconds per dot and the weight's bytes
 over that time (the 2.4 MB int8 / 4.7 MB bf16 weight stays in the 50 MB
 L2 across the chain, so the rate may pass HBM's).  Prints the card's
-``nvidia-smi`` name and power limit first.  Needs a GPU.
+``nvidia-smi`` name and power limit first, then the design the rule
+names.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -59,8 +63,14 @@ def main() -> int:
     wf = torch.randn((N, K), generator=g, device="cuda")
     w8, scale = qd.quantize_weight(wf)
     wbf = (w8.float() * scale[:, None]).to(torch.bfloat16)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+    design = qd.DESIGNS[qd._design(x0.dtype, M, N, K, x0.data_ptr(),
+                                   w8.data_ptr(), out.data_ptr())]
+    print(f"int8 kernel design: {design} (x [{M}, {K}] bf16)", flush=True)
     variants = {
         "int8 kernel   ": (lambda x: qd.quant_linear(x, w8, scale), N * K),
+        "int8 tile     ": (lambda x: qd.quant_linear_design(
+            x, w8, scale, design=qd.TILE), N * K),
         "bf16 F.linear ": (lambda x: F.linear(x, wbf), 2 * N * K),
         "int8 plain    ": (lambda x: qd.quant_linear_reference(x, w8, scale),
                            N * K),

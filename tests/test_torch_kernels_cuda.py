@@ -32,10 +32,13 @@ or int8 with scales) on the kernel on tensor cores, one launch a call by
 profiler name, within 2 bf16 ulps of each output row's largest reference
 magnitude (p is rounded to bf16 before the PV product at other running
 maxima, and the output once), reruns bit-identical (warps and splits
-merge in a fixed order).  The int8 product:
-bf16 within one bf16 ulp of the largest output (2^-7 of it: the same
-rounding points on both sides, fp32 sums in other orders), fp32 within
-1e-5 of the largest output.
+merge in a fixed order).  The int8 product, in each of its three
+designs (swap up to 64 bf16 rows, tma above, the tile design for fp32 x
+and the shapes neither takes; the rule's choice held to the launches the
+library counts): bf16 within one bf16 ulp of the largest output (2^-7 of
+it: the same rounding points on both sides, fp32 sums in other orders),
+fp32 within 1e-5 of the largest output; reruns bit-identical (the swap
+design's splits merge in split order), its tickets back at zero.
 """
 
 import numpy as np
@@ -679,6 +682,125 @@ def test_quant_linear_kernel_matches_plain_version(dtype, out_dtype, M, N, K,
     assert err <= tol, (err, tol)
     # reruns are bit-identical (split-K adds the splits in order)
     assert torch.equal(out, qd.quant_linear(x, w, scale, b, out_dtype))
+
+
+# Llama-3.2-1B's projections (K, N), and ragged N and K (K % 64 != 0)
+QUANT_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+                (208, 1000)]
+
+
+def _quant_check(out, ref, dtype):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.isfinite(out.float()).all()
+    top = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (torch.finfo(torch.bfloat16).eps if dtype == torch.bfloat16
+           else 1e-5) * top
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias,out_dtype", [
+    (False, torch.bfloat16), (True, torch.bfloat16), (True, torch.float32)])
+@pytest.mark.parametrize("K,N", QUANT_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 16, 40, 64, 65, 300, 4096])
+def test_quant_linear_designs_match_plain_version(M, K, N, bias, out_dtype):
+    """bf16 x: rows up to 64 on the swap design (one launch, the split
+    merge inside), more on the TMA + wgmma one; the design the rule names
+    is the one the library launched; reruns bit-identical; the swap
+    design's tickets all back at zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, w, scale, b = _quant_inputs(M + K, M, N, K, torch.bfloat16, bias)
+    want = qd.SWAP if M <= qd.SWAP_MAX_ROWS else qd.TMA
+    before = dict(qd.design_launches)
+    out = qd.quant_linear(x, w, scale, b, out_dtype)
+    torch.cuda.synchronize()
+    took = {k: qd.design_launches[k] - before[k] for k in qd.DESIGNS}
+    assert took == {k: int(i == want) for i, k in enumerate(qd.DESIGNS)}
+    _quant_check(out, qd.quant_linear_reference(x, w, scale, b, out_dtype),
+                 torch.bfloat16)
+    assert torch.equal(out, qd.quant_linear(x, w, scale, b, out_dtype))
+    torch.cuda.synchronize()
+    if want == qd.SWAP:
+        assert not qd._tickets[x.device].any()
+
+
+@pytest.mark.cuda
+def test_quant_tickets_are_zero_after_calls_of_many_shapes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    outs = []
+    for M, K, N in [(8, 2048, 512), (3, 8192, 2048), (64, 2048, 2048),
+                    (8, 768, 3072), (33, 1024, 1000)]:
+        x, w, scale, _ = _quant_inputs(M, M, N, K, torch.bfloat16, False)
+        assert qd._swap_plan(M, N, K, torch.cuda.get_device_properties(
+            0).multi_processor_count)[0] > 1
+        outs.append(qd.quant_linear(x, w, scale))
+    torch.cuda.synchronize()
+    assert not qd._tickets[torch.device("cuda", 0)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,design", [
+    (8, 2048, 2048, qd.TILE), (8, 2048, 512, qd.TILE),
+    (4096, 2048, 2048, qd.TILE), (300, 208, 1000, qd.TMA),
+    (64, 208, 1000, qd.SWAP), (8, 2048, 2048, qd.TMA)])
+def test_quant_linear_named_design_matches_plain_version(M, K, N, design):
+    """Each design named at shapes the rule may give another: the first
+    design at decode and prefill rows, tma at 8 and 300 rows, swap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, w, scale, b = _quant_inputs(3, M, N, K, torch.bfloat16, True)
+    before = qd.design_launches[qd.DESIGNS[design]]
+    out = qd.quant_linear_design(x, w, scale, b, design=design)
+    torch.cuda.synchronize()
+    assert qd.design_launches[qd.DESIGNS[design]] > before
+    _quant_check(out, qd.quant_linear_reference(x, w, scale, b),
+                 torch.bfloat16)
+    assert torch.equal(out, qd.quant_linear_design(x, w, scale, b,
+                                                   design=design))
+
+
+@pytest.mark.cuda
+def test_quant_rule_is_the_library_rule_and_refusals_raise():
+    """The C ``choose`` and the Python ``_design`` agree (the pointers are
+    only read for their alignment); a design that does not take a shape
+    raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = qd._library()
+    for dt in (torch.float32, torch.bfloat16):
+        for M in (1, 64, 65, 4096):
+            for N, K in ((2048, 2048), (1001, 2048), (512, 40)):
+                for xp, wp, op in ((16, 32, 48), (16, 33, 48), (16, 32, 50),
+                                   (8, 32, 48)):
+                    assert lib.bps_quant_dot_choose(
+                        int(dt == torch.bfloat16), M, N, K, xp, wp, op) == \
+                        qd._design(dt, M, N, K, xp, wp, op)
+    x, w, scale, _ = _quant_inputs(2, 65, 512, 2048, torch.bfloat16, False)
+    with pytest.raises(RuntimeError, match="swap launch failed"):
+        qd.quant_linear_design(x, w, scale, design=qd.SWAP)
+    xf = x.float()
+    with pytest.raises(RuntimeError, match="tma launch failed"):
+        qd.quant_linear_design(xf, w, scale, design=qd.TMA)
+
+
+@pytest.mark.cuda
+def test_quant_unaligned_weight_takes_the_tile_design():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, w, scale, _ = _quant_inputs(4, 8, 512, 2048, torch.bfloat16, False)
+    buf = torch.empty(w.numel() + 1, dtype=torch.int8, device=w.device)
+    wu = buf[1:].view(w.shape)
+    wu.copy_(w)
+    assert wu.data_ptr() % 16 and wu.is_contiguous()
+    before = qd.design_launches["tile"]
+    out = qd.quant_linear(x, wu, scale)
+    torch.cuda.synchronize()
+    assert qd.design_launches["tile"] > before
+    assert torch.equal(out, qd.quant_linear_design(x, w, scale,
+                                                   design=qd.TILE))
 
 
 @pytest.mark.cuda

@@ -4,6 +4,12 @@ the same numpy inputs: ``QuantDense`` applied to a quantized tree, the
 probe kernel ``scripts/dot_probe.py:27`` run through ``pl.pallas_call``
 in interpret mode, and ``inference.quantize_params``.
 
+The CUDA wrapper's choices, as pure functions of the shapes: the rule
+among the three designs (``_design``: swap up to 64 bf16 rows, tma above,
+the tile design for fp32 x and the shapes neither describes), the swap
+design's split plan (``_swap_plan``), and the launches a call is held to,
+through a stand-in for the CUDA library that applies the C rule.
+
 Tolerances: the int8 values and scales are bit-equal (the same fp32
 arithmetic, rounding half to even).  The products are held within one
 bf16 ulp of the largest output (``2**-7`` of it) in bf16 — both sides
@@ -84,7 +90,9 @@ def test_quantize_params_is_bit_equal_to_jax(name):
 @pytest.mark.parametrize("dtype,accum", [(jnp.bfloat16, None),
                                          (jnp.bfloat16, jnp.float32),
                                          (jnp.float32, None)])
-@pytest.mark.parametrize("M,K,N", [(8, 64, 96), (37, 200, 48)])
+@pytest.mark.parametrize("M,K,N", [(8, 64, 96), (37, 200, 48), (1, 64, 96),
+                                   (16, 64, 96), (40, 64, 96), (64, 64, 96),
+                                   (65, 64, 96), (300, 64, 96)])
 def test_plain_quant_linear_matches_quant_dense(dtype, accum, M, K, N):
     rng = np.random.RandomState(M + K)
     x = rng.randn(M, K).astype(np.float32)
@@ -162,3 +170,173 @@ def test_quantized_dense_runs_the_plain_version_on_cpu():
     with pytest.raises(ValueError, match="out_dtype"):
         qd.quant_linear(x, layer.weight, layer.scale,
                         out_dtype=torch.float16)
+
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,M,N,K,ptrs,want", [
+    (F32, 8, 2048, 2048, (0, 0, 0), qd.TILE),      # fp32 x: the tile
+    (F32, 15360, 2048, 2048, (0, 0, 0), qd.TILE),
+    (BF, 1, 2048, 2048, (0, 0, 0), qd.SWAP),
+    (BF, 8, 512, 2048, (0, 0, 0), qd.SWAP),
+    (BF, 64, 8192, 2048, (0, 0, 0), qd.SWAP),      # the last swap row count
+    (BF, 65, 8192, 2048, (0, 0, 0), qd.TMA),       # the first tma one
+    (BF, 15360, 2048, 8192, (0, 0, 0), qd.TMA),
+    (BF, 8, 1001, 2048, (0, 0, 0), qd.SWAP),       # swap takes any N
+    (BF, 300, 1001, 2048, (0, 0, 0), qd.TILE),     # tma's stores: N % 8
+    (BF, 8, 96, 40, (0, 0, 0), qd.TILE),           # K % 16 != 0
+    (BF, 300, 96, 40, (0, 0, 0), qd.TILE),
+    (BF, 8, 2048, 2048, (0, 33, 0), qd.TILE),      # W base unaligned
+    (BF, 300, 2048, 2048, (8, 0, 0), qd.TILE),     # x base unaligned
+    (BF, 300, 2048, 2048, (0, 0, 2), qd.TILE),     # out base unaligned
+    (BF, 8, 2048, 2048, (0, 0, 2), qd.SWAP),       # swap stores scalars
+])
+def test_design_rule_is_a_function_of_the_shapes(dtype, M, N, K, ptrs, want):
+    base = 1 << 20
+    x, w, out = (base + p for p in ptrs)
+    assert qd._design(dtype, M, N, K, x, w, out) == want
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("M", [1, 8, 16, 40, 64])
+@pytest.mark.parametrize("N,K", [(2048, 2048), (512, 2048), (8192, 2048),
+                                 (2048, 8192), (3072, 768), (1000, 208),
+                                 (96, 16), (128256, 2048)])
+def test_swap_plan_covers_k_in_whole_steps(M, N, K, sms):
+    splits, kper = qd._swap_plan(M, N, K, sms)
+    steps = -(-K // qd.SWAP_STEP)
+    assert splits >= 1 and kper % qd.SWAP_STEP == 0
+    assert (splits - 1) * kper < K <= splits * kper   # none empty, K covered
+    if steps >= qd.SWAP_MIN_STEPS:
+        assert kper // qd.SWAP_STEP >= qd.SWAP_MIN_STEPS
+    tiles = -(-N // qd.SWAP_CHANNELS)
+    # about one CTA an SM, fewer where the splits would be too shallow
+    assert splits <= max(1, int(sms / tiles + 0.5))
+    assert qd._swap_plan(M, N, K, sms) == (splits, kper)   # a pure function
+
+
+def test_swap_plan_at_the_model_shapes():
+    """Llama-3.2-1B's projections at decode (8 rows) on 132 SMs."""
+    assert qd._swap_plan(8, 2048, 2048, 132) == (4, 512)
+    assert qd._swap_plan(8, 512, 2048, 132) == (8, 256)
+    assert qd._swap_plan(8, 8192, 2048, 132) == (1, 2048)   # no merge
+    assert qd._swap_plan(8, 2048, 8192, 132) == (4, 2048)
+    assert qd._swap_plan(8, 128256, 2048, 132) == (1, 2048)   # a head
+
+
+@pytest.mark.parametrize("design,splits,want", [
+    (qd.TILE, 1, [1, 0, 0]), (qd.TILE, 3, [2, 0, 0]),   # + the combine
+    (qd.SWAP, 1, [0, 1, 0]), (qd.SWAP, 8, [0, 1, 0]),   # merged inside
+    (qd.TMA, 1, [0, 0, 1])])
+def test_kernels_a_call_launches(design, splits, want):
+    assert qd._kernels_for(design, splits) == want
+
+
+def _c_rule(dtype, M, N, K, x, w, out):
+    """The C side's ``choose``, restated for the stand-in library."""
+    if dtype != 1 or K % 16 or x % 16 or w % 16:
+        return 0
+    if M <= 64:
+        return 1
+    return 2 if N % 8 == 0 and out % 16 == 0 else 0
+
+
+class _RuleLibrary:
+    """Stands in for the CUDA library: applies the C rule (or the named
+    design), records each call's arguments and reports the kernels it
+    would launch by design; ``lie`` reports another design."""
+
+    def __init__(self, lie=False):
+        self.calls, self.lie = [], lie
+
+    def bps_quant_dot(self, x, w, scale, bias, out, part, tickets, M, N, K,
+                      splits, kper, dtype, out_bf16, design, counts, stream):
+        d = _c_rule(dtype, M, N, K, x, w, out) if design < 0 else design
+        self.calls.append(dict(design=design, ran=d, part=part,
+                               tickets=tickets, M=M, N=N, K=K,
+                               splits=splits, kper=kper, dtype=dtype,
+                               out_bf16=out_bf16))
+        if self.lie:
+            d = (d + 1) % 3
+        counts[d] = 2 if d == 0 and splits > 1 else 1
+        return 0
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+def _stand_in(monkeypatch, lib):
+    monkeypatch.setattr(qd, "_library", lambda: lib)
+    monkeypatch.setattr(qd, "_tickets", {})
+    monkeypatch.setattr(qd._build, "on_cuda", lambda *a: True)
+    monkeypatch.setattr(qd._build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+    monkeypatch.setattr(qd, "design_launches", dict.fromkeys(qd.DESIGNS, 0))
+
+
+@pytest.mark.parametrize("dtype,out_dtype,M,N,K,bias,design", [
+    (BF, BF, 8, 2048, 2048, False, qd.SWAP),
+    (BF, F32, 8, 512, 2048, True, qd.SWAP),       # the head's fp32 output
+    (BF, BF, 1, 96, 32, True, qd.SWAP),           # one split
+    (BF, BF, 65, 1000, 208, True, qd.TMA),
+    (BF, BF, 300, 1001, 2048, False, qd.TILE),
+    (F32, F32, 8, 2048, 2048, True, qd.TILE),
+    (F32, F32, 4096, 512, 2048, False, qd.TILE),
+])
+def test_launch_takes_the_design_its_rule_names(monkeypatch, dtype,
+                                                out_dtype, M, N, K, bias,
+                                                design):
+    lib = _RuleLibrary()
+    _stand_in(monkeypatch, lib)
+    x = torch.zeros(M, K, dtype=dtype)
+    w = torch.zeros(N, K, dtype=torch.int8)
+    b = torch.zeros(N) if bias else None
+    before = qd.launches
+    out = qd.quant_linear(x, w, torch.ones(N), b, out_dtype)
+    assert out.shape == (M, N) and out.dtype == out_dtype
+    assert qd.launches == before + 1 and len(lib.calls) == 1
+    c = lib.calls[0]
+    assert c["design"] == -1 and c["ran"] == design   # the C rule chose
+    assert (c["M"], c["N"], c["K"]) == (M, N, K)
+    assert (c["dtype"], c["out_bf16"]) == (int(dtype == BF),
+                                           int(out_dtype == BF))
+    if design == qd.SWAP:
+        plan = qd._swap_plan(M, N, K, 132)
+    elif design == qd.TILE:
+        plan = qd._split_k(M, N, K, torch.device("cpu"))
+    else:
+        plan = (1, K)
+    assert (c["splits"], c["kper"]) == plan
+    assert (c["part"] is not None) == (plan[0] > 1)
+    assert (c["tickets"] is not None) == (design == qd.SWAP and plan[0] > 1)
+    want = qd._kernels_for(design, plan[0])
+    assert [qd.design_launches[k] for k in qd.DESIGNS] == want
+    if c["tickets"] is not None:   # one ticket a 64-channel tile, zeros
+        buf = qd._tickets[torch.device("cpu")]
+        assert buf.numel() >= -(-N // qd.SWAP_CHANNELS) and not buf.any()
+
+
+def test_a_launch_the_rule_did_not_predict_raises(monkeypatch):
+    _stand_in(monkeypatch, _RuleLibrary(lie=True))
+    x = torch.zeros(8, 2048, dtype=BF)
+    w = torch.zeros(2048, 2048, dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="the rule predicted"):
+        qd.quant_linear(x, w, torch.ones(2048))
+
+
+def test_a_named_design_is_passed_to_the_library(monkeypatch):
+    lib = _RuleLibrary()
+    _stand_in(monkeypatch, lib)
+    x = torch.zeros(8, 2048, dtype=BF)
+    w = torch.zeros(2048, 2048, dtype=torch.int8)
+    before = qd.launches
+    qd.quant_linear_design(x, w, torch.ones(2048), design=qd.TILE)
+    assert lib.calls[0]["design"] == qd.TILE == lib.calls[0]["ran"]
+    assert qd.launches == before      # only the model's calls count there
+    assert qd.design_launches["tile"] >= 1
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        monkeypatch.setattr(qd._build, "on_cuda", lambda *a: False)
+        qd.quant_linear_design(x, w, torch.ones(2048), design=qd.TILE)

@@ -6,7 +6,7 @@
 GPU: the world has one worker, so ``size() == 1`` and broadcasting is
 the identity.  A multi-worker launch (``DMLC_NUM_WORKER > 1``) and
 launcher local ranks other than 0 of 1 are refused until the port has
-its collectives (``torch.distributed``, ROADMAP A2/A3); push_pull,
+its collectives slice (``torch.distributed``); push_pull,
 declare and the eager engine come with them.
 """
 

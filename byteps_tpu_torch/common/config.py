@@ -87,7 +87,7 @@ class Config:
     # at serve_block, so a value other than serve_block is refused
     serve_prefix_block: Optional[int] = None
     serve_prefix_mb: int = 256    # prefix store byte budget (MiB); 0 = inf
-    serve_paged: bool = False     # the port serves paged only
+    serve_paged: bool = False     # paged KV pool; off = dense slot engine
     serve_block: int = 16         # KV block size in tokens
     serve_kv_mb: int = 0          # KV pool budget (MiB); 0 = dense-equiv
     serve_kv_dtype: str = ""      # "" (model dtype) or "int8"

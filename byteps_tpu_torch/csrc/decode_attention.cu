@@ -6,8 +6,10 @@
 // :161), both its fp mode and its int8 mode.  Python binding, build and the
 // plain PyTorch version live in byteps_tpu_torch/ops/decode_attention.py.
 //
-// What it computes.  q [B, 1, H, D] at the absolute position pos (the same
-// for every row) against the caches ck/cv [B, S, KV*D] (head-major minor
+// What it computes.  q [B, 1, H, D] at the absolute position pos (one
+// host int for every row, or one position a row read from the device: the
+// JAX kernel's scalar prefetch, which the dense serving engine's decode
+// tick needs) against the caches ck/cv [B, S, KV*D] (head-major minor
 // axis: KV head g holds columns [g*D, g*D + D)), fp32 or bf16 like q, or
 // int8 with per-(position, KV head) fp32 scales k_scale/v_scale [B, S, KV].
 // Query head h reads KV head h / (H / KV).  Key c is attended iff c <= pos
@@ -74,6 +76,10 @@
 //     (slot, KV head) -- a per-(slot, KV head) ticket in an int32 buffer
 //     that the merging CTA sets back to 0 -- merges the splits in split
 //     order.  One launch a call; fixed orders, so reruns are bit-identical.
+//   * device positions: the plan is sized for the longest row the cache
+//     (and window) allows, each CTA reads pos[b] and walks its own chunks;
+//     a split with none writes an empty partial and takes its ticket, so
+//     the tickets return to zero whatever the positions are.
 //
 // The first design, which an fp32 q (with an fp32 or int8 cache) and more
 // than 32 query heads a KV head keep (decode_attention_kernel +
@@ -100,6 +106,26 @@ constexpr float kNegInf = -1e30f;
 constexpr int kChunk = 64;     // keys per chunk
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
+
+// What one slot attends: keys [first, pos] of its row, in chunks
+// [c_lo, c_hi] of kChunk keys.  Every CTA derives it from its slot's
+// position (the launch's one pos, or its own in the device form).
+struct Span {
+  int pos, first, c_lo, c_hi;
+};
+
+__host__ __device__ __forceinline__ Span span_of(int pos, int window) {
+  const int first = window > 0 ? max(pos - window + 1, 0) : 0;
+  return {pos, first, first / kChunk, pos / kChunk};
+}
+
+// The most chunks one row of an S-row cache can attend (all of them, or
+// the (window + 62) / kChunk + 1 a misaligned window touches): what the
+// device form's plan must cover, whatever the positions are.
+inline int max_chunks(int S, int window) {
+  const int n = (S + kChunk - 1) / kChunk;
+  return window > 0 ? min(n, (window + kChunk - 2) / kChunk + 1) : n;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -171,11 +197,18 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ vsc, Q* __restrict__ out,
                             float* __restrict__ part_m,
                             float* __restrict__ part_l,
-                            float* __restrict__ part_acc, int S, int H, int KV,
-                            int D, int pos, int window, int c_lo, int c_hi,
-                            int per, float scale) {
+                            float* __restrict__ part_acc,
+                            const int* __restrict__ pos_dev, int S, int H,
+                            int KV, int D, int pos, int window, int per,
+                            float scale) {
   constexpr bool kQuant = sizeof(C) == 1;
   const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  // the slot's span; in the device form the CTA reads the slot's own
+  // position, and the plan (per, gridDim.x) covers any row
+  const Span sp = span_of(
+      pos_dev != nullptr ? min(max(pos_dev[b], 0), S - 1) : pos, window);
+  pos = sp.pos;
+  const int first = sp.first, c_lo = sp.c_lo, c_hi = sp.c_hi;
   const int nsplit = gridDim.x;
   const int B = gridDim.z;
   const int G = H / KV;
@@ -183,9 +216,6 @@ __global__ void __launch_bounds__(kThreads)
   const int KVD = KV * D;
   const int rw = row_words<C>(D);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // the first attended key (the window's), the last is pos
-  const int first = window > 0 ? max(pos - window + 1, 0) : 0;
-
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                 // [G][D], q * scale in Q, as fp32
   float* acc = qs + GD;             // [G][D]
@@ -210,6 +240,8 @@ __global__ void __launch_bounds__(kThreads)
     lrow[i] = 0.f;
   }
 
+  // a split past its slot's last chunk (device form only) streams
+  // nothing and writes an empty partial: m = -1e30, l = acc = 0
   const int j0 = c_lo + split * per;
   const int j1 = min(c_hi + 1, j0 + per);
   const int nvec = D * static_cast<int>(sizeof(C)) / 16;  // 16 B per row
@@ -339,11 +371,16 @@ __global__ void decode_attention_combine(const float* __restrict__ part_m,
   out[static_cast<size_t>(r) * D + d] = from_f<Q>(a / fmaxf(l, 1e-30f));
 }
 
+// Counters a call fills (the Python wrapper predicts them): kernels
+// launched by design, and the launches that read the position vector.
+enum Count { kCountRing, kCountFirst, kCountCombine, kCountDevicePos, kCounts };
+
 template <typename Q, typename C>
 int launch(const void* q, const void* ck, const void* cv, const float* ksc,
-           const float* vsc, void* out, float* part, int B, int S, int H,
-           int KV, int D, int pos, int window, int c_lo, int c_hi,
-           int nsplit, int per, float scale, cudaStream_t stream) {
+           const float* vsc, void* out, float* part, const int* pos_dev,
+           int B, int S, int H, int KV, int D, int pos, int window,
+           int nsplit, int per, float scale, int* counts,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<C>(H / KV, D);
   auto kern = decode_attention_kernel<Q, C>;
   if (smem > 48 * 1024) {
@@ -358,12 +395,15 @@ int launch(const void* q, const void* ck, const void* cv, const float* ksc,
   kern<<<dim3(nsplit, KV, B), kThreads, smem, stream>>>(
       static_cast<const Q*>(q), static_cast<const C*>(ck),
       static_cast<const C*>(cv), ksc, vsc, static_cast<Q*>(out), part,
-      part_l, part_acc, S, H, KV, D, pos, window, c_lo, c_hi, per, scale);
+      part_l, part_acc, pos_dev, S, H, KV, D, pos, window, per, scale);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  ++counts[kCountFirst];
+  counts[kCountDevicePos] += pos_dev != nullptr;
   if (nsplit > 1) {
     decode_attention_combine<Q><<<B * H, D, 0, stream>>>(
         part, part_l, part_acc, static_cast<Q*>(out), nsplit, B * H, D);
-    return static_cast<int>(cudaGetLastError());
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+    ++counts[kCountCombine];
   }
   return 0;
 }
@@ -405,7 +445,8 @@ struct RingArgs {
   void* out;
   float* part;   // [nsplit, B, H] m, then l, then [nsplit, B, H, D] acc
   int* tickets;  // [B * KV], zero between launches
-  int S, H, KV, pos, first, c_lo, c_hi, per;
+  const int* pos_dev;  // [B] positions on the device, or null: pos below
+  int S, H, KV, pos, window, per;
   float scale;
 };
 
@@ -559,8 +600,15 @@ __global__ void __launch_bounds__(kRingThreads, 1)
   unsigned char* body = ring_smem + L::kQBytes;
   int* flag = reinterpret_cast<int*>(body + L::kBody);
 
-  const int j0 = a.c_lo + split * a.per;
-  const int n = min(a.c_hi + 1, j0 + a.per) - j0;
+  // the slot's span; in the device form the CTA reads the slot's own
+  // position, and a split past it streams nothing, writes an empty partial
+  // (m = -1e30, l = acc = 0) and still takes its ticket
+  const Span sp = span_of(
+      a.pos_dev != nullptr ? min(max(a.pos_dev[b], 0), a.S - 1) : a.pos,
+      a.window);
+  const int pos = sp.pos, first = sp.first;
+  const int j0 = sp.c_lo + split * a.per;
+  const int n = min(sp.c_hi + 1, j0 + a.per) - j0;
   const int mine = n > warp ? (n - 1 - warp) / kRingWarps + 1 : 0;
   const size_t row_stride = static_cast<size_t>(a.KV) * D;
   const C* kb = static_cast<const C*>(a.ck) +
@@ -594,7 +642,7 @@ __global__ void __launch_bounds__(kRingThreads, 1)
   for (int k = 0; k < L::kPerWarp; ++k) {
     if (k < mine)
       stage_chunk<C, D, RT>(stage(k), kb, vb, ksb, vsb, a.KV, row_stride,
-                            chunk0(k), a.first, a.pos, lane);
+                            chunk0(k), first, pos, lane);
     cp_async_commit();
   }
   // Q, while they fly: the group's heads, (q * scale) rounded to bf16,
@@ -616,7 +664,7 @@ __global__ void __launch_bounds__(kRingThreads, 1)
     const float* ks = reinterpret_cast<const float*>(st + 2 * kChunk * L::kRow);
     const float* vs = ks + kChunk;
     const int c0 = chunk0(k);
-    const bool edge = c0 < a.first || c0 + kChunk - 1 > a.pos;
+    const bool edge = c0 < first || c0 + kChunk - 1 > pos;
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt) {
       // S = Q K^T: 16 heads x 64 keys
@@ -657,7 +705,7 @@ __global__ void __launch_bounds__(kRingThreads, 1)
           const int key = 8 * j + 2 * tq + (e & 1);
           float x = s[j][e];
           if (kQuant) x *= ks[key];
-          if (edge && (c0 + key < a.first || c0 + key > a.pos)) x = kNegInf;
+          if (edge && (c0 + key < first || c0 + key > pos)) x = kNegInf;
           s[j][e] = x;
         }
       // online softmax; a row's 64 scores lie in the 4 lanes of a quad
@@ -746,8 +794,8 @@ __global__ void __launch_bounds__(kRingThreads, 1)
     __syncwarp();  // every lane is done with the stage before it refills
     if (k + L::kPerWarp < mine)
       stage_chunk<C, D, RT>(stage(k + L::kPerWarp), kb, vb, ksb, vsb, a.KV,
-                            row_stride, chunk0(k + L::kPerWarp), a.first,
-                            a.pos, lane);
+                            row_stride, chunk0(k + L::kPerWarp), first, pos,
+                            lane);
     cp_async_commit();
   }
   cp_async_wait<0>();
@@ -846,7 +894,8 @@ __global__ void __launch_bounds__(kRingThreads, 1)
 }
 
 template <typename C, int D, int RT>
-int ring_launch(const RingArgs& a, int B, int nsplit, cudaStream_t stream) {
+int ring_launch(const RingArgs& a, int B, int nsplit, int* counts,
+                cudaStream_t stream) {
   using L = RingShape<C, D, RT>;
   static_assert(L::kSmem <= 232448, "the ring fits a Hopper block");
   auto kern = decode_ring_kernel<C, D, RT>;
@@ -858,16 +907,20 @@ int ring_launch(const RingArgs& a, int B, int nsplit, cudaStream_t stream) {
     allowed = true;
   }
   kern<<<dim3(nsplit, a.KV, B), kRingThreads, L::kSmem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  ++counts[kCountRing];
+  counts[kCountDevicePos] += a.pos_dev != nullptr;
+  return 0;
 }
 
 template <typename C, int RT>
-int ring_by_d(const RingArgs& a, int B, int D, int nsplit, cudaStream_t s) {
+int ring_by_d(const RingArgs& a, int B, int D, int nsplit, int* counts,
+              cudaStream_t s) {
   switch (D) {
-    case 16: return ring_launch<C, 16, RT>(a, B, nsplit, s);
-    case 32: return ring_launch<C, 32, RT>(a, B, nsplit, s);
-    case 64: return ring_launch<C, 64, RT>(a, B, nsplit, s);
-    default: return ring_launch<C, 128, RT>(a, B, nsplit, s);
+    case 16: return ring_launch<C, 16, RT>(a, B, nsplit, counts, s);
+    case 32: return ring_launch<C, 32, RT>(a, B, nsplit, counts, s);
+    case 64: return ring_launch<C, 64, RT>(a, B, nsplit, counts, s);
+    default: return ring_launch<C, 128, RT>(a, B, nsplit, counts, s);
   }
 }
 
@@ -909,46 +962,68 @@ extern "C" long long bps_decode_attention_smem(int G, int D, int dtype,
 
 // C interface (bound with ctypes).  dtype: 0 = float32, 1 = bfloat16 (q,
 // out and, unless cache_int8, the caches); cache_int8 = 1: ck/cv int8 with
-// k_scale/v_scale [B, S, KV] fp32.  Chunks c_lo..c_hi (of kChunk keys) are
-// the ones holding attended keys; the grid walks them in nsplit splits of
-// `per` chunks.  With nsplit > 1, part is fp32 scratch of nsplit * B * H *
-// (D + 2) floats, and the ring design (ring = 1, which `ring_ok` must
+// k_scale/v_scale [B, S, KV] fp32.  Each CTA derives its slot's span (the
+// chunks of kChunk keys holding attended keys, span_of) and walks it in
+// nsplit splits of `per` chunks: a plan that covers n chunks, none of its
+// splits wholly past them (n: the span's, or max_chunks in the device
+// form).  With nsplit > 1, part is fp32 scratch of nsplit * B * H * (D + 2)
+// floats, and the ring design (ring = 1, which `ring_ok` must
 // allow) needs tickets, B * KV int32 zeros that every launch leaves zero
-// (one stream at a time).  window <= 0 means no window.  Returns
-// cudaGetLastError() after the launches (0 = launched), or
-// cudaErrorInvalidValue for a shape or design the kernels do not take (the
-// Python wrapper checks these first).
+// (one stream at a time).  window <= 0 means no window.
+//
+// The device form (pos_dev != null): pos_dev holds B int32 positions on
+// the device, one a slot, and `pos` is not read; the plan covers the most
+// chunks any slot can attend (max_chunks), so it is a function of shapes.
+// Each CTA reads its slot's position (clamped to [0, S - 1]) and walks its
+// own chunks from its own first one; splits past them write empty
+// partials, so a slot's output bits do not depend on the other slots'
+// positions.
+//
+// counts[kCounts] receives the kernels this call launched: ring, first,
+// combine, and the launches that read pos_dev.  Returns cudaGetLastError()
+// after the launches (0 = launched), or cudaErrorInvalidValue for a shape
+// or design the kernels do not take (the Python wrapper checks these
+// first).
 extern "C" int bps_decode_attention(
     const void* q, const void* ck, const void* cv, const float* k_scale,
     const float* v_scale, void* out, float* part, int* tickets, int B, int S,
-    int H, int KV, int D, int pos, int window, int c_lo, int c_hi,
-    int nsplit, int per, int dtype, int cache_int8, int ring, float scale,
-    void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || pos < 0 || pos >= S ||
+    int H, int KV, int D, int pos, int window, int nsplit, int per,
+    int dtype, int cache_int8, int ring, float scale, const int* pos_dev,
+    int* counts, void* stream) {
+  if (counts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < kCounts; ++i) counts[i] = 0;
+  const bool dev = pos_dev != nullptr;
+  if (!dev && (pos < 0 || pos >= S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the chunks the plan must cover: the one span, or any slot's
+  const Span sp = span_of(pos, window);
+  const int n = dev ? max_chunks(S, window) : sp.c_hi - sp.c_lo + 1;
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 ||
       (D != 16 && D != 32 && D != 64 && D != 128) ||
-      (dtype != 0 && dtype != 1) || c_lo < 0 || c_hi < c_lo ||
-      c_hi * kChunk > pos || nsplit < 1 || per < 1 ||
-      (nsplit - 1) * per > c_hi - c_lo || nsplit > 65535 || KV > 65535 ||
+      (dtype != 0 && dtype != 1) || nsplit < 1 || per < 1 ||
+      static_cast<long long>(nsplit - 1) * per >= n ||
+      static_cast<long long>(nsplit) * per < n ||
+      nsplit > 65535 || KV > 65535 ||
       B > 65535 || (cache_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
       (nsplit > 1 && part == nullptr) ||
       (ring && (!ring_ok(dtype, H / KV) || (nsplit > 1 && tickets == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ring) {
-    const int first = window > 0 ? max(pos - window + 1, 0) : 0;
-    const RingArgs a{q,       ck,   cv,   k_scale, v_scale, out,
-                     part,    tickets, S, H,       KV,      pos,
-                     first,   c_lo, c_hi, per,     scale};
+    const RingArgs a{q,  ck, cv, k_scale, v_scale, out,    part,
+                     tickets, pos_dev, S,  H,  KV,      pos, window,
+                     per,     scale};
     const bool two = H / KV > 16;
     if (cache_int8)
-      return two ? ring_by_d<int8_t, 2>(a, B, D, nsplit, s)
-                 : ring_by_d<int8_t, 1>(a, B, D, nsplit, s);
-    return two ? ring_by_d<__nv_bfloat16, 2>(a, B, D, nsplit, s)
-               : ring_by_d<__nv_bfloat16, 1>(a, B, D, nsplit, s);
+      return two ? ring_by_d<int8_t, 2>(a, B, D, nsplit, counts, s)
+                 : ring_by_d<int8_t, 1>(a, B, D, nsplit, counts, s);
+    return two ? ring_by_d<__nv_bfloat16, 2>(a, B, D, nsplit, counts, s)
+               : ring_by_d<__nv_bfloat16, 1>(a, B, D, nsplit, counts, s);
   }
-#define BPS_DECODE_LAUNCH(QT, CT)                                            \
-  return launch<QT, CT>(q, ck, cv, k_scale, v_scale, out, part, B, S, H, KV, \
-                        D, pos, window, c_lo, c_hi, nsplit, per, scale, s)
+#define BPS_DECODE_LAUNCH(QT, CT)                                             \
+  return launch<QT, CT>(q, ck, cv, k_scale, v_scale, out, part, pos_dev, B,   \
+                        S, H, KV, D, pos, window, nsplit, per, scale, counts, \
+                        s)
   if (dtype == 0) {
     if (cache_int8) BPS_DECODE_LAUNCH(float, int8_t);
     BPS_DECODE_LAUNCH(float, float);

@@ -27,7 +27,9 @@ What is carried over, by JAX counterpart:
   decode through the kernel of ``ops/decode_attention.py`` on a flat
   cache; flash prefill; ``_cached_attention`` / ``_cached_attention_q8``
   otherwise), dispatched as the JAX ``Attention``;
-* ``Transformer`` with ``hidden`` / ``forward`` (training), ``decode``,
+* ``Transformer`` with ``hidden`` / ``forward`` (training), ``decode``
+  (at one offset, or at one position a row — the JAX ``decode`` under the
+  dense serving engine's ``vmap``), ``prefill_chunk``,
   ``prefill_chunk_paged``, ``decode_paged_fused``, ``gather_paged_rows``,
   ``logits`` (fp32 logits, the head accumulated in fp32 from
   model-dtype operands) and ``head_weight`` (the head in the model dtype,
@@ -186,13 +188,13 @@ def _ungroup_o(o: torch.Tensor, tq: int) -> torch.Tensor:
             .reshape(B, tq, KV * G, D))
 
 
-def _grouped_mask(S: int, tq: int, G: int, pos: int,
-                  window: Optional[int], device) -> torch.Tensor:
-    """Causal (+ window) keep-mask ``[1, 1, G*tq, S]`` in ``_group_q``'s
-    row order."""
-    kidx = torch.arange(S, device=device)[None, None, None, :]
-    qidx = (pos + torch.arange(tq, device=device)).repeat(G)
-    qidx = qidx[None, None, :, None]
+def _grouped_mask(S: int, G: int, qpos: torch.Tensor,
+                  window: Optional[int]) -> torch.Tensor:
+    """Causal (+ window) keep-mask ``[1|B, 1, G*tq, S]`` in ``_group_q``'s
+    row order, from the queries' absolute positions ``qpos [1|B, tq]``
+    (one row for all, or one a row)."""
+    kidx = torch.arange(S, device=qpos.device)[None, None, None, :]
+    qidx = qpos.repeat(1, G)[:, None, :, None]
     mask = kidx <= qidx
     if window is not None:
         mask = mask & (kidx > qidx - window)
@@ -200,11 +202,12 @@ def _grouped_mask(S: int, tq: int, G: int, pos: int,
 
 
 def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                      pos: int, window: Optional[int] = None
-                      ) -> torch.Tensor:
-    """Dense attention of ``q [B, tq, H, D]`` at absolute offset ``pos``
-    against ``ck/cv [B, S, KV, D]`` (positions past ``pos + tq``
-    unwritten and masked).  Scores and softmax in fp32, probabilities
+                      qpos: torch.Tensor,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Dense attention of ``q [B, tq, H, D]`` at the absolute positions
+    ``qpos [1|B, tq]`` (one offset for all rows, or one a row) against
+    ``ck/cv [B, S, KV, D]`` (positions past the query's unwritten and
+    masked).  Scores and softmax in fp32, probabilities
     cast to the model dtype before the PV product — the JAX dense
     path's rounding points.  A plain large product, as JAX leaves it to
     XLA: this runs chunk prefill only; decode takes the kernel."""
@@ -213,7 +216,7 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     qg = _group_q(q * D ** -0.5, KV)                     # [B, KV, GT, D]
     kt = ck.permute(0, 2, 3, 1).to(torch.float32)        # [B, KV, D, S]
     scores = torch.matmul(qg.to(torch.float32), kt)      # [B, KV, GT, S]
-    mask = _grouped_mask(ck.shape[1], tq, H // KV, pos, window, q.device)
+    mask = _grouped_mask(ck.shape[1], H // KV, qpos, window)
     scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.matmul(probs, cv.permute(0, 2, 1, 3))    # [B, KV, GT, D]
@@ -234,7 +237,7 @@ def _quantize_kv(x: torch.Tensor):
 
 def _cached_attention_q8(q: torch.Tensor, ck: torch.Tensor,
                          ck_scale: torch.Tensor, cv: torch.Tensor,
-                         cv_scale: torch.Tensor, pos: int,
+                         cv_scale: torch.Tensor, qpos: torch.Tensor,
                          window: Optional[int] = None) -> torch.Tensor:
     """Dense cached attention against an int8 grouped cache ``ck/cv [B, S,
     KV, D]`` with fp32 scales ``[B, S, KV]`` — the JAX
@@ -251,7 +254,7 @@ def _cached_attention_q8(q: torch.Tensor, ck: torch.Tensor,
     scores = torch.matmul(qg, ck.permute(0, 2, 3, 1).to(cdt))
     scores = (scores.to(torch.float32)
               * ck_scale.permute(0, 2, 1)[:, :, None, :])
-    mask = _grouped_mask(ck.shape[1], tq, H // KV, pos, window, q.device)
+    mask = _grouped_mask(ck.shape[1], H // KV, qpos, window)
     scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1)
     probs = (probs * cv_scale.permute(0, 2, 1)[:, :, None, :]).to(cdt)
@@ -466,8 +469,11 @@ class Attention(nn.Module):
                      **scales)
         return self.o(out.reshape(B, T, -1))
 
-    def forward_cached(self, x, row, pos: int, fresh_prefill: bool = True):
-        """Cached attention at the absolute offset ``pos``: the fresh K/V
+    def forward_cached(self, x, row, pos, rpos, at,
+                       fresh_prefill: bool = True):
+        """Cached attention at the absolute offset ``pos``, whose query
+        positions ``rpos [1|B, T]`` and cache write index ``at`` the caller
+        built (``Transformer.decode``, once for every layer): the fresh K/V
         is written into ``row`` at ``[pos, pos+T)`` in place (quantized at
         write for an int8 cache), then attended, dispatched as the JAX
         ``Attention`` (``transformer.py:571-724``) on the cache's layout
@@ -481,16 +487,26 @@ class Attention(nn.Module):
         ``fresh_prefill=False`` drops the two ``pos = 0`` shortcuts, so a
         prompt attends the rows as any chunk does — the paged engine's
         chunks (JAX's traced position), whose int8 prompt must read the
-        quantized values its later chunks and decode steps read."""
+        quantized values its later chunks and decode steps read.
+
+        ``pos`` may be a ``[B]`` int32 tensor on the rows' device
+        (``rpos`` then ``[B, T]``): row ``b`` runs at its own offset (the
+        JAX ``decode`` under the dense engine's per-slot ``vmap``, whose
+        position is traced): its rope
+        angles, its K/V write at ``[pos[b], pos[b] + T)`` and its causal
+        mask are its own, no value of ``pos`` is read on the host, and
+        the two ``pos = 0`` shortcuts never apply.  The caller keeps every
+        write inside the row."""
         cfg = self.cfg
         if not cfg.causal:
             raise ValueError("KV-cache decode requires causal=True")
         B, T, _ = x.shape
         KV, D, w = cfg.kv_heads, cfg.d_head, cfg.attn_window
-        q, k, v = self._qkv(x, pos + torch.arange(T, device=x.device))
+        per_row = isinstance(pos, torch.Tensor)
+        q, k, v = self._qkv(x, rpos)
         ck, cv = row["k"], row["v"]
         S = ck.shape[1]
-        if pos + T > S:
+        if not per_row and pos + T > S:
             raise ValueError(f"cache write [{pos}, {pos + T}) overruns "
                              f"the {S}-row cache")
         quant = ck.dtype == torch.int8
@@ -498,12 +514,12 @@ class Attention(nn.Module):
         kw, vw = k, v
         if quant:
             (kw, ks), (vw, vs) = _quantize_kv(k), _quantize_kv(v)
-            row["k_scale"][:, pos:pos + T] = ks
-            row["v_scale"][:, pos:pos + T] = vs
-        ck[:, pos:pos + T] = kw.reshape(B, T, *ck.shape[2:])
-        cv[:, pos:pos + T] = vw.reshape(B, T, *cv.shape[2:])
+            row["k_scale"][at] = ks
+            row["v_scale"][at] = vs
+        ck[at] = kw.reshape(B, T, *ck.shape[2:]).to(ck.dtype)
+        cv[at] = vw.reshape(B, T, *cv.shape[2:]).to(cv.dtype)
         scales = (row["k_scale"], row["v_scale"]) if quant else (None, None)
-        at_zero = pos == 0 and fresh_prefill
+        at_zero = not per_row and pos == 0 and fresh_prefill
         if (at_zero and T > 1 and cfg.attn_impl == "flash"
                 and math.gcd(T, 1024) >= 128):
             # prefill: the valid keys are exactly the fresh k/v (an int8
@@ -513,15 +529,15 @@ class Attention(nn.Module):
             out = decode_attention(q, ck, cv, pos, k_scale=scales[0],
                                    v_scale=scales[1], window=w)
         elif at_zero and (flat or quant):
-            out = _cached_attention(q, k, v, 0, window=w)
+            out = _cached_attention(q, k, v, rpos, window=w)
         else:
             gk = ck.view(B, S, KV, D) if flat else ck
             gv = cv.view(B, S, KV, D) if flat else cv
             if quant:
                 out = _cached_attention_q8(q, gk, scales[0], gv, scales[1],
-                                           pos, window=w)
+                                           rpos, window=w)
             else:
-                out = _cached_attention(q, gk, gv, pos, window=w)
+                out = _cached_attention(q, gk, gv, rpos, window=w)
         return self.o(out.reshape(B, T, -1))
 
 
@@ -567,9 +583,10 @@ class Block(nn.Module):
         return self._finish(x, self.attn.forward_paged(
             self.ln1(x), cache, tables, pos, wblk, woff))
 
-    def forward_cached(self, x, row, pos: int, fresh_prefill: bool = True):
+    def forward_cached(self, x, row, pos, rpos, at,
+                       fresh_prefill: bool = True):
         return self._finish(x, self.attn.forward_cached(
-            self.ln1(x), row, pos, fresh_prefill))
+            self.ln1(x), row, pos, rpos, at, fresh_prefill))
 
 
 class Transformer(nn.Module):
@@ -586,7 +603,8 @@ class Transformer(nn.Module):
         if cfg.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attn_impl={cfg.attn_impl!r} needs the sequence-parallel "
-                f"mesh, which the port does not have yet (ROADMAP A10)")
+                f"mesh, which belongs to the port's sequence-parallel "
+                f"slice, not ported yet")
         if cfg.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
         self.cfg = cfg
@@ -686,7 +704,7 @@ class Transformer(nn.Module):
         return self.logits(self.ln_f(x))
 
     @torch.no_grad()
-    def decode(self, tokens: torch.Tensor, caches: Sequence[dict], pos: int,
+    def decode(self, tokens: torch.Tensor, caches: Sequence[dict], pos,
                last_only: bool = False, last_idx: Optional[int] = None,
                fresh_prefill: bool = True):
         """One step over ``tokens [B, tq]`` at absolute offset ``pos``
@@ -695,13 +713,37 @@ class Transformer(nn.Module):
         Returns ``(logits, caches)``.  Serves prefill (``pos=0``, the
         prompt) and decode (``tq=1``) alike; ``last_idx`` narrows the
         head to one chunk-local row (a right-padded chunk's true last
-        token); ``fresh_prefill`` as in ``Attention.forward_cached``."""
-        T = tokens.shape[1]
-        x = self._embed(tokens, (pos + torch.arange(
-            T, device=tokens.device))[None, :])
+        token); ``fresh_prefill`` as in ``Attention.forward_cached``.
+        ``pos`` a ``[B]`` int32 tensor runs every row at its own offset
+        (the dense serving engine's decode tick over its slots; on a
+        flat cache at ``tq = 1`` one decode-kernel launch a layer reads
+        the vector itself).  The query positions and the cache write
+        index are built here, once for every layer."""
+        B, T = tokens.shape
+        steps = torch.arange(T, device=tokens.device)
+        if isinstance(pos, torch.Tensor):
+            pos = pos.to(torch.int32)
+            positions = pos.long()[:, None] + steps[None]       # [B, T]
+            at = (torch.arange(B, device=tokens.device)[:, None], positions)
+        else:
+            positions = (pos + steps)[None]                     # [1, T]
+            at = (slice(None), slice(pos, pos + T))
+        x = self._embed(tokens, positions)
         for block, c in zip(self.blocks, caches):
-            x = block.forward_cached(x, c, pos, fresh_prefill)
+            x = block.forward_cached(x, c, pos, positions, at, fresh_prefill)
         return self._head(x, last_only, last_idx), caches
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens: torch.Tensor, caches: Sequence[dict],
+                      pos: int, last_idx: int) -> torch.Tensor:
+        """Position-offset prefill (JAX ``Transformer.prefill_chunk``): the
+        chunk ``tokens [B, C]`` written at ``[pos, pos + C)`` and attended
+        against the rows, as at a traced position (no ``pos = 0``
+        shortcut, so a first chunk attends the cache as every later one
+        does); returns the ``[B, 1, vocab]`` logits at chunk-local
+        ``last_idx`` (a right-padded final chunk's true last token)."""
+        return self.decode(tokens, caches, pos, last_idx=last_idx,
+                           fresh_prefill=False)[0]
 
     @torch.no_grad()
     def prefill_chunk_paged(self, tokens: torch.Tensor, pools: Sequence[dict],

@@ -9,12 +9,16 @@ compiled with ``nvcc`` for ``sm_90a`` at first use (``ops/_build.py``)
 and bound here with ``ctypes``.
 
 What it computes (the counterpart of ``decode_attention``): ``q [B, 1,
-H, D]`` at the absolute position ``pos`` against caches ``ck/cv [B, S,
+H, D]`` at the absolute position ``pos`` — one host ``int`` for every
+row, or a ``[B]`` int32 tensor on q's device, one position a row, which
+the kernel reads itself (the JAX kernel's scalar prefetch; the dense
+serving engine's decode tick, whose slots sit at different depths) —
+against caches ``ck/cv [B, S,
 KV*D]`` (a grouped ``[B, S, KV, D]`` cache is viewed flat, which is free
 for a contiguous tensor), fp32/bf16 like q, or int8 with ``k_scale /
 v_scale [B, S, KV]`` fp32 (``_quantize_kv``'s per-(position, head)
-scales).  Head ``h`` reads KV head ``h // (H/KV)``; key ``c`` is
-attended iff ``c <= pos`` (and ``c > pos - window``).  Output ``[B, 1,
+scales).  Head ``h`` reads KV head ``h // (H/KV)``; key ``c`` of row ``b`` is
+attended iff ``c <= pos[b]`` (and ``c > pos[b] - window``).  Output ``[B, 1,
 H, D]`` in q's dtype.  The TPU wrapper's block-diagonal query and
 one-hot contraction feed the MXU and are not ported: the CUDA kernel
 shares each staged K/V chunk across the query heads of its KV head.
@@ -28,7 +32,11 @@ keys streamed through a ``cp.async`` ring, a few long splits
 (:func:`_splits`) merged inside the same launch by the last CTA of each
 (slot, KV head) through a cached ticket buffer; an fp32 q (and wider
 groups) keeps the first design, flash-decoding over many short splits
-merged by a small combine kernel.
+merged by a small combine kernel.  With device positions the split plan
+is sized from shapes alone (:func:`_max_chunks`: the longest row the cache
+and window allow), each CTA derives its slot's chunks from ``pos[b]``, and
+a split past them writes an empty partial, so a slot's output bits do not
+depend on the other slots' positions; the wrapper never reads the vector.
 
 Beside the kernel:
 
@@ -40,16 +48,19 @@ Beside the kernel:
   version; CUDA tensors launch the kernel or raise.  No fallback.
 * :func:`decode_attention_usable` — the port's copy of the JAX gate
   (``decode_attention.py:297``) that ``init_cache(layout="auto")`` reads.
-* ``launches`` — calls that launched a kernel (one launch each on the
-  ring design; the first design adds its combine kernel where it
-  splits); ``plain_calls`` — dispatches to the plain version on CPU
-  tensors.
+* ``launches`` — calls that launched a kernel; ``design_launches`` —
+  the kernels the library reports launching, by design (``ring``,
+  ``first``, ``combine``: the first design's merge, where it splits) and
+  ``device_pos`` (launches that read a position vector); every call is
+  held to the counts :func:`_kernels_for` predicts.  ``plain_calls`` —
+  dispatches to the plain version on CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import numbers
 from typing import Dict, Optional
 
 import torch
@@ -57,11 +68,14 @@ import torch
 from . import _build
 
 __all__ = ["decode_attention", "decode_attention_reference",
-           "decode_attention_usable", "kv_bytes_read", "decode_flops",
+           "decode_attention_usable", "check_kernel_config",
+           "kv_bytes_read", "decode_flops",
            "build", "HEAD_DIMS", "CHUNK"]
 
+COUNTS = ("ring", "first", "combine", "device_pos")  # the C side's order
 launches = 0
 plain_calls = 0
+design_launches = dict.fromkeys(COUNTS, 0)
 
 HEAD_DIMS = (16, 32, 64, 128)
 CHUNK = 64             # keys per chunk of the kernel
@@ -84,7 +98,7 @@ def _library():
         lib = _build.load("decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bps_decode_attention.argtypes = (
-            [p] * 8 + [i] * 14 + [ctypes.c_float, p])
+            [p] * 8 + [i] * 12 + [ctypes.c_float, p, p, p])
         lib.bps_decode_attention.restype = i
         lib.bps_decode_attention_smem.argtypes = [i, i, i, i, i]
         lib.bps_decode_attention_smem.restype = ctypes.c_longlong
@@ -123,7 +137,13 @@ def _check(q, ck, cv, pos, k_scale, v_scale, window):
         if ck.dtype != torch.int8 or cv.dtype != torch.int8:
             raise ValueError(f"scales mark an int8 cache, got {ck.dtype}/"
                              f"{cv.dtype}")
-    if not 0 <= pos < S:
+    if isinstance(pos, torch.Tensor):
+        if (tuple(pos.shape) != (B,) or pos.dtype != torch.int32
+                or pos.device != q.device):
+            raise ValueError(f"a position vector must be [B={B}] int32 on "
+                             f"{q.device}, got {tuple(pos.shape)} "
+                             f"{pos.dtype} on {pos.device}")
+    elif not 0 <= pos < S:
         raise ValueError(f"pos {pos} outside the {S}-row cache")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -134,20 +154,40 @@ def _first_key(pos: int, window: Optional[int]) -> int:
     return max(pos - window + 1, 0) if window else 0
 
 
-def kv_bytes_read(B: int, pos: int, kvd: int, elt: int,
+def _rows(B: int, pos, window: Optional[int]) -> int:
+    """Attended keys summed over the rows: ``pos`` one int for all ``B``
+    rows, or one position a row."""
+    if isinstance(pos, numbers.Integral):
+        return B * (pos - _first_key(pos, window) + 1)
+    return sum(p - _first_key(p, window) + 1 for p in map(int, pos))
+
+
+def kv_bytes_read(B: int, pos, kvd: int, elt: int,
                   window: Optional[int] = None, kv_heads: int = 0) -> int:
     """HBM bytes of K and V (and, with ``kv_heads``, of their fp32
-    int8 scales) that attention at ``pos`` must read: every slot's rows
-    from the window's first key (0 without one) through ``pos`` — the
-    bound's bytes.  The kernel reads no other cache row."""
-    rows = pos - _first_key(pos, window) + 1
-    return B * rows * (2 * kvd * elt + 2 * 4 * kv_heads)
+    int8 scales) that attention at ``pos`` (an int, or one position a
+    row) must read: every slot's rows from the window's first key (0
+    without one) through its position — the bound's bytes.  The kernel
+    reads no other cache row."""
+    return _rows(B, pos, window) * (2 * kvd * elt + 2 * 4 * kv_heads)
 
 
-def decode_flops(B: int, H: int, D: int, pos: int,
+def decode_flops(B: int, H: int, D: int, pos,
                  window: Optional[int] = None) -> int:
     """FLOPs of one call: QK and PV over the attended keys."""
-    return 4 * B * H * D * (pos - _first_key(pos, window) + 1)
+    return 4 * H * D * _rows(B, pos, window)
+
+
+def check_kernel_config(dtype: torch.dtype, head_dim: int) -> None:
+    """Raise ``ValueError`` unless the CUDA kernel takes this q dtype and
+    head dim.  The wrapper checks every launch; a dense engine on a flat
+    cache calls it at construction, so an unsupported model fails before
+    serving (never by switching to the grouped path)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim {HEAD_DIMS}, got "
+                         f"{head_dim}")
 
 
 def decode_attention_usable(q_shape, cache_len: int, quant_cache: bool,
@@ -165,16 +205,32 @@ def decode_attention_usable(q_shape, cache_len: int, quant_cache: bool,
     return Hp * H * D * 4 < 4 * 1024 * 1024
 
 
-def decode_attention_reference(q, ck, cv, pos: int, *, k_scale=None,
+def decode_attention_reference(q, ck, cv, pos, *, k_scale=None,
                                v_scale=None, window: Optional[int] = None):
     """Plain PyTorch version: a dense masked softmax over the rows from
     the window's first key through ``pos`` with the kernel's rounding
     points — ``q * D**-0.5`` rounded to q's dtype, fp32 scores (times the
     K scale for an int8 cache) and softmax statistics, ``l`` summed before
     the V scale, ``p`` times the V scale rounded to q's dtype before the
-    PV product, output ``acc / max(l, 1e-30)``."""
+    PV product, output ``acc / max(l, 1e-30)``.  A position vector runs
+    the rows of each position as one call at that position (reading the
+    vector back: this version never runs on a CUDA path), so equal
+    positions are the int call, bit for bit."""
     (B, S, H, KV, D, quant), ck, cv = _check(q, ck, cv, pos, k_scale,
                                              v_scale, window)
+    if isinstance(pos, torch.Tensor):
+        rows = pos.tolist()
+        out = torch.empty_like(q)
+        for p in sorted(set(rows)):
+            sel = torch.tensor([b for b, r in enumerate(rows) if r == p],
+                               device=q.device)
+
+            def take(t):
+                return None if t is None else t[sel]
+            out[sel] = decode_attention_reference(
+                q[sel], ck[sel], cv[sel], p, k_scale=take(k_scale),
+                v_scale=take(v_scale), window=window)
+        return out
     G = H // KV
     wt = _build.wide_dtype(q)
     lo = _first_key(pos, window)
@@ -204,10 +260,30 @@ def _ring_ok(dtype: torch.dtype, group: int) -> bool:
     return dtype == torch.bfloat16 and group <= RING_MAX_GROUP
 
 
+def _max_chunks(S: int, window: Optional[int]) -> int:
+    """The most chunks one row of an ``S``-row cache can attend: all of
+    them, or under a window of ``w`` keys the ``(w + 62) // 64 + 1`` a
+    misaligned window touches.  The device form's plan covers this many,
+    whatever the positions are."""
+    n = -(-S // CHUNK)
+    return min(n, (window + CHUNK - 2) // CHUNK + 1) if window else n
+
+
+def _kernels_for(ring: bool, nsplit: int, device_pos: bool) -> list:
+    """The library's counts (:data:`COUNTS`) one call must report: one
+    ring launch, or the first design's kernel and, where it splits, its
+    combine kernel; and one launch reading the position vector in the
+    device form."""
+    return [int(ring), int(not ring), int(not ring and nsplit > 1),
+            int(device_pos)]
+
+
 def _splits(B: int, KV: int, n_chunks: int, sms: int, ring: bool) -> tuple:
     """``(splits, chunks per split)`` over the ``n_chunks`` attended
     chunks, none of them empty; a pure function of shapes (and, through
-    ``n_chunks``, of ``pos``).  Ring design: about one CTA an SM, each
+    ``n_chunks``, of an int ``pos``; the device form passes
+    :func:`_max_chunks`, and a split past a short row's chunks is then
+    empty).  Ring design: about one CTA an SM, each
     split at least :data:`RING_MIN_CHUNKS` chunks where the cache has
     them, so its ring streams (B = 8, KV = 8, 2048 keys: 2 splits of 16).
     First design: enough splits to put about eight CTAs on every SM (a
@@ -232,16 +308,20 @@ def _ticket_buffer(device, n: int) -> torch.Tensor:
     return buf
 
 
-def decode_attention(q, ck, cv, pos: int, *, k_scale=None, v_scale=None,
+def decode_attention(q, ck, cv, pos, *, k_scale=None, v_scale=None,
                      window: Optional[int] = None):
-    """Single-step cached attention (see the module docstring).  CPU
-    tensors run :func:`decode_attention_reference`; CUDA tensors launch
-    the hand-written kernel — building it on first use — or raise."""
+    """Single-step cached attention (see the module docstring).  ``pos``
+    is an int, or a ``[B]`` int32 tensor on q's device.  CPU tensors run
+    :func:`decode_attention_reference`; CUDA tensors launch the
+    hand-written kernel — building it on first use — or raise."""
     global launches, plain_calls
-    pos = int(pos)
+    device_pos = isinstance(pos, torch.Tensor)
+    if not device_pos:
+        pos = int(pos)
     (B, S, H, KV, D, quant), ckf, cvf = _check(q, ck, cv, pos, k_scale,
                                                v_scale, window)
-    if not _build.on_cuda("decode_attention", q, ck, cv, k_scale, v_scale):
+    if not _build.on_cuda("decode_attention", q, ck, cv, k_scale, v_scale,
+                          pos if device_pos else None):
         plain_calls += 1
         return decode_attention_reference(q, ck, cv, pos, k_scale=k_scale,
                                           v_scale=v_scale, window=window)
@@ -260,6 +340,8 @@ def decode_attention(q, ck, cv, pos: int, *, k_scale=None, v_scale=None,
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
+    if device_pos and not pos.is_contiguous():
+        raise ValueError("the position vector must be contiguous")
     lib = _library()
     dtype = int(q.dtype == torch.bfloat16)
     ring = _ring_ok(q.dtype, H // KV)
@@ -269,9 +351,11 @@ def decode_attention(q, ck, cv, pos: int, *, k_scale=None, v_scale=None,
         raise ValueError(f"{H // KV} query heads per KV head at head_dim {D} "
                          f"need {smem} bytes of shared memory (> "
                          f"{_SMEM_LIMIT})")
-    c_lo, c_hi = _first_key(pos, window) // CHUNK, pos // CHUNK
-    nsplit, per = _splits(B, KV, c_hi - c_lo + 1,
-                          _build.sm_count(q.device), ring)
+    # the plan; each CTA derives its slot's chunks itself.  The device
+    # form plans for the longest row: no value of pos is read
+    n_chunks = (_max_chunks(S, window) if device_pos
+                else pos // CHUNK - _first_key(pos, window) // CHUNK + 1)
+    nsplit, per = _splits(B, KV, n_chunks, _build.sm_count(q.device), ring)
     out = torch.empty_like(q)
     part = tickets = None
     if nsplit > 1:
@@ -284,13 +368,22 @@ def decode_attention(q, ck, cv, pos: int, *, k_scale=None, v_scale=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    counts = (ctypes.c_int * len(COUNTS))()
     rc = lib.bps_decode_attention(
         q.data_ptr(), ckf.data_ptr(), cvf.data_ptr(), ptr(k_scale),
         ptr(v_scale), out.data_ptr(), ptr(part), ptr(tickets), B, S, H, KV,
-        D, pos, window or 0, c_lo, c_hi, nsplit, per, dtype, int(quant),
-        int(ring), D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        D, 0 if device_pos else pos, window or 0, nsplit, per, dtype,
+        int(quant), int(ring), D ** -0.5,
+        pos.data_ptr() if device_pos else None, counts,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {rc}")
+    took, want = list(counts), _kernels_for(ring, nsplit, device_pos)
+    if took != want:
+        raise RuntimeError(f"decode_attention: the library launched {took} "
+                           f"kernels by {COUNTS}, the rule predicted {want}")
+    for name, n in zip(COUNTS, took):
+        design_launches[name] += n
     launches += 1
     return out

@@ -273,7 +273,7 @@ class PagedSlotPool(SlotPool):
                 f"plus the null block; raise BYTEPS_SERVE_KV_MB or "
                 f"lower max_seq")
         self._n_blocks = n_blocks
-        super().__init__(cfg, n_slots, max_seq, device=device)
+        super().__init__(cfg, n_slots, max_seq, layout="flat", device=device)
         self.alloc = BlockAllocator(n_blocks, block)
         self.null_block = self.alloc.alloc(1)[0]
         self.tables: List[BlockTable] = [

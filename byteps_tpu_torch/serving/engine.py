@@ -1,9 +1,35 @@
-"""Continuous-batching engine over a paged KV pool — the port of
-``byteps_tpu/serving/engine.py`` in its paged, fused-kernel mode.
+"""Continuous-batching engine — the port of ``byteps_tpu/serving/engine.py``
+over a dense slot pool (``paged=False``, the default, as in JAX: the
+serve role's default engine) or a paged KV pool in its fused-kernel mode.
 
 Per tick, in a fixed order: retire cancellations, continue in-flight
 chunked prefills, admit queued requests within the prefill credit
 budget, run ONE decode pass over every active slot, return credits.
+
+The dense engine (``SlotPool``: one cache row a slot, grouped or flat,
+fp or ``kv_quant`` int8):
+
+  * **whole-prompt prefill** (``chunk == 0``) — the prompt right-padded
+    to a power-of-two bucket runs ``Transformer.decode`` at ``pos = 0``
+    on the slot's row (the JAX ``_prefill_forward``: the flash forward at
+    buckets passing the gcd gate when ``attn_impl="flash"``), and the
+    first token is read at the true last position;
+  * **chunked prefill** (``chunk > 0``) — ``Transformer.prefill_chunk``
+    at position offsets, in power-of-two buckets, debiting the same
+    credit pool as admissions; the request sits in ``PREFILLING`` until
+    its final chunk samples the first token;
+  * **decode** — one ``Transformer.decode`` call over all ``n_slots``
+    rows at a ``[n_slots]`` position vector on the device (the JAX
+    engine's ``vmap`` over slots): on a flat cache one decode-kernel
+    launch a layer reads every slot's position itself; on the grouped
+    cache plain torch attends with a per-row mask.  The width never
+    changes, so a slot's arithmetic does not depend on the others.
+    Masked (free) slots sit at pos 0; a ``PREFILLING`` slot's garbage
+    write is aimed at its post-prefill cursor, which its own first
+    decode overwrites before the mask admits it, so a chunk it already
+    wrote is never touched.
+
+The paged engine (``paged=True``):
 
   * **chunked prefill** — every prompt runs through
     ``Transformer.prefill_chunk_paged`` in power-of-two buckets (the
@@ -63,8 +89,10 @@ PyTorch runs eagerly, so there are no compiled programs to count:
 proposed and accepted tokens, prefix hits and copy-on-write forks run,
 and the paged-attention kernel's launch count.
 
-Not ported yet: the dense slot pool, the gather fallback, disaggregated
-KV shipping and router epochs (ROADMAP queue A).
+Not ported yet, and refused by name: the dense engine's row-copy prefix
+store and speculative verify (the next slice of the dense engine), the
+paged gather fallback (``paged_kernel="off"``), disaggregated KV
+shipping and router epochs.
 """
 
 from __future__ import annotations
@@ -84,12 +112,14 @@ from ..common import logging as bps_log
 from ..common.device import resolve_device
 from ..inference import sample_logits, token_generator
 from ..models.transformer import Transformer
+from ..ops import decode_attention as _da
 from ..ops import paged_attention as _pa
 from . import metrics as sm
 from .blocks import BlocksExhaustedError, PagedSlotPool
 from .metrics import ServeMetrics, get_serve_metrics
 from .prefix import PagedPrefixCache, weights_fingerprint
 from .scheduler import ServeScheduler
+from .slots import SlotPool
 from .spec import NgramProposer
 
 __all__ = ["Request", "RequestState", "ServingEngine", "resolve_device"]
@@ -191,19 +221,34 @@ def _next_bucket(n: int, lo: int, hi: int) -> int:
     return min(b, hi)
 
 
-class ServingEngine:
-    """Continuous batching over a :class:`PagedSlotPool` on ``device``
-    (``cuda`` unless the caller passes another — see
-    :func:`resolve_device`).  Paged with the kernel only: the JAX
-    engine's ``paged`` / ``paged_kernel`` choices have one value here.
+# the slice that ports the dense engine's row-copy prefix store and its
+# speculative verify; the features it will bring are refused until then
+_DENSE_NEXT = ("the dense engine's row-copy prefix store and speculative "
+               "verify, the slice after the dense slot engine")
 
-    ``kv_dtype`` ("" or "int8") and ``tp`` shape the pool;
-    ``prefix_cache`` turns on the radix prefix store, of at most
-    ``prefix_bytes``, matching at the pool's ``block`` (a ``prefix_block``
-    other than ``block`` selects the dense store's own granularity, which
-    is not ported, and is refused); ``spec_k > 0`` turns on speculation with up to
-    ``spec_k`` proposed tokens (rounded down to a power of two) from a
-    trailing n-gram of up to ``spec_ngram`` tokens (floored at 2).
+
+class ServingEngine:
+    """Continuous batching over a dense :class:`SlotPool` (``paged=False``,
+    the default) or a :class:`PagedSlotPool` (``paged=True``, with the
+    kernel) on ``device`` (``cuda`` unless the caller passes another —
+    see :func:`resolve_device`).  The arguments and defaults are the JAX
+    engine's, and so are its refusals.
+
+    Dense: ``kv_quant`` (an int8 cache) and ``cache_layout`` (``"grouped"``
+    or ``"flat"``, the decode kernel's) shape the rows; ``chunk`` turns on
+    chunked prefill.  Not ported on a dense engine, refused by name:
+    ``prefix_cache`` and ``spec_k > 0``.
+
+    Paged: ``kv_dtype`` ("" or "int8") and ``tp`` shape the pool;
+    ``paged_kernel`` must leave the kernel on (the gather fallback is
+    not ported); ``prefix_cache`` turns on the radix prefix store, of at
+    most ``prefix_bytes``, matching at the pool's ``block`` (a
+    ``prefix_block`` other than ``block`` selects the dense store's own
+    granularity, which is not ported, and is refused); ``spec_k > 0``
+    turns on speculation with up to ``spec_k`` proposed tokens (rounded
+    down to a power of two) from a trailing n-gram of up to
+    ``spec_ngram`` tokens (floored at 2).  ``tp = 0`` takes ``BYTEPS_TP``.
+
     Sampling parameters are fixed per engine; per-request variation
     rides the ``seed``.  Drive it with :meth:`step` (deterministic,
     single-threaded) or :meth:`start`'s background tick thread."""
@@ -211,29 +256,18 @@ class ServingEngine:
     def __init__(self, model: Transformer, *, n_slots: int = 8,
                  max_seq: Optional[int] = None, temperature: float = 0.0,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
-                 eos_id: Optional[int] = None, max_queue: int = 64,
+                 eos_id: Optional[int] = None, kv_quant: bool = False,
+                 cache_layout: str = "grouped", max_queue: int = 64,
                  prefill_credits: Optional[int] = None, chunk: int = 0,
+                 prefix_cache: bool = False,
+                 prefix_block: Optional[int] = None,
+                 prefix_bytes: int = 256 << 20, paged: bool = False,
                  block: int = 16, kv_mb: int = 0,
                  kv_blocks: Optional[int] = None, kv_dtype: str = "",
-                 tp: int = 1, prefix_cache: bool = False,
-                 prefix_block: Optional[int] = None,
-                 prefix_bytes: int = 256 << 20, spec_k: int = 0,
+                 paged_kernel="auto", tp: int = 0, spec_k: int = 0,
                  spec_ngram: int = 3,
                  metrics: Optional[ServeMetrics] = None, device=None):
-        self.device = resolve_device(device)
         cfg = model.cfg
-        if tp < 1 or cfg.num_heads % tp:
-            raise ValueError(f"tp ({tp}) must be >= 1 and divide num_heads "
-                             f"({cfg.num_heads}) so query head slices "
-                             f"align with KV head slices")
-        if prefix_block is not None and prefix_block != block:
-            raise NotImplementedError(
-                f"prefix_block {prefix_block} != block {block}: a paged "
-                f"store matches at the pool's block; the dense store that "
-                f"takes its own granularity is not ported")
-        if self.device.type == "cuda":
-            _pa.check_kernel_config(cfg.dtype, cfg.d_head, block, kv_dtype)
-        self.model = model.to(self.device).eval()
         self.max_seq = max_seq if max_seq is not None else cfg.max_seq_len
         self.temperature = temperature
         self.top_k = top_k
@@ -246,12 +280,59 @@ class ServingEngine:
         self.chunk = (_next_bucket(chunk, self.min_prefill_bucket,
                                    self.max_seq) if chunk and chunk > 0
                       else 0)
-        self.pool = PagedSlotPool(cfg, n_slots, self.max_seq, block=block,
-                                  n_blocks=kv_blocks, kv_bytes=kv_mb << 20,
-                                  kv_dtype=kv_dtype, tp=tp,
-                                  device=self.device)
+        self.paged = bool(paged)
+        self._check_options(cfg, kv_quant, cache_layout, prefix_cache,
+                            kv_dtype, paged_kernel, spec_k)
+        if not tp:
+            from ..common.config import get_config
+            tp = max(1, int(get_config().serve_tp))
+        if tp > 1 and not self.paged:
+            raise ValueError(
+                f"tp ({tp}) > 1 requires paged=True: tensor-parallel "
+                f"serving shards the paged block pool per KV-head slice; "
+                f"dense slot caches shard through init_cache's mesh path "
+                f"instead")
+        if tp < 1 or cfg.num_heads % tp:
+            raise ValueError(f"tp ({tp}) must be >= 1 and divide num_heads "
+                             f"({cfg.num_heads}) so query head slices "
+                             f"align with KV head slices")
+        if self.paged and prefix_block is not None and prefix_block != block:
+            raise NotImplementedError(
+                f"prefix_block {prefix_block} != block {block}: a paged "
+                f"store matches at the pool's block; the dense store that "
+                f"takes its own granularity is not ported ({_DENSE_NEXT})")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            if self.paged:
+                _pa.check_kernel_config(cfg.dtype, cfg.d_head, block,
+                                        kv_dtype)
+            elif cache_layout == "flat":
+                _da.check_kernel_config(cfg.dtype, cfg.d_head)
+        self.model = model.to(self.device).eval()
+        if self.paged:
+            self.pool = PagedSlotPool(
+                cfg, n_slots, self.max_seq, block=block, n_blocks=kv_blocks,
+                kv_bytes=kv_mb << 20, kv_dtype=kv_dtype, tp=tp,
+                device=self.device)
+        else:
+            self.pool = SlotPool(cfg, n_slots, self.max_seq,
+                                 kv_quant=kv_quant, layout=cache_layout,
+                                 device=self.device)
         self.kv_dtype = kv_dtype
         self.tp = tp
+        # a resume re-prefills the emitted tokens: bit-exact only where
+        # prefill reproduces the K/V the original decode wrote (JAX's rule)
+        if kv_quant:
+            self._resume_unsafe = (
+                "kv_quant: resume prefill attends pre-quantization K/V "
+                "where the original decode attended the quantized values")
+        elif cfg.attn_impl == "flash" and self.max_seq >= 128:
+            self._resume_unsafe = (
+                "attn_impl='flash': resume prefill can take the flash "
+                "kernel while the original run's emitted-token K/V came "
+                "from dense decode — accumulation orders differ")
+        else:
+            self._resume_unsafe = ""
         # speculation depth rounds DOWN to a power of two (the JAX
         # engine's verify buckets); single-token n-grams are noise
         if spec_k and spec_k > 0:
@@ -306,11 +387,102 @@ class ServingEngine:
         self._engine_error: Optional[BaseException] = None
         self.decode_ticks = 0       # decode and verify ticks
         self.verify_ticks = 0
-        self.prefill_chunks = 0
+        self.prefill_chunks = 0     # prefill forwards (whole prompts too)
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.prefix_hits = 0
         self.cow_copies = 0
+
+    def _check_options(self, cfg, kv_quant, cache_layout, prefix_cache,
+                       kv_dtype, paged_kernel, spec_k) -> None:
+        """The JAX engine's refusals, with its messages, in its order;
+        then the dense engine's features that are not ported yet."""
+        if kv_dtype not in ("", "int8"):
+            raise ValueError(
+                f"kv_dtype must be '' or 'int8', got {kv_dtype!r}")
+        if kv_dtype and kv_quant:
+            raise ValueError(
+                "kv_quant and kv_dtype are mutually exclusive: kv_quant "
+                "quantizes the DENSE cache (whole-prompt prefill "
+                "attends pre-quantization values — incompatible with "
+                "paging/chunking/resume), kv_dtype quantizes the PAGED "
+                "block pool with write-time determinism.  Pick one: "
+                "kv_quant=True for dense engines, kv_dtype='int8' for "
+                "paged engines.")
+        if kv_dtype and not self.paged:
+            raise ValueError(
+                "kv_dtype='int8' quantizes the paged block pool and "
+                "requires paged=True; dense engines quantize with "
+                "kv_quant=True instead")
+        pk = paged_kernel
+        if isinstance(pk, bool):
+            pk = "on" if pk else "off"
+        if pk not in ("auto", "on", "off"):
+            raise ValueError(
+                f"paged_kernel must be 'auto'|'on'|'off', got "
+                f"{paged_kernel!r}")
+        if self.paged and pk == "off":
+            if cache_layout == "flat":
+                raise ValueError(
+                    "cache_layout='flat' on a paged engine requires the "
+                    "fused paged-attention kernel (paged_kernel='on'): the "
+                    "gather fallback would route flat rows through the "
+                    "dense decode kernel under vmap")
+            raise NotImplementedError(
+                "paged_kernel='off' selects the paged gather fallback, "
+                "which is not ported: the port's paged engine decodes "
+                "through the kernel")
+        if kv_quant and (self.chunk or prefix_cache or self.paged):
+            raise ValueError(
+                "chunked prefill / prefix cache / paged KV cache "
+                "require a dense KV cache: a chunk at a traced "
+                "position attends int8 K/V where whole-prompt prefill "
+                "attends the pre-quantization values, breaking the "
+                "bit-exact parity contract.  Run kv_quant engines with "
+                "chunk=0, prefix_cache=False, paged=False — or, to "
+                "quantize a PAGED engine, use kv_dtype='int8' "
+                "(BYTEPS_SERVE_KV_DTYPE), whose quantize-at-write "
+                "discipline is consistent at traced positions and "
+                "composes with chunking, prefix reuse, and resume.")
+        if (self.chunk or prefix_cache or self.paged) and (
+                cfg.attn_impl == "flash" and self.max_seq >= 128):
+            raise ValueError(
+                "chunked prefill / prefix cache / paged KV cache "
+                "require the dense prefill path: this config's "
+                "whole-prompt prefill can take the flash kernel while "
+                "chunks always take dense cached attention, and the "
+                "two differ in accumulation order — token streams "
+                "could silently diverge from generate().  Serve "
+                "attn_impl='flash' models with chunk=0, "
+                "prefix_cache=False, paged=False.")
+        if spec_k and spec_k > 0:
+            if kv_quant:
+                raise ValueError(
+                    "speculative decoding requires a dense fp KV cache "
+                    "(kv_quant=False): the verify pass must be bit-"
+                    "exact against single-token decode, which the "
+                    "quantized cache paths do not guarantee across "
+                    "query widths")
+            if cache_layout != "grouped":
+                raise ValueError(
+                    f"speculative decoding requires cache_layout="
+                    f"'grouped' (got {cache_layout!r}): a flat-layout "
+                    f"pool decodes tq=1 through the fused decode kernel "
+                    f"while the tq>1 verify always runs dense cached "
+                    f"attention — the two differ in accumulation order, "
+                    f"so accepted tokens could silently diverge from the "
+                    f"non-speculative stream")
+        if not self.paged:
+            if cache_layout not in ("grouped", "flat"):
+                raise ValueError(f"cache_layout must be 'grouped' or "
+                                 f"'flat', got {cache_layout!r}")
+            for name, on in (("prefix_cache", prefix_cache),
+                             ("spec_k > 0", spec_k and spec_k > 0)):
+                if on:
+                    raise NotImplementedError(
+                        f"{name} on a dense engine (paged=False) is not "
+                        f"ported yet: it belongs to {_DENSE_NEXT}; the "
+                        f"paged engine (paged=True) has it")
 
     # ------------------------------------------------------------- submit
 
@@ -338,6 +510,11 @@ class ServingEngine:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
         resumed = ([int(t) for t in resume_tokens]
                    if resume_tokens is not None else [])
+        if resumed and self._resume_unsafe:
+            raise ValueError(
+                f"this engine cannot resume a partially-emitted request "
+                f"bit-exactly ({self._resume_unsafe}); serve resumable "
+                f"replicas with a dense, non-flash-prefill config")
         if resumed and max_new_tokens <= len(resumed):
             raise ValueError(
                 f"resume carries {len(resumed)} tokens but "
@@ -421,7 +598,7 @@ class ServingEngine:
                     req = task.request
                     if req.cancelled:
                         self._finish(req, RequestState.CANCELLED)
-                    elif (req._hold_blocks
+                    elif (self.paged and req._hold_blocks
                           and self.pool.alloc.free_count < req._hold_blocks
                           and self.pool.active_count > 0):
                         # a preempted request waits until its worst-case
@@ -458,10 +635,11 @@ class ServingEngine:
             self.metrics.observe_tick(self.pool.occupancy(),
                                       self.scheduler.depth, emitted)
             self.metrics.gauge(sm.PREFILL_CREDITS, self.scheduler.credits)
-            bs = self.pool.block_stats()
-            self.metrics.gauge(sm.KV_BLOCKS_FREE, bs["free"])
-            self.metrics.gauge(sm.KV_BLOCKS_USED, bs["used"])
-            self.metrics.gauge(sm.KV_BLOCKS_SHARED, bs["shared"])
+            if self.paged:
+                bs = self.pool.block_stats()
+                self.metrics.gauge(sm.KV_BLOCKS_FREE, bs["free"])
+                self.metrics.gauge(sm.KV_BLOCKS_USED, bs["used"])
+                self.metrics.gauge(sm.KV_BLOCKS_SHARED, bs["shared"])
         return {"admitted": admitted, "emitted": emitted,
                 "active": self.pool.active_count,
                 "queued": self.scheduler.depth,
@@ -503,11 +681,59 @@ class ServingEngine:
                 self.metrics.bump(sm.PREFIX_HIT_TOKENS, p0)
             else:
                 self.metrics.bump(sm.PREFIX_MISSES)
+        if not self.paged and not self.chunk:
+            return self._prefill_whole(req)
         req.state = RequestState.PREFILLING
         req.prefill_pos = p0
         req._pf_paid = True
         self._prefilling[slot] = req
         return self._advance_prefill(req)
+
+    def _slot_row(self, slot: int) -> List[dict]:
+        """A dense slot's ``[1, max_seq, ...]`` row of every layer's
+        caches: views, so the model's in-place writes land in the pool."""
+        return [{n: c[slot:slot + 1] for n, c in layer.items()}
+                for layer in self.pool.caches]
+
+    def _prefill_whole(self, req: Request) -> int:
+        """Dense whole-prompt prefill (JAX ``_prefill_forward``): the
+        sequence right-padded to its power-of-two bucket runs at ``pos =
+        0`` on the slot's row — the flash forward where the bucket passes
+        the gcd gate of an ``attn_impl="flash"`` model — and the first
+        token is read at the true last position.  The pad rows' K/V lies
+        past the cursor, rewritten before the mask can admit it."""
+        seq = req._seq
+        T = int(seq.shape[0])
+        slot = req.slot
+        bucket = _next_bucket(T, self.min_prefill_bucket, self.max_seq)
+        toks = np.full((1, bucket), self.pad_id, np.int64)
+        toks[0, :T] = seq
+        logits, _ = self.model.decode(torch.from_numpy(toks).to(self.device),
+                                      self._slot_row(slot), 0,
+                                      last_idx=T - 1)
+        self.prefill_chunks += 1
+        self.metrics.bump(sm.PREFILL_TOKENS, bucket)
+        self._tick_prefill += bucket
+        return self._prefill_done(req, logits)
+
+    def _prefill_done(self, req: Request, logits: torch.Tensor) -> int:
+        """A request's prefill is complete: ACTIVE, and its first token
+        sampled from ``logits [1, 1, vocab]`` and emitted (1) — or, when
+        it resumes, its parked next-input token restored (0)."""
+        slot = req.slot
+        self._prefilling.pop(slot, None)
+        req.state = RequestState.ACTIVE
+        self._maybe_insert_prefix(req)
+        if req._resume_tok is not None:
+            # resuming: every emitted token's K/V is rebuilt; the parked
+            # next-input token continues the stream
+            self._tok[slot] = req._resume_tok
+            req._resume_tok = None
+            return 0
+        tok0 = self._select(logits[:, -1], req)
+        self._tok[slot] = tok0
+        self._emit(req, tok0)
+        return 1
 
     def _select(self, logits_last: torch.Tensor, req: Request,
                 k: Optional[int] = None) -> int:
@@ -555,11 +781,11 @@ class ServingEngine:
             # the null block through the table's null entries.  Then fork
             # any shared block the span touches (only a shifted-left
             # re-feed reaches one), so shared blocks are never written
-            if not self._with_block_pressure(
+            if self.paged and not self._with_block_pressure(
                     req, lambda: self.pool.ensure_blocks(
                         slot, min(start + bucket, T))):
                 return 0
-            if not self._with_block_pressure(
+            if self.paged and not self._with_block_pressure(
                     req, lambda: self.pool.make_writable(
                         slot, start, start + bucket, self._cow_copy)):
                 return 0
@@ -568,28 +794,21 @@ class ServingEngine:
             toks[0, :end - start] = seq[start:end]
             final = p0 + csize >= T
             last_idx = (T - 1 - start) if final else (bucket - 1)
-            logits = self.model.prefill_chunk_paged(
-                torch.from_numpy(toks).to(self.device), self.pool.caches,
-                self.pool.table_row(slot), start, last_idx)
+            toks = torch.from_numpy(toks).to(self.device)
+            if self.paged:
+                logits = self.model.prefill_chunk_paged(
+                    toks, self.pool.caches, self.pool.table_row(slot), start,
+                    last_idx)
+            else:
+                logits = self.model.prefill_chunk(
+                    toks, self._slot_row(slot), start, last_idx)
             req.prefill_pos = p0 + csize
             self.prefill_chunks += 1
             self.metrics.bump(sm.PREFILL_TOKENS, bucket)
             self.metrics.bump(sm.PREFILL_CHUNKS)
             self._tick_prefill += bucket
             if final:
-                del self._prefilling[slot]
-                req.state = RequestState.ACTIVE
-                self._maybe_insert_prefix(req)
-                if req._resume_tok is not None:
-                    # resuming: every emitted token's K/V is rebuilt;
-                    # the parked next-input token continues the stream
-                    self._tok[slot] = req._resume_tok
-                    req._resume_tok = None
-                    return 0
-                tok0 = self._select(logits[:, -1], req)
-                self._tok[slot] = tok0
-                self._emit(req, tok0)
-                return 1
+                return self._prefill_done(req, logits)
 
     def _maybe_insert_prefix(self, req: Request) -> None:
         """After a completed prefill, register the sequence's full
@@ -668,6 +887,8 @@ class ServingEngine:
         self.metrics.bump(sm.PREEMPTIONS)
 
     def _decode_tick(self, active: List[int]) -> int:
+        if not self.paged:
+            return self._dense_tick(active)
         n = self.pool.n_slots
         for slot in list(active):
             req = self._slot_req[slot]
@@ -697,6 +918,28 @@ class ServingEngine:
             self.pool.tables_device(), torch.from_numpy(pos).to(dev),
             torch.from_numpy(wblk).to(dev), torch.from_numpy(woff).to(dev),
             last_only=True)[:, -1]                       # [n, vocab]
+        return self._emit_tick(active, logits)
+
+    def _dense_tick(self, active: List[int]) -> int:
+        """One decode pass over every row of the dense pool at its fixed
+        width: active slots at their cursors, free slots at 0, PREFILLING
+        slots at their post-prefill cursor (JAX ``_decode_tick``), as a
+        ``[n_slots]`` position vector on the device."""
+        self.decode_ticks += 1
+        self.metrics.bump(sm.DECODE_TICKS)
+        pos = np.zeros((self.pool.n_slots,), np.int32)
+        for slot in [*active, *self._prefilling]:
+            pos[slot] = self.pool.pos[slot]
+        dev = self.device
+        logits, _ = self.model.decode(
+            torch.from_numpy(self._tok[:, None]).to(dev), self.pool.caches,
+            torch.from_numpy(pos).to(dev), last_only=True)
+        return self._emit_tick(active, logits[:, -1])
+
+    def _emit_tick(self, active: List[int], logits: torch.Tensor) -> int:
+        """Pick every active slot's next token from ``logits [n_slots,
+        vocab]``, advance its cursor and emit it."""
+        n = self.pool.n_slots
         if self.greedy:
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         else:
@@ -954,10 +1197,12 @@ class ServingEngine:
 
     def step_counts(self) -> Dict[str, int]:
         """What ran in this engine: decode ticks (verify ticks included)
-        and verify ticks, prefill chunks, proposed and accepted tokens,
-        prefix hits and copy-on-write forks; and the paged-attention
-        kernel's process-wide launch count (per tick one per layer, tp
-        per layer on a tp pool, on a CUDA engine)."""
+        and verify ticks, prefill forwards (chunks, and whole prompts on a
+        dense engine), proposed and accepted tokens, prefix hits and
+        copy-on-write forks; and the process-wide launch counts of the
+        paged-attention kernel (a paged CUDA engine: one a layer a tick,
+        at any tp) and the decode-attention kernel (a flat dense CUDA
+        engine: one a layer a tick, for every slot)."""
         return {"decode_ticks": self.decode_ticks,
                 "verify_ticks": self.verify_ticks,
                 "prefill_chunks": self.prefill_chunks,
@@ -965,4 +1210,5 @@ class ServingEngine:
                 "spec_accepted": self.spec_accepted,
                 "prefix_hits": self.prefix_hits,
                 "cow_copies": self.cow_copies,
-                "paged_attention_launches": _pa.launches}
+                "paged_attention_launches": _pa.launches,
+                "decode_attention_launches": _da.launches}

@@ -36,7 +36,7 @@ import numpy as np
 
 from ..common import logging as bps_log
 from ..engine.wire import _decode, _encode
-from .engine import Request, ServingEngine
+from .engine import _DENSE_NEXT, Request, ServingEngine
 
 OP_SUBMIT, OP_STATS, OP_PING, OP_STREAM = range(4)
 
@@ -156,7 +156,8 @@ class _ServeHandler(socketserver.BaseRequestHandler):
              "queue_depth": engine.scheduler.depth,
              "prefix_cache": (engine.prefix.stats()
                               if engine.prefix is not None else None),
-             "kv_blocks": engine.pool.block_stats(),
+             "kv_blocks": (engine.pool.block_stats() if engine.paged
+                           else None),
              "device": str(engine.device),
              "metrics": engine.metrics.registry.snapshot()})
         return _encode(0, "", None, payload.encode())
@@ -376,10 +377,12 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
     """The launcher's ``serve`` role: build the engine from
     ``BYTEPS_SERVE_*`` and ``BYTEPS_TP`` and run the TCP frontend
     (blocking, or with ``in_thread`` returning ``(server, thread)``).
-    ``device`` defaults to ``cuda`` and raises without a GPU; knobs for
-    features the port does not have (a checkpoint, the gather fallback,
-    the dense prefix store's ``BYTEPS_SERVE_PREFIX_BLOCK``) are refused,
-    never ignored."""
+    ``device`` defaults to ``cuda`` and raises without a GPU.  Without
+    ``BYTEPS_SERVE_PAGED`` the engine is the dense slot engine, as in
+    JAX.  Knobs for features the port does not have (a checkpoint, the
+    paged gather fallback, and on a dense engine the row-copy prefix
+    store and speculation; the dense store's ``BYTEPS_SERVE_PREFIX_BLOCK``
+    on a paged one) are refused, never ignored."""
     import os
 
     from ..common.config import get_config, reset_config
@@ -397,9 +400,14 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
     if refused:
         raise NotImplementedError(
             f"{refused} select features this port does not implement yet")
-    if not cfg.serve_paged:
+    dense = [name for name, on in (
+        ("BYTEPS_SERVE_PREFIX_CACHE", cfg.serve_prefix_cache),
+        ("BYTEPS_SERVE_SPEC", cfg.serve_spec)) if on]
+    if dense and not cfg.serve_paged:
         raise NotImplementedError(
-            "the port serves paged only: set BYTEPS_SERVE_PAGED=1")
+            f"{dense} on the dense engine (BYTEPS_SERVE_PAGED unset) "
+            f"belong to {_DENSE_NEXT}, not ported yet; the paged engine "
+            f"(BYTEPS_SERVE_PAGED=1) has them")
     dev = resolve_device(device)
     model = _model_from_env(cfg.serve_model, dev)
     engine = ServingEngine(
@@ -419,6 +427,7 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
         prefix_cache=cfg.serve_prefix_cache,
         prefix_block=cfg.serve_prefix_block,
         prefix_bytes=cfg.serve_prefix_mb << 20,
+        paged=cfg.serve_paged,
         spec_k=(cfg.serve_spec_k if cfg.serve_spec else 0),
         spec_ngram=cfg.serve_spec_ngram,
         device=dev)

@@ -7,8 +7,10 @@ the causal mask admits only positions at or below the request's own
 cursor, each of which the request has written before the mask reaches
 it, and masked scores contribute exactly zero probability mass.
 
-This base class owns the host-side bookkeeping and a dense row cache
-(``init_cache``); the paged pool (``blocks.py``) overrides the storage.
+This base class owns the host-side bookkeeping and the dense engine's
+row cache (``init_cache``: one ``[n_slots, max_seq, ...]`` tensor a layer
+for K and for V, the batch axis being the slot); the paged pool
+(``blocks.py``) overrides the storage.
 """
 
 from __future__ import annotations
@@ -23,10 +25,18 @@ from ..models.transformer import TransformerConfig, init_cache
 class SlotPool:
     """``n_slots`` cache rows plus per-slot cursor bookkeeping.  The
     cache tensors (``self.caches``) live on ``device`` and are written
-    in place by the model."""
+    in place by the model.
+
+    ``kv_quant`` stores int8 values with fp32 per-(position, head)
+    scales; ``layout`` is ``"grouped"`` (``[n_slots, max_seq, KV, D]``,
+    the default, as in JAX: the dense decode tick attends it with plain
+    torch, which is also what JAX's engine runs by default) or ``"flat"``
+    (``[n_slots, max_seq, KV*D]``, the layout the decode-attention kernel
+    reads)."""
 
     def __init__(self, cfg: TransformerConfig, n_slots: int, max_seq: int,
-                 *, device=None):
+                 *, kv_quant: bool = False, layout: str = "grouped",
+                 device=None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if max_seq < 2:
@@ -34,6 +44,8 @@ class SlotPool:
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_seq = max_seq
+        self.kv_quant = kv_quant
+        self.layout = layout
         self.device = device
         self.caches = self._init_caches()
         self._lock = threading.Lock()
@@ -45,6 +57,7 @@ class SlotPool:
 
     def _init_caches(self):
         return init_cache(self.cfg, self.n_slots, self.max_seq,
+                          quantized=self.kv_quant, layout=self.layout,
                           device=self.device)
 
     # ------------------------------------------------------------ lifecycle

@@ -96,16 +96,19 @@ def make_data_parallel_step(loss_fn: Callable,
     world = api.size() if world_size is None else world_size
     if world != 1:
         raise NotImplementedError(
-            f"world size {world}: gradient push_pull is the port's "
-            f"collectives slice (ROADMAP A2/A3); one worker only for now")
+            f"world size {world}: gradient push_pull belongs to the port's "
+            f"collectives slice (torch.distributed), not ported yet; one "
+            f"worker only for now")
     if not _is_none_compression(compression):
         raise NotImplementedError(
-            f"compression={compression!r}: wire compression is the port's "
-            f"compression slice (ROADMAP A7); only 'none' for now")
+            f"compression={compression!r}: wire compression belongs to the "
+            f"port's compression slice, not ported yet; only 'none' for "
+            f"now")
     if backward_passes_per_step != 1:
         raise NotImplementedError(
             "backward_passes_per_step > 1 accumulates through the "
-            "DistributedOptimizer of the collectives slice (ROADMAP A4)")
+            "DistributedOptimizer of the port's collectives slice, not "
+            "ported yet")
 
     def step(state: TrainState, batch):
         opt = state.optimizer

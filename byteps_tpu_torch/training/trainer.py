@@ -53,8 +53,9 @@ class Trainer:
              else async_mode)) if on]
         if refused:
             raise NotImplementedError(
-                f"{refused}: not ported yet (ROADMAP A4 training, A8 PS "
-                f"tier); the port's Trainer runs the synchronous step")
+                f"{refused}: not ported yet (they belong to the port's "
+                f"collectives slice and its PS-tier slice); the port's "
+                f"Trainer runs the synchronous step")
         api.init(device)
         self.device = api.device()
         self.step_fn = make_data_parallel_step(

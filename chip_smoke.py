@@ -63,11 +63,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (or its FLOPs over the dtype's peak if larger).  One more case per
    mode and dtype at head_dim 32 (4 heads, MHA: the serve role's default
    model).
-6. Serve role — ``serve_from_env`` with only ``BYTEPS_SERVE_PAGED=1``:
-   the default model (d_model 128, 4 heads, head_dim 32) on the GPU
-   answers two identical greedy requests identically, through the
-   kernel (one launch per layer per tick); then again with
-   ``BYTEPS_SERVE_KV_DTYPE=int8 BYTEPS_TP=2 BYTEPS_SERVE_PREFIX_CACHE=1
+6. Serve role — ``serve_from_env`` with the role's defaults: the dense
+   slot engine (grouped rows, attended in plain torch, no kernel
+   launch) with the default model (d_model 128, 4 heads, head_dim 32)
+   on the GPU answers two identical greedy requests identically; then
+   with ``BYTEPS_SERVE_PAGED=1`` the paged engine, through the kernel
+   (one launch per layer per tick); then with ``BYTEPS_SERVE_PAGED=1
+   BYTEPS_SERVE_KV_DTYPE=int8 BYTEPS_TP=2 BYTEPS_SERVE_PREFIX_CACHE=1
    BYTEPS_SERVE_SPEC=1``: the pool sharded in two and int8, the second
    request a prefix hit, every tick a verify pass, one launch per layer
    per tick (the tp wrapper launches once for both shards).
@@ -98,6 +100,28 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    called; TTFT/TPOT p50/p99, tokens/s, the acceptance rate, and the blocks the
    budget holds in int8 against bf16.  Then the int8 mode and the tp=2
    wrapper at the last tick's cursors, timed as in phase 5.
+6d. Dense reference — phase 3's fp32 model on the dense slot engine
+   (``ServingEngine(paged=False)``, 4 slots): grouped rows, flat rows (the
+   decode kernel at a position vector: one launch a layer a tick for all
+   slots, by the wrapper's count and the library's), chunked prefill
+   (``chunk=8``), and int8 rows flat and grouped.  Greedy tokens exactly
+   those of a plain dense greedy loop (grouped rows, no kernel; an int8
+   loop for the int8 rows) and, for the fp rows, of the paged engine.
+6e. Dense serve (the main path of the dense-engine slice) — phase 4's
+   Llama-3.2-1B in bf16 with ``attn_impl="flash"`` on the dense slot
+   engine: 8 slots of 2048 rows (16 layers x K and V x 2048 x 512 x 2 B
+   a slot: 537 MB, the KV bytes of phase 4's 1025-block pool) behind a
+   ``ServeFrontend``, phase 4's 8 concurrent greedy requests; flat rows
+   twice, then grouped rows, then flat int8 rows (``kv_quant``: the
+   kernel's int8 mode at the position vector).  Flat: decode-kernel
+   launches = decode ticks x 16 (each reading the slots' position
+   vector), grouped: none;
+   flash-forward launches = 16 x the prefills whose bucket passes the
+   gcd gate (7 of 8); no plain version called; the flat reruns
+   token-identical; flat against grouped not "real" by
+   ``classify_divergence``, request by request.  TTFT/TPOT p50/p99 and
+   tokens/s of each run beside phase 4's paged numbers.  The counts are
+   set to 0 just before each run and read just after.
 7. Training reference — a small fp32 Llama-shaped model (2 layers,
    d_model 256, 4 heads over 2 KV heads, head_dim 64, vocab 1024), B=2,
    T=256: 3 ``Trainer.fit`` steps with ``attn_impl="flash"`` (the
@@ -228,7 +252,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    rows ``[:pos+1]`` (dequantized to bf16 for the int8 mode); the kernel
    and the yardstick again behind a flush that reads (leaving no dirty
    lines to write back); the bound is the attended K/V bytes (and
-   scales) over 3.35 TB/s.
+   scales) over 3.35 TB/s.  Then the device form, a ``[8]`` int32
+   position vector (0, 15, 16, 63, 255, 1000, 1919, 2047) in one launch,
+   bf16 and int8 caches with a bf16 q (the ring design) and fp32 and
+   int8 caches with an fp32 q (the first design), window None and 256:
+   the same tolerances, the library's counts (one launch reading the
+   vector), reruns bit-identical, each slot's bits unchanged when the
+   other slots' positions change, the ring's tickets back at zero, and
+   one CUDA-graph capture replayed at four position sets written into
+   the captured vector (no host read).  Timed for bf16 and int8 without
+   a window, from CUDA graphs behind both flushes: the one launch, 8
+   one-slot int launches at the same depths, the int call with every
+   slot at 2047, and SDPA on the same rows under each slot's key mask.
 17. Int8 product kernel — against its plain version at M = 1, 8, 16,
    40, 64, 65, 4096 and 15360 rows on Llama-3.2-1B's projection shapes
    (2048->2048, 2048->512, 2048->8192, 8192->2048), the probe's 768->3072
@@ -253,7 +288,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    design (phase 15 (d)).
 
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels":
-[...]}`` JSON object, and ``{"ok": true, "device": {...}}``.
+[...]}`` JSON object (each decode entry with a ``device_pos`` record of
+its own mode: phase 16's device-form cases and times, and the launches
+of the dense serve phase's flat run on that cache), and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -420,14 +458,10 @@ def ptxas_phase(logs: dict) -> dict:
 # ------------------------------------------------------------- reference
 
 
-def reference_phase(torch, seed: int) -> dict:
-    """Paged engine (kernel decode) vs a plain dense-cache greedy loop on
-    a small fp32 Llama-shaped model: tokens must be identical."""
-    import numpy as np
-
+def _ref_model(torch, seed):
+    """Phase 3's small fp32 Llama-shaped model (attention ``local``)."""
     from byteps_tpu_torch.models.transformer import (
-        Transformer, TransformerConfig, init_cache, init_weights)
-    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
+        Transformer, TransformerConfig, init_weights)
 
     cfg = TransformerConfig(
         **{**LLAMA_3_2_1B, "vocab_size": 1000, "num_layers": 2,
@@ -436,6 +470,19 @@ def reference_phase(torch, seed: int) -> dict:
         dtype=torch.float32)
     model = Transformer(cfg, device="cuda")
     init_weights(model, seed)
+    return model
+
+
+def reference_phase(torch, seed: int) -> dict:
+    """Paged engine (kernel decode) vs a plain dense-cache greedy loop on
+    a small fp32 Llama-shaped model: tokens must be identical."""
+    import numpy as np
+
+    from byteps_tpu_torch.models.transformer import init_cache
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
+
+    model = _ref_model(torch, seed)
+    cfg = model.cfg
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, size=(n,)) for n in
                (20, 37, 64, 90)]
@@ -454,8 +501,8 @@ def reference_phase(torch, seed: int) -> dict:
                     torch.tensor([[nxt]], device="cuda"), caches,
                     len(p) + i)
         want.append(out)
-    eng = ServingEngine(model, n_slots=4, max_seq=256, block=BLOCK,
-                        device="cuda", metrics=ServeMetrics())
+    eng = ServingEngine(model, n_slots=4, max_seq=256, paged=True,
+                        block=BLOCK, device="cuda", metrics=ServeMetrics())
     reqs = [eng.submit(p, n_new) for p in prompts]
     eng.drain(timeout=300)
     got = [r.result().tolist() for r in reqs]
@@ -466,9 +513,10 @@ def reference_phase(torch, seed: int) -> dict:
     # chain): two engines, same seeds, must give the same streams
     sampled = []
     for _ in range(2):
-        eng_s = ServingEngine(model, n_slots=4, max_seq=256, block=BLOCK,
-                              temperature=0.8, top_k=50, top_p=0.95,
-                              device="cuda", metrics=ServeMetrics())
+        eng_s = ServingEngine(model, n_slots=4, max_seq=256, paged=True,
+                              block=BLOCK, temperature=0.8, top_k=50,
+                              top_p=0.95, device="cuda",
+                              metrics=ServeMetrics())
         reqs = [eng_s.submit(p, n_new, seed=100 + i)
                 for i, p in enumerate(prompts)]
         eng_s.drain(timeout=300)
@@ -488,6 +536,47 @@ def reference_phase(torch, seed: int) -> dict:
 # ----------------------------------------------------------------- serve
 
 
+def _serve_requests(torch, addr, prompts, vocab):
+    """Phase 4's traffic: one ``RemoteServeClient`` a prompt, all at once,
+    each asking for ``NEW_TOKENS`` greedy tokens from the frontend at
+    ``addr``; returns the tokens (checked for shape and range) and the
+    wall seconds until the last answer."""
+    from byteps_tpu_torch.serving import RemoteServeClient
+
+    results = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        try:
+            c = RemoteServeClient(addr, timeout=600)
+            try:
+                results[i] = c.generate(prompts[i], NEW_TOKENS)
+            finally:
+                c.close()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t1 = time.perf_counter()
+    workers = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    if errors:
+        raise errors[0]
+    if any(w.is_alive() for w in workers):
+        raise AssertionError("a serve request did not finish")
+    for r in results:
+        if r is None or r.shape != (NEW_TOKENS,):
+            raise AssertionError(f"bad result shape: {r}")
+        if r.min() < 0 or r.max() >= vocab:
+            raise AssertionError("token id out of range")
+    return results, wall
+
+
 def serve_phase(torch, seed: int):
     import numpy as np
 
@@ -495,8 +584,7 @@ def serve_phase(torch, seed: int):
                                                      TransformerConfig,
                                                      init_weights)
     from byteps_tpu_torch.ops import paged_attention as pa
-    from byteps_tpu_torch.serving import (RemoteServeClient, ServeMetrics,
-                                          ServingEngine, serve)
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine, serve
     from byteps_tpu_torch.serving import metrics as sm
 
     cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
@@ -508,7 +596,7 @@ def serve_phase(torch, seed: int):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     engine = ServingEngine(model, n_slots=N_SLOTS, max_seq=MAX_SEQ,
-                           block=BLOCK, device="cuda",
+                           paged=True, block=BLOCK, device="cuda",
                            metrics=ServeMetrics())
     pool_bytes = sum(t.numel() * t.element_size()
                      for layer in engine.pool.caches for t in layer.values())
@@ -527,42 +615,13 @@ def serve_phase(torch, seed: int):
     try:
         for run in range(2):
             engine.metrics = ServeMetrics()
-            results = [None] * len(prompts)
-            errors = []
-
-            def one(i):
-                try:
-                    c = RemoteServeClient(addr, timeout=600)
-                    try:
-                        results[i] = c.generate(prompts[i], NEW_TOKENS)
-                    finally:
-                        c.close()
-                except Exception as e:  # noqa: BLE001 — re-raised below
-                    errors.append(e)
-
             ticks0 = engine.decode_ticks
             pa.launches = 0
             pa.plain_calls = 0
-            t1 = time.perf_counter()
-            workers = [threading.Thread(target=one, args=(i,))
-                       for i in range(len(prompts))]
-            for w in workers:
-                w.start()
-            for w in workers:
-                w.join(timeout=900)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
+            results, wall = _serve_requests(torch, addr, prompts,
+                                            cfg.vocab_size)
             launches, plain = pa.launches, pa.plain_calls
             ticks = engine.decode_ticks - ticks0
-            if errors:
-                raise errors[0]
-            if any(w.is_alive() for w in workers):
-                raise AssertionError("a serve request did not finish")
-            for r in results:
-                if r is None or r.shape != (NEW_TOKENS,):
-                    raise AssertionError(f"bad result shape: {r}")
-                if r.min() < 0 or r.max() >= cfg.vocab_size:
-                    raise AssertionError("token id out of range")
             if launches != ticks * cfg.num_layers or ticks == 0:
                 raise AssertionError(
                     f"paged_attention launches {launches} != decode "
@@ -839,25 +898,32 @@ def kernel_phase(torch, seed: int, final_pos):
 # ------------------------------------------------------------- serve role
 
 
-def serve_role_phase(torch, extra=None) -> dict:
-    """``DMLC_ROLE=serve`` with its defaults (plus ``extra`` knobs): the
-    head_dim-32 model on the GPU, greedy reruns identical, decoding
-    through the kernel.  With the tiers' knobs the second request is a
-    prefix hit and every tick a verify pass over the tp-sharded int8
-    pool."""
+PAGED_ROLE_ENV = {"BYTEPS_SERVE_PAGED": "1"}
+
+
+def serve_role_phase(torch, env) -> dict:
+    """``DMLC_ROLE=serve`` with its defaults plus the knobs ``env``: the
+    head_dim-32 model on the GPU, greedy reruns identical.  With no
+    knobs the dense slot engine (grouped rows, attended in plain torch:
+    no kernel launches); with ``BYTEPS_SERVE_PAGED=1`` the paged engine,
+    decoding through its kernel; with the tiers' knobs too the second
+    request is a prefix hit and every tick a verify pass over the
+    tp-sharded int8 pool."""
     import os
 
     import numpy as np
 
     from byteps_tpu_torch.common.config import reset_config
+    from byteps_tpu_torch.ops import decode_attention as da
     from byteps_tpu_torch.ops import paged_attention as pa
     from byteps_tpu_torch.serving import RemoteServeClient
     from byteps_tpu_torch.serving.frontend import serve_from_env
 
-    env = {"BYTEPS_SERVE_PAGED": "1", **(extra or {})}
     os.environ.pop("BYTEPS_SERVE_MODEL", None)
-    pa.launches = 0
-    pa.plain_calls = 0
+    os.environ.pop("BYTEPS_SERVE_PAGED", None)
+    paged = "BYTEPS_SERVE_PAGED" in env
+    pa.launches = pa.plain_calls = 0
+    da.launches = da.plain_calls = 0
     srv, thread = serve_from_env(env, port=0, in_thread=True)
     try:
         eng = srv.engine
@@ -880,18 +946,25 @@ def serve_role_phase(torch, extra=None) -> dict:
         raise AssertionError(f"serve role ran head_dim {cfg.d_head} on "
                              f"{st['device']}")
     counts = st["step_counts"]
+    # paged: one launch per layer a tick at any tp; dense: grouped rows,
+    # no kernel (the model's head_dim-32 attention in plain torch)
+    want = counts["decode_ticks"] * cfg.num_layers if paged else 0
     if (a.shape != (8,) or not np.array_equal(a, b) or pa.plain_calls
-            or pa.launches != counts["decode_ticks"] * cfg.num_layers
-            or pa.launches == 0):  # one launch per layer a tick at any tp
-        raise AssertionError(f"serve role: {a} / {b}, {pa.launches} kernel "
-                             f"launches, {pa.plain_calls} plain, {counts}")
+            or da.plain_calls or pa.launches != want or da.launches
+            or counts["decode_ticks"] == 0 or eng.paged != paged
+            or (st["kv_blocks"] is None) == paged):
+        raise AssertionError(f"serve role {env}: {a} / {b}, {pa.launches} "
+                             f"paged and {da.launches} decode launches, "
+                             f"{pa.plain_calls + da.plain_calls} plain, "
+                             f"{counts}")
     info = {"phase": "serve_role", "env": env, "head_dim": cfg.d_head,
-            "device": st["device"], "tokens_identical": True,
+            "device": st["device"], "engine": "paged" if paged else "dense",
+            "tokens_identical": True,
             "paged_launches": pa.launches, "step_counts": counts,
             "kv_blocks": st["kv_blocks"], "prefix_cache": st["prefix_cache"]}
-    if extra:
+    if "BYTEPS_TP" in env:
         pool = eng.pool.caches[0]["k"]
-        if (eng.tp != int(extra["BYTEPS_TP"]) or pool.shape[0] != eng.tp
+        if (eng.tp != int(env["BYTEPS_TP"]) or pool.shape[0] != eng.tp
                 or pool.dtype != torch.int8
                 or st["prefix_cache"]["hits"] < 1
                 or counts["verify_ticks"] != counts["decode_ticks"]):
@@ -936,8 +1009,9 @@ def tiers_reference_phase(torch, seed: int) -> dict:
     n_new = 16
 
     def engine(**kw):
-        return ServingEngine(model, n_slots=4, max_seq=256, block=BLOCK,
-                             device="cuda", metrics=ServeMetrics(), **kw)
+        return ServingEngine(model, n_slots=4, max_seq=256, paged=True,
+                             block=BLOCK, device="cuda",
+                             metrics=ServeMetrics(), **kw)
 
     def run(eng, ps, seeds=None, one_by_one=False):
         reqs = []
@@ -1029,7 +1103,8 @@ def _tiers_engine(model, tp):
     from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
 
     return ServingEngine(model, n_slots=N_SLOTS, max_seq=MAX_SEQ,
-                         block=BLOCK, kv_mb=TIERS_KV_MB, kv_dtype="int8",
+                         paged=True, block=BLOCK, kv_mb=TIERS_KV_MB,
+                         kv_dtype="int8",
                          tp=tp, prefix_cache=True, spec_k=TIERS_SPEC_K,
                          device="cuda", metrics=ServeMetrics())
 
@@ -1204,6 +1279,214 @@ def tiers_kernel_phase(torch, seed: int, final_pos) -> dict:
     return main
 
 
+# ------------------------------------------------------------- dense slots
+
+# the dense engine's runs (name, engine options, reference): the fp runs
+# against the plain fp loop and the paged engine, the int8 ones against a
+# plain int8 loop (the dense kv_quant prefill attends the prompt before
+# quantization, as in JAX, which the paged int8 pool does not)
+DENSE_REF_RUNS = (("grouped", {}, "fp"),
+                  ("flat", {"cache_layout": "flat"}, "fp"),
+                  ("chunk8", {"chunk": 8}, "fp"),
+                  ("flat_int8", {"cache_layout": "flat", "kv_quant": True},
+                   "int8"),
+                  ("grouped_int8", {"kv_quant": True}, "int8"))
+
+
+def dense_reference_phase(torch, seed: int) -> dict:
+    """The dense slot engine on phase 3's fp32 model: grouped rows, flat
+    rows (the decode kernel at a position vector, one launch a layer a
+    tick), chunked prefill, and int8 rows flat and grouped; greedy
+    tokens exactly those of a plain dense greedy loop (grouped rows, no
+    kernel) and, for fp rows, of the paged engine."""
+    import numpy as np
+
+    from byteps_tpu_torch.models.transformer import init_cache
+    from byteps_tpu_torch.ops import decode_attention as da
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
+
+    model = _ref_model(torch, seed)
+    cfg = model.cfg
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,)) for n in
+               (20, 37, 64, 90)]
+    n_new = 16
+
+    def loop(quant):
+        out = []
+        for p in prompts:
+            caches = init_cache(cfg, 1, len(p) + n_new, quantized=quant,
+                                layout="grouped", device="cuda")
+            logits, _ = model.decode(torch.tensor(p[None], device="cuda"),
+                                     caches, 0, last_only=True)
+            toks = []
+            for i in range(n_new):
+                toks.append(int(torch.argmax(logits[0, -1]).item()))
+                if i + 1 < n_new:
+                    logits, _ = model.decode(
+                        torch.tensor([[toks[-1]]], device="cuda"), caches,
+                        len(p) + i)
+            out.append(toks)
+        return out
+
+    def engine_tokens(**kw):
+        eng = ServingEngine(model, n_slots=4, max_seq=256, device="cuda",
+                            metrics=ServeMetrics(), **kw)
+        reqs = [eng.submit(p, n_new) for p in prompts]
+        eng.drain(timeout=300)
+        return [r.result().tolist() for r in reqs], eng
+
+    want = {"fp": loop(False), "int8": loop(True)}
+    _zero_counts()
+    if da.launches or da.plain_calls:
+        raise AssertionError("the plain loops called the decode kernel")
+    paged, _ = engine_tokens(paged=True, block=BLOCK)
+    if paged != want["fp"]:
+        raise AssertionError(f"paged engine {paged} != loop {want['fp']}")
+    info = {"phase": "dense_reference", "requests": len(prompts),
+            "new_tokens": n_new, "paged_equals_loop": True}
+    for name, kw, ref in DENSE_REF_RUNS:
+        _zero_counts()
+        got, eng = engine_tokens(**kw)
+        torch.cuda.synchronize()
+        ticks = eng.decode_ticks
+        flat = kw.get("cache_layout") == "flat"
+        want_launches = ticks * cfg.num_layers if flat else 0
+        if (da.launches != want_launches or da.plain_calls
+                or da.design_launches["device_pos"] != want_launches):
+            raise AssertionError(f"dense {name}: {da.launches} decode "
+                                 f"launches ({da.design_launches}), "
+                                 f"{da.plain_calls} plain, {ticks} ticks")
+        if got != want[ref]:
+            raise AssertionError(f"dense {name}: tokens {got} != plain "
+                                 f"{ref} loop {want[ref]}")
+        info[name] = {"tokens_equal_loop": True, "decode_ticks": ticks,
+                      "decode_launches": da.launches}
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def _flash_prefills(prompt_lens) -> int:
+    """Whole-prompt prefills whose power-of-two bucket passes the flash
+    gcd gate (``gcd(bucket, 1024) >= 128``)."""
+    import math
+
+    n = 0
+    for t in prompt_lens:
+        b = 8
+        while b < t:
+            b *= 2
+        n += math.gcd(min(b, MAX_SEQ), 1024) >= 128
+    return n
+
+
+def dense_serve_phase(torch, seed: int, paged_info: dict):
+    """The main path of the dense-engine slice: full-width Llama-3.2-1B in
+    bf16 (``attn_impl="flash"``) on ``ServingEngine(paged=False)`` with 8
+    slots of 2048 rows behind a ``ServeFrontend``, phase 4's 8 requests:
+    flat rows twice, then grouped rows, then flat int8 rows.  Returns the
+    phase line and the counts of the second flat run and of the int8
+    run."""
+    import numpy as np
+
+    from byteps_tpu_torch.inference import classify_divergence
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.ops import decode_attention as da
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import paged_attention as pa
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine, serve
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16, attn_impl="flash")
+    L = cfg.num_layers
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
+    init_weights(model, seed)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    flash_want = _flash_prefills(PROMPT_LENS) * L
+    runs = {}
+    for name, layout, quant in (("flat", "flat", False),
+                                ("flat_rerun", "flat", False),
+                                ("grouped", "grouped", False),
+                                ("flat_int8", "flat", True)):
+        engine = ServingEngine(model, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                               cache_layout=layout, kv_quant=quant,
+                               device="cuda", metrics=ServeMetrics())
+        row_bytes = sum(t.numel() * t.element_size()
+                        for layer in engine.pool.caches
+                        for t in layer.values())
+        srv, thread = serve(engine, 0, host="127.0.0.1", in_thread=True)
+        try:
+            torch.cuda.synchronize()
+            _zero_counts()
+            pa.launches = pa.plain_calls = 0
+            results, wall = _serve_requests(
+                torch, f"127.0.0.1:{srv.server_address[1]}", prompts,
+                cfg.vocab_size)
+            counts = {"decode": da.launches,
+                      "decode_by_design": dict(da.design_launches),
+                      "flash_fwd": fa.fwd_launches,
+                      "plain": (da.plain_calls + fa.plain_calls
+                                + pa.plain_calls),
+                      "paged": pa.launches}
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+        ticks = engine.decode_ticks
+        want = ticks * L if layout == "flat" else 0
+        if (counts["decode"] != want or ticks == 0
+                or counts["decode_by_design"]["device_pos"] != want
+                or counts["flash_fwd"] != flash_want or counts["plain"]
+                or counts["paged"]):
+            raise AssertionError(f"dense {name}: {counts}, {ticks} ticks; "
+                                 f"want {want} decode and {flash_want} "
+                                 f"flash launches")
+        summ = engine.metrics.summary()
+        runs[name] = {"results": results, "line": {
+            "layout": layout, "kv_quant": quant, "row_bytes": row_bytes,
+            "decode_ticks": ticks,
+            "launches": counts, "wall_s": wall,
+            "tokens_per_s": NEW_TOKENS * len(prompts) / wall,
+            "ttft_p50_ms": summ["ttft_p50_s"] * 1e3,
+            "ttft_p99_ms": summ["ttft_p99_s"] * 1e3,
+            "tpot_p50_ms": summ["tpot_p50_s"] * 1e3,
+            "tpot_p99_ms": summ["tpot_p99_s"] * 1e3}}
+        del engine
+        torch.cuda.empty_cache()
+    for a, b in zip(runs["flat"]["results"], runs["flat_rerun"]["results"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("dense flat rerun is not token-identical")
+    verdicts = [classify_divergence(model, p[None], a[None], b[None])
+                for p, a, b in zip(prompts, runs["flat"]["results"],
+                                   runs["grouped"]["results"])]
+    worst = max(verdicts, key=lambda v: ["none", "tie", "real"].index(
+        v["divergence"]))
+    if worst["divergence"] == "real":
+        raise AssertionError(f"dense flat vs grouped: {worst}")
+    info = {"phase": "dense_serve", "model": "Llama-3.2-1B (random weights)",
+            "source": "meta-llama/Llama-3.2-1B config.json",
+            "reduced": {"max_seq": [131072, MAX_SEQ]},
+            "dtype": "bfloat16", "attn_impl": "flash", "slots": N_SLOTS,
+            "rerun_identical": True,
+            "flat_vs_grouped": worst["divergence"],
+            "flat_vs_grouped_agreement": float(np.mean(
+                [v["agreement"] for v in verdicts])),
+            "nvidia_smi": _smi(),
+            "paged_phase4_run1": {k: paged_info["run1"][k] for k in (
+                "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                "tpot_p50_ms", "tpot_p99_ms")},
+            **{n: r["line"] for n, r in runs.items()}}
+    del model
+    torch.cuda.empty_cache()
+    return info, {"bfloat16": runs["flat_rerun"]["line"]["launches"],
+                  "int8": runs["flat_int8"]["line"]["launches"]}
+
+
 # -------------------------------------------------------------- training
 
 
@@ -1225,6 +1508,7 @@ def _zero_counts():
     fce.fwd_launches = fce.dx_launches = fce.dw_launches = 0
     fce.plain_calls = fce.tma_launches = 0
     da.launches = da.plain_calls = 0
+    da.design_launches = dict.fromkeys(da.COUNTS, 0)
     qd.launches = qd.plain_calls = 0
     qd.design_launches = dict.fromkeys(qd.DESIGNS, 0)
 
@@ -2231,11 +2515,12 @@ def _decode_inputs(torch, seed, c, mode):
     q = torch.randn((B, 1, H, D), generator=g, device="cuda")
     k = torch.randn((B, S, KV, D), generator=g, device="cuda")
     v = torch.randn((B, S, KV, D), generator=g, device="cuda")
-    if mode == "int8":
+    if mode.startswith("int8"):   # "int8": bf16 q, "int8_fp32q": fp32 q
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
-        return (q.to(torch.bfloat16), kq.reshape(B, S, -1),
-                vq.reshape(B, S, -1), ks, vs)
+        qdt = torch.float32 if mode == "int8_fp32q" else torch.bfloat16
+        return (q.to(qdt), kq.reshape(B, S, -1), vq.reshape(B, S, -1), ks,
+                vs)
     dt = torch.float32 if mode == "float32" else torch.bfloat16
     return (q.to(dt), k.reshape(B, S, -1).to(dt), v.reshape(B, S, -1).to(dt),
             None, None)
@@ -2393,6 +2678,144 @@ def decode_case(torch, name, over, plan, mode, seed, flush, timed, ran):
     return res
 
 
+# the device form: 8 slots at mixed depths in one launch
+DEVICE_POS = (0, 15, 16, 63, 255, 1000, 1919, 2047)
+# q and cache: bf16 / bf16, int8 with a bf16 q (the ring design), fp32 /
+# fp32 and int8 with an fp32 q (the first design)
+DEVICE_MODES = ("bfloat16", "int8", "float32", "int8_fp32q")
+
+
+def decode_device_case(torch, mode, window, seed, flush, timed) -> dict:
+    """The decode kernel at a ``[8]`` position vector on the card: held to
+    the plain version at phase 16's tolerances, the library's counts
+    (one launch reading the vector), reruns bit-identical, each slot's
+    bits unchanged when the other slots' positions change, the ring's
+    tickets back at zero, and a CUDA graph captured once and replayed at
+    positions rewritten in place (no host read of the vector).  Timed:
+    the one launch, 8 one-slot int launches at the same depths, the int
+    call with every slot at 2047, and SDPA on the same rows under a key
+    mask, from CUDA graphs behind the write flush and the read flush."""
+    import torch.nn.functional as F
+
+    from byteps_tpu_torch.ops import decode_attention as da
+
+    c = {**DECODE_MAIN, "window": window}
+    q, ck, cv, ks, vs = _decode_inputs(torch, seed, c, mode)
+    B, S, H, KV, D = (c[k] for k in ("B", "S", "H", "KV", "D"))
+    kw = {"k_scale": ks, "v_scale": vs, "window": window}
+    posv = torch.tensor(DEVICE_POS, dtype=torch.int32, device="cuda")
+    ring = q.dtype == torch.bfloat16
+    nsplit, per = da._splits(B, KV, da._max_chunks(S, window),
+                             torch.cuda.get_device_properties(
+                                 0).multi_processor_count, ring)
+
+    def call(p):
+        return da.decode_attention(q, ck, cv, p, **kw)
+
+    def reading(out, p):
+        ref = da.decode_attention_reference(q, ck, cv, p, **kw)
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"decode device {mode}: non-finite output")
+        abs_err = (out.float() - ref.float()).abs().max().item()
+        return abs_err, (_row_ulps(torch, out, ref) if ring else abs_err)
+
+    tol = DECODE_BF16_ULPS if ring else 1e-4
+    by = dict(da.design_launches)
+    out = call(posv)
+    took = [da.design_launches[k] - by[k] for k in da.COUNTS]
+    if took != da._kernels_for(ring, nsplit, True):
+        raise AssertionError(f"decode device {mode}: launches {took}")
+    abs_err, err = reading(out, posv)
+    if err > tol:
+        raise AssertionError(f"decode device {mode} window {window}: error "
+                             f"{err} > {tol}")
+    if not torch.equal(out, call(posv)):
+        raise AssertionError(f"decode device {mode}: a rerun differs")
+    other = torch.tensor(DEVICE_POS[::-1], dtype=torch.int32, device="cuda")
+    for b in range(B):
+        moved = other.clone()
+        moved[b] = posv[b]
+        if not torch.equal(call(moved)[b], out[b]):
+            raise AssertionError(f"decode device {mode}: slot {b}'s bits "
+                                 f"moved with the other slots' positions")
+    torch.cuda.synchronize()
+    if ring and nsplit > 1 and da._tickets[q.device][:B * KV].any():
+        raise AssertionError(f"decode device {mode}: tickets left set")
+    live = posv.clone()
+    call(live)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call(live)
+    replays = 0
+    for p in (DEVICE_POS[::-1], (2047,) * B, (5,) * B, DEVICE_POS):
+        live.copy_(torch.tensor(p, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        if reading(got, live)[1] > tol or not torch.equal(got, call(live)):
+            raise AssertionError(f"decode device {mode}: graph replay at "
+                                 f"{p} is wrong")
+        replays += 1
+    del graph
+    res = {"case": f"device_pos_{mode}", "mode": mode,
+           "q_dtype": str(q.dtype).split(".")[-1],
+           "B_S_H_KV_D": [B, S, H, KV, D], "pos": list(DEVICE_POS),
+           "window": window, "splits_per": [nsplit, per],
+           "library_counts": took, "max_abs_err": abs_err, "err": err,
+           "err_unit": "bf16 ulps of the row's max" if ring else "absolute",
+           "tolerance": tol, "rerun_identical": True,
+           "slots_independent": True, "graph_replays": replays}
+    if not timed:
+        return res
+    rows = [(q[b:b + 1], ck[b:b + 1], cv[b:b + 1],
+             None if ks is None else ks[b:b + 1],
+             None if vs is None else vs[b:b + 1]) for b in range(B)]
+
+    def per_slot():
+        for b, (qb, kb, vb, ksb, vsb) in enumerate(rows):
+            da.decode_attention(qb, kb, vb, DEVICE_POS[b], k_scale=ksb,
+                                v_scale=vsb, window=window)
+
+    # SDPA on the same rows: keys [0, max pos], each slot's own mask
+    n = max(DEVICE_POS) + 1
+    kd, vd = (x.view(B, S, KV, D)[:, :n] for x in (ck, cv))
+    if ks is not None:
+        kd = (kd.float() * ks[:, :n, :, None]).to(q.dtype)
+        vd = (vd.float() * vs[:, :n, :, None]).to(q.dtype)
+    kd, vd = (x.transpose(1, 2).contiguous() for x in (kd, vd))
+    qd = q.transpose(1, 2).contiguous()
+    keys = torch.arange(n, device="cuda")[None, :]
+    mask = keys <= posv.long()[:, None]
+    if window:
+        mask &= keys > posv.long()[:, None] - window
+    mask = mask[:, None, None, :]                       # [B, 1, 1, n]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                              enable_gqa=True)
+
+    clean = _ReadFlush(torch)
+    for key, fn in (("kernel_ms", lambda: call(posv)),
+                    ("per_slot_ms", per_slot),
+                    ("int_all_2047_ms", lambda: call(S - 1)),
+                    ("library_ms", sdpa)):
+        res[key] = _graph_ms(torch, fn, flush)
+        res[key + "_clean_l2"] = _graph_ms(torch, fn, clean)
+    del clean
+    res["plain_ms"] = _time_ms(torch, lambda: da.decode_attention_reference(
+        q, ck, cv, posv, **kw), flush, iters=5)
+    elt = ck.element_size()
+    nbytes = (da.kv_bytes_read(B, DEVICE_POS, KV * D, elt, window,
+                               kv_heads=KV if ks is not None else 0)
+              + 2 * q.numel() * q.element_size() + 4 * B)  # q, out, pos
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (da.decode_flops(B, H, D, DEVICE_POS, window)
+             / PEAK_FLOPS[res["q_dtype"]] * 1e3)
+    res["bound_ms"] = max(t_bytes, t_ops)
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    res["bytes"] = nbytes
+    return res
+
+
 def decode_kernel_phase(torch, seed: int) -> dict:
     names = json.loads(subprocess.run(
         [sys.executable, __file__, "--seed", str(seed),
@@ -2409,6 +2832,20 @@ def decode_kernel_phase(torch, seed: int) -> dict:
             if timed:
                 main[mode] = r
         torch.cuda.empty_cache()
+    cases = []
+    for mode in DEVICE_MODES:
+        for window in (None, 256):
+            timed = window is None and mode in main
+            cases.append(decode_device_case(torch, mode, window, seed, flush,
+                                            timed))
+            _line(cases[-1])
+            if timed:
+                main[mode]["device_pos"] = cases[-1]
+        torch.cuda.empty_cache()
+    for r in main.values():
+        r["device_cases"] = sum(c["mode"] == r["mode"] for c in cases)
+        r["device_max_abs_err"] = max(c["max_abs_err"] for c in cases
+                                      if c["mode"] == r["mode"])
     return main
 
 
@@ -2635,13 +3072,18 @@ def main() -> int:
     serve_info["nvidia_smi"] = smi
     _line(serve_info)
     _, paged_main = kernel_phase(torch, args.seed, final_pos)
-    _line(serve_role_phase(torch))
-    _line(serve_role_phase(torch, TIERS_ROLE_ENV))
+    _line(serve_role_phase(torch, {}))
+    _line(serve_role_phase(torch, PAGED_ROLE_ENV))
+    _line(serve_role_phase(torch, {**PAGED_ROLE_ENV, **TIERS_ROLE_ENV}))
     _line(tiers_reference_phase(torch, args.seed))
     tiers_info, tiers_tp1, tiers_tp2 = tiers_serve_phase(torch, args.seed)
     tiers_info["nvidia_smi"] = _smi()
     _line(tiers_info)
     tiers_main = tiers_kernel_phase(torch, args.seed, tiers_tp1["final_pos"])
+    _line(dense_reference_phase(torch, args.seed))
+    dense_info, dense_launches = dense_serve_phase(torch, args.seed,
+                                                   serve_info)
+    _line(dense_info)
     _line(train_reference_phase(torch, args.seed))
     train_info, flash_launches, _ = train_phase(torch, args.seed)
     train_info["nvidia_smi"] = _smi()
@@ -2725,6 +3167,7 @@ def main() -> int:
                              ("decode_attention_int8", "int8",
                               "int8_cache_rerun")):
         r = decode_main[mode]
+        dev = r["device_pos"]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "byteps_tpu_torch/csrc/decode_attention.cu",
@@ -2732,7 +3175,20 @@ def main() -> int:
             "launches": gen_launches[run]["decode"],
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # the position-vector form (the dense engine's decode tick):
+            # this mode's cases in phase 16, and its launches on the dense
+            # serve phase's flat run of this cache (bf16, or kv_quant int8)
+            "device_pos": {
+                "cases": r["device_cases"],
+                "max_abs_err": r["device_max_abs_err"],
+                "launches":
+                    dense_launches[mode]["decode_by_design"]["device_pos"],
+                **{k: dev[k] for k in (
+                    "pos", "kernel_ms", "per_slot_ms", "int_all_2047_ms",
+                    "library_ms", "plain_ms", "bound_ms", "bound_by",
+                    "kernel_ms_clean_l2", "per_slot_ms_clean_l2",
+                    "int_all_2047_ms_clean_l2", "library_ms_clean_l2")}}})
     dec, pre = quant_layers["decode"], quant_layers["prefill"]
     kernels.append({
         "name": "quant_dot", "route": "cuda",

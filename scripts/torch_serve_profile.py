@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""Where a decode tick of the port's paged serving engine spends its time
-on the GPU (byteps_tpu_torch, Llama-3.2-1B at full width, bf16, random
-weights).
+"""Where a decode tick of the port's serving engine spends its time on the
+GPU (byteps_tpu_torch, Llama-3.2-1B at full width, bf16, random weights).
 
     python3 scripts/torch_serve_profile.py [--ticks 20] [--seed 0]
         [--kv-dtype int8] [--tp 2] [--spec-k 4]
+    python3 scripts/torch_serve_profile.py --dense flat|grouped
+        [--ticks 20] [--seed 0]
 
 Admits 8 requests (prompts of 32-512 tokens, as ``chip_smoke.py``)
-straight into a ``ServingEngine`` (no TCP tier; an fp pool at tp=1
-without speculation unless asked), steps until every one is decoding,
-then measures steady decode (or, with ``--spec-k``, verify) ticks two
-ways:
+straight into a ``ServingEngine`` (no TCP tier; the paged engine with an
+fp pool at tp=1 without speculation unless asked; ``--dense`` the dense
+slot engine on flat rows, whose tick is one decode-kernel launch a layer
+at a position vector, or grouped rows; the paged engine's ``--kv-dtype``,
+``--tp`` and ``--spec-k`` are refused with it), steps until every one is
+decoding, then measures steady decode (or, with ``--spec-k``, verify)
+ticks three ways:
 
 * host wall time per tick (``engine.step()`` ending in the token
   read-back, which synchronizes);
 * ``torch.profiler`` over the same number of ticks: device time per
   kernel name, kernel launches per tick, and the device's busy share of
-  the wall (union of kernel intervals / profiled wall).
+  the wall (union of kernel intervals / profiled wall);
+* host time per tick split by layer: the seconds spent inside the
+  engine's step, the model's tick, each layer's attention (its q/k/v
+  projections, its attention call: the decode or paged kernel's wrapper
+  or plain attention) and MLP, the linear layers and the head, timed on
+  the host's clock around each call over the same number of ticks
+  (inclusive: a part holds the parts it calls).
 
 Prints one JSON line per measurement; ``--out`` also writes them all to
 a file.  Needs a CUDA device.
@@ -27,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -59,6 +70,54 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _host_split(eng, ticks: int) -> dict:
+    """Host milliseconds a tick inside each part of the tick (inclusive),
+    timed around every call over ``ticks`` steady ticks; the timers are
+    removed afterwards."""
+    import torch
+
+    from byteps_tpu_torch.models import transformer as tm
+
+    parts = {"engine_step": (type(eng), "step"),
+             "model_tick": (tm.Transformer, "decode"),
+             "model_tick_paged": (tm.Transformer, "decode_paged_fused"),
+             "attention_layer": (tm.Attention, "forward_cached"),
+             "attention_layer_paged": (tm.Attention, "forward_paged"),
+             "qkv_rope": (tm.Attention, "_qkv"),
+             "decode_kernel_wrapper": (tm, "decode_attention"),
+             "paged_kernel_wrapper": (tm, "paged_attention"),
+             "plain_attention": (tm, "_cached_attention"),
+             "mlp": (tm.MLP, "forward"),
+             "linear": (tm.Dense, "forward"),
+             "head": (tm.Transformer, "_head")}
+    spent = dict.fromkeys(parts, 0.0)
+    saved = []
+
+    def timer(key, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return timed
+
+    for key, (owner, name) in parts.items():
+        fn = owner.__dict__[name] if isinstance(owner, type) else getattr(
+            owner, name)
+        saved.append((owner, name, fn))
+        setattr(owner, name, timer(key, fn))
+    try:
+        torch.cuda.synchronize()
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    return {k: v / ticks * 1e3 for k, v in spent.items() if v}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ticks", type=int, default=20)
@@ -67,7 +126,11 @@ def main() -> int:
     ap.add_argument("--kv-dtype", default="", choices=("", "int8"))
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--dense", default="", choices=("", "flat", "grouped"))
     args = ap.parse_args()
+    if args.dense and (args.kv_dtype or args.tp != 1 or args.spec_k):
+        ap.error("--kv-dtype, --tp and --spec-k are the paged engine's; "
+                 "the dense engine takes none of them")
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -92,13 +155,24 @@ def main() -> int:
                             dtype=torch.bfloat16)
     model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
     init_weights(model, args.seed)
-    eng = ServingEngine(model, n_slots=8, max_seq=2048, block=16,
-                        kv_dtype=args.kv_dtype, tp=args.tp,
-                        spec_k=args.spec_k, device="cuda",
-                        metrics=ServeMetrics())
-    emit({"measure": "config", "kv_dtype": args.kv_dtype or "model",
-          "tp": args.tp, "spec_k": args.spec_k,
-          "device": torch.cuda.get_device_name(0)})
+    if args.dense:
+        eng = ServingEngine(model, n_slots=8, max_seq=2048,
+                            cache_layout=args.dense, device="cuda",
+                            metrics=ServeMetrics())
+    else:
+        eng = ServingEngine(model, n_slots=8, max_seq=2048, paged=True,
+                            block=16, kv_dtype=args.kv_dtype, tp=args.tp,
+                            spec_k=args.spec_k, device="cuda",
+                            metrics=ServeMetrics())
+    knobs = ({} if args.dense else {"kv_dtype": args.kv_dtype or "model",
+                                    "tp": args.tp, "spec_k": args.spec_k})
+    emit({"measure": "config", "engine": ("dense " + args.dense
+                                          if args.dense else "paged"),
+          **knobs, "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True,
+              text=True).stdout.strip()})
     rng = np.random.RandomState(args.seed)
     budget = 3 * args.ticks + 8
     reqs = [eng.submit(rng.randint(0, cfg.vocab_size, size=(n,)), budget)
@@ -140,6 +214,8 @@ def main() -> int:
         emit({"measure": "kernel", "name": name[:90],
               "launches_per_tick": n / args.ticks,
               "device_ms_per_tick": t / args.ticks / 1e3})
+    emit({"measure": "host_split", "ticks": args.ticks,
+          "ms_per_tick": _host_split(eng, args.ticks)})
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -29,10 +29,14 @@ and on the first design where it does not (H = 36), with bit-identical
 reruns.  Decode attention (fp and int8 caches): fp32 1e-4 absolute
 (online softmax over splits vs one dense softmax); a bf16 q (bf16 cache,
 or int8 with scales) on the kernel on tensor cores, one launch a call by
-profiler name, within 2 bf16 ulps of each output row's largest reference
-magnitude (p is rounded to bf16 before the PV product at other running
-maxima, and the output once), reruns bit-identical (warps and splits
-merge in a fixed order).  The int8 product, in each of its three
+profiler name (taken in a fresh process, never an empty profile), and
+every call held to the launches the library counts by design, within 2
+bf16 ulps of each output row's largest reference magnitude (p is rounded
+to bf16 before the PV product at other running maxima, and the output
+once), reruns bit-identical (warps and splits merge in a fixed order);
+the device form (a position vector, 8 slots at mixed depths) under the
+same tolerances, each slot's bits independent of the others' positions,
+and a CUDA graph replayed at rewritten positions.  The int8 product, in each of its three
 designs (swap up to 64 bf16 rows, tma above, the tile design for fp32 x
 and the shapes neither takes; the rule's choice held to the launches the
 library counts): bf16 within one bf16 ulp of the largest output (2^-7 of
@@ -566,28 +570,8 @@ def _decode_inputs(seed, B, S, H, KV, D, dtype, quant):
             vq.reshape(B, S, -1).to(dev), ks.to(dev), vs.to(dev))
 
 
-def _decode_kernel_names(fn):
-    """``fn()`` and the names of the decode kernels it launched, by the
-    profiler (a small kernel leads: the profiler may miss the first kernel
-    it sees)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    lead = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        lead.add_(1)
-        out = fn()
-        torch.cuda.synchronize()
-    return out, [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and "decode_" in e.name]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,quant", [
-    (torch.float32, False), (torch.bfloat16, False),
-    (torch.float32, True), (torch.bfloat16, True)])
-@pytest.mark.parametrize("B,S,H,KV,D,pos,window,plan", [
+# (B, S, H, KV, D, pos, window, plan): the decode cases, by id
+DECODE_CASES = [
     (8, 2048, 32, 8, 64, 2047, None, "long"),  # Llama-3.2-1B, full cache:
                                                # ring splits of >= 8 chunks
     (1, 2048, 32, 8, 64, 1300, None, "ragged"),  # 21 chunks: a short split
@@ -596,10 +580,97 @@ def _decode_kernel_names(fn):
     (2, 160, 4, 4, 16, 150, None, None),       # MHA, head_dim 16
     (4, 300, 32, 1, 64, 0, None, None),        # MQA (two row tiles), pos 0
     (2, 513, 4, 4, 32, 300, 48, None),         # head_dim 32, window
-])
+]
+DECODE_MODES = [(torch.float32, False), (torch.bfloat16, False),
+                (torch.float32, True), (torch.bfloat16, True)]
+
+
+def _case_key(case, dtype, quant) -> str:
+    return "-".join(map(str, case[:7])) + f"/{dtype}/{quant}"
+
+
+def _decode_call(case, dtype, quant, seed=6):
+    B, S, H, KV, D, pos, window, _ = case
+    q, ck, cv, ks, vs = _decode_inputs(seed, B, S, H, KV, D, dtype, quant)
+    return lambda: da.decode_attention(q, ck, cv, pos, k_scale=ks,
+                                       v_scale=vs, window=window)
+
+
+def print_decode_kernel_names():
+    """Print, as one JSON line, the decode kernels (profiler names) one
+    call of every case launched, keyed ``"case/dtype/quant"``.  Run in a
+    fresh process (a long pytest process's profiler can stop recording
+    device events, as chip_smoke's long run's does), under ONE profiler
+    session: a process that opened some twenty sessions saw an empty one.
+    Every call starts with its main kernel (``decode_ring_kernel`` or
+    ``decode_attention_kernel``) and the first design's combine kernel
+    follows it, so the kernels in launch order split into the calls; a
+    profile that lost a main kernel cannot be split and prints no names."""
+    import json
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [(_case_key(case, dtype, quant),
+              _decode_call(case, dtype, quant))
+             for case in DECODE_CASES for dtype, quant in DECODE_MODES]
+    for _, call in calls:
+        call()                 # build and warm, outside the profile
+    lead = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lead.add_(1)           # the profiler can miss its first kernel
+        torch.cuda.synchronize()
+        for _, call in calls:
+            call()
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and "decode_" in e.name),
+                     key=lambda e: e.time_range.start)
+    groups = []
+    for e in kernels:
+        if "decode_attention_combine" in e.name and groups:
+            groups[-1].append(e.name)
+        else:
+            groups.append([e.name])
+    print(json.dumps({"keys": [k for k, _ in calls], "groups": groups}))
+
+
+@pytest.fixture(scope="module")
+def decode_kernel_names():
+    """The profiler names of every decode case's kernels, taken once in
+    a fresh process (``print_decode_kernel_names``)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, {!r}); "
+            "import test_torch_kernels_cuda as t; "
+            "t.print_decode_kernel_names()").format(here)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600,
+                          cwd=os.path.dirname(here))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(got["groups"]) == len(got["keys"]), (
+        f"the profile holds {len(got['groups'])} decode calls, "
+        f"{len(got['keys'])} were made: {got['groups']}")
+    return dict(zip(got["keys"], got["groups"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,quant", DECODE_MODES)
+@pytest.mark.parametrize("B,S,H,KV,D,pos,window,plan", DECODE_CASES)
 def test_decode_attention_kernel_matches_plain_version(dtype, quant, B, S, H,
                                                        KV, D, pos, window,
-                                                       plan):
+                                                       plan,
+                                                       decode_kernel_names):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, ck, cv, ks, vs = _decode_inputs(6, B, S, H, KV, D, dtype, quant)
@@ -617,10 +688,19 @@ def test_decode_attention_kernel_matches_plain_version(dtype, quant, B, S, H,
         return da.decode_attention(q, ck, cv, pos, k_scale=ks, v_scale=vs,
                                    window=window)
 
-    before = da.launches
-    out, names = _decode_kernel_names(call)
+    before, by = da.launches, dict(da.design_launches)
+    out = call()
+    # the library's own counts, by design: one ring launch (its split
+    # merge inside), or the first design's kernel and, where it splits,
+    # its combine kernel
     assert da.launches == before + 1
-    if ring:  # one launch, the split merge inside it
+    took = [da.design_launches[k] - by[k] for k in da.COUNTS]
+    assert took == da._kernels_for(ring, nsplit, False), took
+    assert took == ([1, 0, 0, 0] if ring else [0, 1, int(nsplit > 1), 0])
+    # and by the profiler, in a fresh process: never an empty profile
+    names = decode_kernel_names[_case_key(
+        (B, S, H, KV, D, pos, window), dtype, quant)]
+    if ring:
         assert len(names) == 1 and "decode_ring_kernel" in names[0], names
     else:
         assert any("decode_attention_kernel" in k for k in names), names
@@ -639,6 +719,75 @@ def test_decode_attention_kernel_matches_plain_version(dtype, quant, B, S, H,
     # the same bits
     assert torch.equal(out, call())
     assert torch.equal(out, call(ck.view(B, S, KV, D), cv.view(B, S, KV, D)))
+
+
+# the device form at the dense engine's shape: 8 slots at mixed depths
+DEVICE_POS = [0, 15, 16, 63, 255, 1000, 1919, 2047]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,quant", DECODE_MODES)
+@pytest.mark.parametrize("window", [None, 256])
+def test_decode_attention_device_positions(dtype, quant, window):
+    """A ``[B]`` position vector on the card: each slot against the plain
+    version at its own position (phase 16's tolerances), reruns
+    bit-identical, each slot's bits unchanged when the others' positions
+    change, the tickets back at zero, the vector at 2047 everywhere
+    bit-identical to the int call, and a CUDA graph captured once and
+    replayed after the vector is rewritten in place (no host read)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, S, H, KV, D = 8, 2048, 32, 8, 64
+    q, ck, cv, ks, vs = _decode_inputs(7, B, S, H, KV, D, dtype, quant)
+    ring = dtype == torch.bfloat16
+    posv = torch.tensor(DEVICE_POS, dtype=torch.int32, device="cuda")
+
+    def call(p):
+        return da.decode_attention(q, ck, cv, p, k_scale=ks, v_scale=vs,
+                                   window=window)
+
+    def check(out, p):
+        ref = da.decode_attention_reference(q, ck, cv, p, k_scale=ks,
+                                            v_scale=vs, window=window)
+        assert torch.isfinite(out.float()).all()
+        if ring:
+            assert _row_ulps(out, ref) <= 2, _row_ulps(out, ref)
+        else:
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= 1e-4, err
+
+    nsplit, _ = da._splits(B, KV, da._max_chunks(S, window),
+                           torch.cuda.get_device_properties(
+                               0).multi_processor_count, ring)
+    by = dict(da.design_launches)
+    out = call(posv)
+    took = [da.design_launches[k] - by[k] for k in da.COUNTS]
+    assert took == da._kernels_for(ring, nsplit, True), took
+    check(out, posv)
+    assert torch.equal(out, call(posv))
+    # every slot's bits alone: the others moved to other depths
+    other = torch.tensor(DEVICE_POS[::-1], dtype=torch.int32, device="cuda")
+    for b in range(B):
+        moved = other.clone()
+        moved[b] = posv[b]
+        assert torch.equal(call(moved)[b], out[b]), b
+    torch.cuda.synchronize()
+    if ring and nsplit > 1:
+        assert not da._tickets[q.device][:B * KV].any()
+    full = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+    assert torch.equal(call(full), call(S - 1))
+    # one capture, replayed at new positions written into the same vector
+    live = posv.clone()
+    call(live)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call(live)
+    for p in (DEVICE_POS, DEVICE_POS[::-1], [2047] * B, [5] * B):
+        live.copy_(torch.tensor(p, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        check(got, live)
+        assert torch.equal(got, call(live))
 
 
 def _quant_inputs(seed, M, N, K, dtype, bias):

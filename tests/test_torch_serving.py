@@ -74,7 +74,7 @@ def _prompts(lengths, seed=10):
 
 def _port_engine(tiny, **kw):
     kw.setdefault("n_slots", 4)
-    return ServingEngine(_port_model(tiny), max_seq=64, block=8,
+    return ServingEngine(_port_model(tiny), max_seq=64, paged=True, block=8,
                          device="cpu", metrics=ServeMetrics(), **kw)
 
 

@@ -103,7 +103,8 @@ def _port(models, **kw):
     kw.setdefault("n_slots", 4)
     kw.setdefault("max_seq", 64)
     kw.setdefault("block", 8)
-    return ServingEngine(model, device="cpu", metrics=ServeMetrics(), **kw)
+    return ServingEngine(model, paged=True, device="cpu",
+                         metrics=ServeMetrics(), **kw)
 
 
 def _jax(models, **kw):

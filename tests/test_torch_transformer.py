@@ -160,3 +160,59 @@ def test_dense_decode_matches_jax_decode(models):
                          method=jt.Transformer.decode)
     pl, _ = pmodel.decode(torch.from_numpy(nxt).long(), pc, 7)
     np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("layout,quant", [("grouped", False), ("flat", False),
+                                          ("grouped", True), ("flat", True)])
+@pytest.mark.parametrize("T", [1, 2])
+def test_decode_at_a_position_vector_writes_and_masks_per_row(models, layout,
+                                                              quant, T):
+    """``decode`` with a ``[B]`` position vector: each row writes its fresh
+    K/V at ``[pos[b], pos[b] + T)`` and nowhere else, attends only keys up
+    to its own positions (rows past them hold garbage that must not
+    reach the output), and gives the logits of a one-row call at its own
+    int offset as at a traced position (``fresh_prefill=False``: the JAX
+    engine's per-slot ``decode``, whose position is traced, takes no
+    ``pos = 0`` shortcut, so an int8 row at 0 attends its stored values),
+    within 1e-4."""
+    _, _, _, pcfg, pmodel = models
+    B, S = 3, 32
+    pos = [4, 0, 20]
+    rng = np.random.RandomState(6)
+    toks = torch.from_numpy(rng.randint(0, 97, size=(B, T))).long()
+    caches = pt.init_cache(pcfg, B, S, quantized=quant, layout=layout)
+    for layer in caches:
+        for n, c in layer.items():
+            if c.dtype == torch.int8:
+                c.copy_(torch.from_numpy(rng.randint(-127, 128, size=c.shape)))
+            else:
+                c.copy_(torch.from_numpy(rng.uniform(
+                    0.005, 0.02, size=c.shape) if "scale" in n
+                    else rng.randn(*c.shape)))
+    before = [{n: c.clone() for n, c in layer.items()} for layer in caches]
+    # garbage past every row's last query position: masked, never attended
+    dirty = [{n: c.clone() for n, c in layer.items()} for layer in caches]
+    for layer in dirty:
+        for n, c in layer.items():
+            for b, p in enumerate(pos):
+                c[b, p + T:] = 100 if c.dtype == torch.int8 else 1e4
+    vec = torch.tensor(pos, dtype=torch.int32)
+    got, _ = pmodel.decode(toks, caches, vec)
+    got_dirty, _ = pmodel.decode(toks, dirty, vec)
+    np.testing.assert_array_equal(got.numpy(), got_dirty.numpy())
+    for b, p in enumerate(pos):
+        row = [{n: c[b:b + 1].clone() for n, c in layer.items()}
+               for layer in before]
+        want, row = pmodel.decode(toks[b:b + 1], row, p, fresh_prefill=False)
+        np.testing.assert_allclose(got[b:b + 1].numpy(), want.numpy(),
+                                   atol=TOL, rtol=0)
+        for new, old, one in zip(caches, before, row):
+            for n in new:
+                written = new[n][b, p:p + T]
+                np.testing.assert_allclose(written.float().numpy(),
+                                           one[n][0, p:p + T].float().numpy(),
+                                           atol=1e-5, rtol=0)
+                # nothing else of the row moved
+                keep = torch.ones(S, dtype=torch.bool)
+                keep[p:p + T] = False
+                assert torch.equal(new[n][b, keep], old[n][b, keep]), n

@@ -7,9 +7,9 @@ either package: the logging pair ``common/logging.py`` needs, the
 ``BYTEPS_SERVE_*`` knobs ``serving/frontend.py:serve_from_env`` reads,
 and the worker knobs ``api.init``, ``training.Trainer`` and
 ``make_data_parallel_step`` read.  Knobs naming features the port does
-not have yet (checkpoints, the gather fallback, the dense prefix store's
-granularity, a multi-worker world, async PS) are still parsed, so that a non-default value is refused
-loudly instead of ignored.
+not have yet (checkpoints, a multi-worker world, async PS) are still
+parsed, so that a non-default value is refused loudly instead of
+ignored.
 """
 
 from __future__ import annotations
@@ -82,16 +82,16 @@ class Config:
     serve_model: str = ""         # "k=v,..." TransformerConfig overrides
     serve_checkpoint: str = ""    # not ported: refused when set
     serve_chunk: int = 0          # chunked prefill size in tokens; 0 = off
-    serve_prefix_cache: bool = False  # radix prefix store over the pool
-    # the dense store's match granularity (tokens); a paged store matches
-    # at serve_block, so a value other than serve_block is refused
+    serve_prefix_cache: bool = False  # prefix store (row-copy or radix)
+    # the dense store's match granularity (tokens; unset = 16); a paged
+    # store matches at serve_block, so another value is refused there
     serve_prefix_block: Optional[int] = None
     serve_prefix_mb: int = 256    # prefix store byte budget (MiB); 0 = inf
     serve_paged: bool = False     # paged KV pool; off = dense slot engine
     serve_block: int = 16         # KV block size in tokens
     serve_kv_mb: int = 0          # KV pool budget (MiB); 0 = dense-equiv
     serve_kv_dtype: str = ""      # "" (model dtype) or "int8"
-    serve_paged_kernel: str = "auto"  # auto/on = the kernel; off refused
+    serve_paged_kernel: str = "auto"  # auto/on = the kernel; off = gather
     serve_spec: bool = False      # speculative decoding (n-gram proposals)
     serve_spec_k: int = 4         # max proposed tokens (rounds down to 2^n)
     serve_spec_ngram: int = 3     # longest trailing n-gram matched

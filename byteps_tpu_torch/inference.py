@@ -1,11 +1,12 @@
 """Cached generation — the port of ``byteps_tpu/inference.py``:
 ``make_generate_fn`` / ``generate`` (``:231``, ``:443``) over the flat or
 grouped, fp or int8 KV caches of ``models.transformer.init_cache``;
-``quantize_params`` (``:136``), the int8 weight-only model;
-``classify_divergence`` (``:39``); ``sample_logits`` (``:192``,
-temperature, top-k, top-p) with the port's own sampling-noise chain; and
+``beam_search`` (``:466``); ``speculative_generate`` (``:605``) with
 ``truncated_draft`` (``:578``), the LayerSkip self-draft that
-``lm_loss_fn(early_exit=...)`` trains.
+``lm_loss_fn(early_exit=...)`` trains; ``quantize_params`` (``:136``),
+the int8 weight-only model; ``classify_divergence`` (``:39``); and
+``sample_logits`` (``:192``, temperature, top-k, top-p) with the port's
+own sampling-noise chain.
 
 Generation runs where the model's weights live (``Transformer(cfg,
 device=...)``): prefill is one ``Transformer.decode`` over the prompt at
@@ -39,9 +40,9 @@ from torch import nn
 
 from .models.transformer import Dense, Transformer, init_cache
 
-__all__ = ["make_generate_fn", "generate", "sample_logits",
+__all__ = ["make_generate_fn", "generate", "beam_search", "sample_logits",
            "quantize_params", "classify_divergence", "token_generator",
-           "truncated_draft"]
+           "truncated_draft", "speculative_generate"]
 
 
 def token_generator(seed: int, k: int) -> torch.Generator:
@@ -212,6 +213,169 @@ def generate(model: Transformer, prompt, max_new_tokens: int, *,
                           pad_id=pad_id, kv_quant=kv_quant,
                           cache_len=cache_len, cache_layout=cache_layout)
     return fn(prompt, seed)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest values in
+    descending order, ties to the lower index (a stable sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@torch.no_grad()
+def beam_search(model: Transformer, prompt, max_new_tokens: int,
+                num_beams: int, *, length_penalty: float = 1.0,
+                eos_id: Optional[int] = None, pad_id: int = 0,
+                cache_len: Optional[int] = None) -> dict:
+    """Beam search with the KV cache (the JAX ``beam_search``): every live
+    beam expands over the vocabulary and the ``num_beams`` best cumulative
+    log-probabilities of each batch row survive.  The prefill runs once
+    on the ``[B, T]`` prompt (the flash forward under ``attn_impl="flash"``
+    at a prompt passing its gate), its ``K`` best first tokens seed the
+    beams, and the caches (``init_cache``'s default layout: flat on a CUDA
+    device, so every step is one decode-kernel launch a layer over the
+    ``B * K`` rows) are tiled beam-major to ``[B * K, ...]``; each step
+    reorders every cache leaf (int8 scales included) to the surviving
+    parents with ``index_select``.  EOS is frozen-slot: a beam that emits
+    ``eos_id`` keeps its slot, emitting ``pad_id`` at no cost and a frozen
+    length.  Beams are ranked by ``score / length ** length_penalty``.
+
+    Returns ``{"tokens": [B, N], "scores": [B], "beam_tokens": [B, K,
+    N], "beam_scores": [B, K]}`` — tokens and scores are the best beam's.
+    ``cache_len`` over-allocates the cache (smaller than ``T + N``
+    raises)."""
+    cfg = model.cfg
+    K, V, N = num_beams, cfg.vocab_size, max_new_tokens
+    dev = model.device
+    prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(
+        prompt) else prompt).to(dev, torch.long)
+    B, T = prompt.shape
+    if cache_len is not None and cache_len < T + N:
+        raise ValueError(f"cache_len={cache_len} < prompt + max_new_tokens "
+                         f"({T + N})")
+    caches = init_cache(cfg, B, cache_len or (T + N), device=dev)
+    logits, _ = model.decode(prompt, caches, 0, last_only=True)
+    scores, tok0 = _top_k(torch.log_softmax(logits[:, -1].float(), -1), K)
+    caches = [{n: c.repeat_interleave(K, dim=0) for n, c in layer.items()}
+              for layer in caches]
+    tok = tok0.reshape(B * K)
+    done = (tok == eos_id if eos_id is not None
+            else torch.zeros(B * K, dtype=torch.bool, device=dev))
+    lengths = torch.ones(B * K, dtype=torch.int32, device=dev)
+    history = torch.full((B * K, N), pad_id, dtype=torch.long, device=dev)
+    history[:, 0] = tok
+    scores = scores.reshape(B * K)
+    # finished beams: only pad continues, at zero cost
+    pad_row = torch.full((V,), -1e30, device=dev)
+    pad_row[pad_id] = 0.0
+    base = torch.arange(B, device=dev)[:, None] * K
+    for i in range(N - 1):
+        logits, _ = model.decode(tok[:, None], caches, T + i)
+        lp = torch.log_softmax(logits[:, -1].float(), -1)       # [B*K, V]
+        lp = torch.where(done[:, None], pad_row[None], lp)
+        cand = (scores[:, None] + lp).reshape(B, K * V)
+        new_scores, idx = _top_k(cand, K)                       # [B, K]
+        parent = (base + idx // V).reshape(-1)
+        caches = [{n: c.index_select(0, parent) for n, c in layer.items()}
+                  for layer in caches]
+        done, lengths = done[parent], lengths[parent]
+        history = history[parent]
+        tok = torch.where(done, pad_id, (idx % V).reshape(-1))
+        history[:, i + 1] = tok
+        lengths = torch.where(done, lengths, lengths + 1)
+        if eos_id is not None:
+            done = done | (tok == eos_id)
+        scores = new_scores.reshape(-1)
+    norm = (scores / lengths.float() ** length_penalty).reshape(B, K)
+    best = torch.argmax(norm, dim=-1)
+    history = history.reshape(B, K, N)
+    rows = torch.arange(B, device=dev)
+    return {"tokens": history[rows, best], "scores": norm[rows, best],
+            "beam_tokens": history, "beam_scores": norm}
+
+
+@torch.no_grad()
+def speculative_generate(target: Transformer, draft: Transformer, prompt,
+                         max_new_tokens: int, *, gamma: int = 4,
+                         eos_id: Optional[int] = None, pad_id: int = 0,
+                         cache_len: Optional[int] = None) -> dict:
+    """Greedy speculative decoding (the JAX ``speculative_generate``): the
+    draft proposes ``gamma`` tokens one at a time, the target verifies
+    them in ONE ``gamma + 1``-token ``verify_tokens`` call, and the
+    longest agreeing prefix is accepted plus the target's own next token,
+    so each target forward emits 1 to ``gamma + 1`` tokens; the output is
+    the target's own greedy decode but for near-tie argmax flips between
+    the verify's and a one-token step's sums.  The target cache is grouped
+    (every target call but the prefill is a ``tq > 1`` verify); the draft
+    cache is ``init_cache``'s default (flat on a CUDA device: every draft
+    step one decode-kernel launch a layer).  Acceptance is lockstep at the
+    batch's shortest accepted prefix (one scalar position for every row),
+    rows that emitted ``eos_id`` emit ``pad_id`` after it, within a round
+    too; rejected K/V lies past the position and is overwritten later.
+    The draft is any model over the same vocabulary, e.g.
+    :func:`truncated_draft` of the target.
+
+    Returns ``{"tokens": [B, N], "acceptance": accepted drafts over live
+    drafted slots, "rounds": target verify calls,
+    "tokens_per_target_forward": N / rounds}``."""
+    N, G = max_new_tokens, gamma
+    dev = target.device
+    prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(
+        prompt) else prompt).to(dev, torch.long)
+    B, T = prompt.shape
+    need = T + N + G + 1
+    if cache_len is not None and cache_len < need:
+        raise ValueError(f"cache_len={cache_len} < prompt + max_new_tokens "
+                         f"+ gamma + 1 ({need})")
+    S = cache_len or need
+    t_caches = init_cache(target.cfg, B, S, layout="grouped", device=dev)
+    d_caches = init_cache(draft.cfg, B, S, device=dev)
+    t_logits, _ = target.decode(prompt, t_caches, 0, last_only=True)
+    draft.decode(prompt, d_caches, 0, last_only=True)
+    last = torch.argmax(t_logits[:, -1], dim=-1)         # pending token
+    out = torch.full((B, N + G + 1), pad_id, dtype=torch.long, device=dev)
+    out[:, 0] = last
+    done = (last == eos_id if eos_id is not None
+            else torch.zeros(B, dtype=torch.bool, device=dev))
+    cols = torch.arange(G + 1, device=dev)[None]
+    emitted, rounds, acc, live_slots = 1, 0, 0, 0
+    while emitted < N:
+        pos = T + emitted - 1     # both caches' valid length
+        drafts, tok = [], last
+        for j in range(G):
+            lg, _ = draft.decode(tok[:, None], d_caches, pos + j)
+            tok = torch.argmax(lg[:, -1], dim=-1)
+            drafts.append(tok)
+        drafts = torch.stack(drafts, dim=1)               # [B, G]
+        t_lg, _ = target.verify_tokens(
+            torch.cat([last[:, None], drafts], dim=1), t_caches, pos)
+        t_arg = torch.argmax(t_lg, dim=-1)                # [B, G+1]
+        k = torch.cumprod((t_arg[:, :G] == drafts).int(), dim=1).sum(1)
+        kmin = int(torch.where(done, G, k).min())
+        take = kmin + 1
+        corr = t_arg[:, kmin]
+        toks = torch.where(cols < kmin, torch.cat(
+            [drafts, drafts[:, :1]], dim=1), pad_id)
+        toks[:, kmin] = corr
+        toks = torch.where(cols >= take, pad_id, toks)
+        done_new = done
+        if eos_id is not None:
+            # positions after a row's first EOS become pad
+            is_eos = (toks == eos_id) & (cols < take)
+            after = (torch.cumsum(is_eos.int(), dim=1) - is_eos.int()) > 0
+            toks = torch.where(after, pad_id, toks)
+            done_new = done | is_eos.any(dim=1)
+        toks = torch.where(done[:, None], pad_id, toks)
+        out[:, emitted:emitted + G + 1] = toks
+        last = torch.where(done, last, corr)
+        n_live = int((~done).sum())
+        done = done_new
+        emitted += take
+        rounds += 1
+        acc += kmin * n_live
+        live_slots += G * n_live
+    return {"tokens": out[:, :N], "acceptance": acc / max(live_slots, 1),
+            "rounds": rounds, "tokens_per_target_forward": N / max(rounds, 1)}
 
 
 def _numpy(x) -> np.ndarray:

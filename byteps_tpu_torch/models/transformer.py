@@ -29,10 +29,12 @@ What is carried over, by JAX counterpart:
   otherwise), dispatched as the JAX ``Attention``;
 * ``Transformer`` with ``hidden`` / ``forward`` (training), ``decode``
   (at one offset, or at one position a row — the JAX ``decode`` under the
-  dense serving engine's ``vmap``), ``prefill_chunk``,
-  ``prefill_chunk_paged``, ``decode_paged_fused``, ``gather_paged_rows``,
-  ``logits`` (fp32 logits, the head accumulated in fp32 from
-  model-dtype operands) and ``head_weight`` (the head in the model dtype,
+  dense serving engine's ``vmap``), ``verify_tokens``, ``prefill_chunk``,
+  ``prefill_chunk_paged``, ``decode_paged_fused``, the gather fallback's
+  ``decode_paged`` / ``verify_tokens_paged`` (every slot's rows gathered
+  in one batch, ``gather_paged_rows``, and written back,
+  ``scatter_paged_rows``), ``logits`` (fp32 logits, the head accumulated
+  in fp32 from model-dtype operands) and ``head_weight`` (the head in the model dtype,
   for the fused LM-head cross-entropy).
 
 Parameters are kept in ``param_dtype`` (fp32 by default, as flax's
@@ -66,8 +68,8 @@ from ..ops.paged_attention import paged_attention, paged_attention_sharded
 from ..ops.quant_dot import quant_linear, quantize_weight
 
 __all__ = ["TransformerConfig", "Transformer", "apply_rope",
-           "gather_paged_rows", "init_cache", "init_weights",
-           "local_attention", "ATTN_IMPLS", "CACHE_LAYOUTS"]
+           "gather_paged_rows", "scatter_paged_rows", "init_cache",
+           "init_weights", "local_attention", "ATTN_IMPLS", "CACHE_LAYOUTS"]
 
 ATTN_IMPLS = ("local", "flash")
 CACHE_LAYOUTS = ("auto", "flat", "grouped")
@@ -495,8 +497,9 @@ class Attention(nn.Module):
         position is traced): its rope
         angles, its K/V write at ``[pos[b], pos[b] + T)`` and its causal
         mask are its own, no value of ``pos`` is read on the host, and
-        the two ``pos = 0`` shortcuts never apply.  The caller keeps every
-        write inside the row."""
+        the two ``pos = 0`` shortcuts never apply.  ``at`` then may carry
+        the fresh rows' source index of a span clamped at the row's end
+        (``Transformer.decode``), so every write stays inside the row."""
         cfg = self.cfg
         if not cfg.causal:
             raise ValueError("KV-cache decode requires causal=True")
@@ -511,13 +514,20 @@ class Attention(nn.Module):
                              f"the {S}-row cache")
         quant = ck.dtype == torch.int8
         flat = ck.ndim == 3
+        # ``at`` may carry a source index of the fresh rows (a span clamped
+        # at the row's end, see ``Transformer.decode``)
+        dst, src = at[:2], (at[2:] or None)
+
+        def put(c, fresh):
+            c[dst] = fresh if src is None else fresh[src]
+
         kw, vw = k, v
         if quant:
             (kw, ks), (vw, vs) = _quantize_kv(k), _quantize_kv(v)
-            row["k_scale"][at] = ks
-            row["v_scale"][at] = vs
-        ck[at] = kw.reshape(B, T, *ck.shape[2:]).to(ck.dtype)
-        cv[at] = vw.reshape(B, T, *cv.shape[2:]).to(cv.dtype)
+            put(row["k_scale"], ks)
+            put(row["v_scale"], vs)
+        put(ck, kw.reshape(B, T, *ck.shape[2:]).to(ck.dtype))
+        put(cv, vw.reshape(B, T, *cv.shape[2:]).to(cv.dtype))
         scales = (row["k_scale"], row["v_scale"]) if quant else (None, None)
         at_zero = not per_row and pos == 0 and fresh_prefill
         if (at_zero and T > 1 and cfg.attn_impl == "flash"
@@ -591,9 +601,10 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Causal LM.  ``forward(tokens [B, T])`` (training) and, over
-    per-layer KV caches, ``decode`` against dense rows,
-    ``prefill_chunk_paged`` / ``decode_paged_fused`` against the paged
-    block pool.  Logits are ``[B, T, vocab]`` fp32.  ``param_dtype`` is
+    per-layer KV caches, ``decode`` / ``verify_tokens`` against dense
+    rows, ``prefill_chunk_paged`` / ``decode_paged_fused`` and the gather
+    fallback's ``decode_paged`` / ``verify_tokens_paged`` against the
+    paged block pool.  Logits are ``[B, T, vocab]`` fp32.  ``param_dtype`` is
     the dtype the weights are kept in (fp32 for training; see the module
     docstring)."""
 
@@ -724,11 +735,24 @@ class Transformer(nn.Module):
         if isinstance(pos, torch.Tensor):
             pos = pos.to(torch.int32)
             positions = pos.long()[:, None] + steps[None]       # [B, T]
-            at = (torch.arange(B, device=tokens.device)[:, None], positions)
+            rows = torch.arange(B, device=tokens.device)[:, None]
+            at = (rows, positions)
+            S = caches[0]["k"].shape[1]
+            if T > 1:
+                # a span may run past its row's end (a verify at the last
+                # positions, whose rows there are discarded): those writes
+                # land on the row's last position with the value written
+                # there, so every write stays in the row and no position
+                # gets two different values
+                src = torch.minimum(steps[None], (S - 1) - pos.long()[:, None])
+                at = (rows, pos.long()[:, None] + src, rows, src)
+            # and a learned position table's lookup stays in range
+            x = self._embed(tokens,
+                            positions.clamp(max=self.cfg.max_seq_len - 1))
         else:
             positions = (pos + steps)[None]                     # [1, T]
             at = (slice(None), slice(pos, pos + T))
-        x = self._embed(tokens, positions)
+            x = self._embed(tokens, positions)
         for block, c in zip(self.blocks, caches):
             x = block.forward_cached(x, c, pos, positions, at, fresh_prefill)
         return self._head(x, last_only, last_idx), caches
@@ -747,7 +771,8 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def prefill_chunk_paged(self, tokens: torch.Tensor, pools: Sequence[dict],
-                            table: torch.Tensor, pos: int, last_idx: int):
+                            table: torch.Tensor, pos: int, last_idx: int,
+                            tp: int = 1):
         """Position-offset chunk prefill over the paged pool: gather the
         slot's rows through ``table [max_blocks]`` (up to the chunk's
         last block), run the dense chunk forward at ``[pos, pos + C)``,
@@ -760,31 +785,21 @@ class Transformer(nn.Module):
         Every chunk, the first included, attends the gathered rows
         (``fresh_prefill=False``): over an int8 pool the chunk writes
         quantized rows and attends the s8 values and scales
-        (``_cached_attention_q8``), the bytes decode reads.  A tp pool is
-        gathered into the unsharded row and scattered back per shard."""
-        cfg = self.cfg
+        (``_cached_attention_q8``), the bytes decode reads.  A tp pool
+        (``tp`` shards) is gathered into the unsharded row and scattered
+        back per shard; a grouped pool (the gather fallback's fp pool at
+        tp = 1) is gathered as it is."""
+        _check_pool_tp(self.cfg, pools, tp)
         C = tokens.shape[1]
-        k0 = pools[0]["k"]
-        tp = k0.shape[0] if k0.ndim == 4 else 1
-        bs = k0.shape[-2]
+        bs = pools[0]["k"].shape[2 if tp > 1 else 1]
         nb = -(-(pos + C) // bs)
-        rows = gather_paged_rows(pools, table, hw_blocks=nb)
-        grouped = [{n: (r[n].view(1, nb * bs, cfg.kv_heads, cfg.d_head)
-                        if n in ("k", "v") else r[n]) for n in r}
-                   for r in rows]
-        logits, _ = self.decode(tokens, grouped, pos, last_idx=last_idx,
+        rows = _regroup_tp_rows(self.cfg, gather_paged_rows(
+            pools, table, hw_blocks=nb, tp=tp))
+        logits, _ = self.decode(tokens, rows, pos, last_idx=last_idx,
                                 fresh_prefill=False)
         p = torch.arange(pos, pos + C, device=table.device)
-        blk = table[p // bs].long()
-        off = p % bs
-        for pool, row in zip(pools, rows):
-            for n in pool:
-                fresh = row[n][0, pos:pos + C]
-                if tp == 1:
-                    pool[n][blk, off] = fresh
-                else:
-                    pool[n][:, blk, off] = fresh.reshape(C, tp, -1).permute(
-                        1, 0, 2)
+        scatter_paged_rows(pools, rows, p[None], table[p // bs][None],
+                           (p % bs)[None], tp)
         return logits
 
     @torch.no_grad()
@@ -811,32 +826,164 @@ class Transformer(nn.Module):
             x = block.forward_paged(x, c, tables, pos, wb, wo)
         return self._head(x, last_only, None)
 
+    @torch.no_grad()
+    def verify_tokens(self, tokens: torch.Tensor, caches: Sequence[dict],
+                      pos):
+        """Speculative verify (JAX ``verify_tokens``): ``decode`` at ``k +
+        1`` query positions — ``tokens [B, k+1]``, the last emitted token
+        and ``k`` proposals, written at ``[pos, pos + k + 1)`` — returning
+        the logits at every position ``[B, k+1, vocab]`` and the caches.
+        One attention implementation, so an accepted token's logits are
+        the one-token decode's, and a rejected position's K/V lies past
+        the caller's cursor, rewritten before the mask admits it.  ``pos``
+        is an int or a ``[B]`` int32 tensor (the dense engine's verify,
+        each slot at its cursor; a span running past its row's end is
+        clamped there, ``decode``)."""
+        return self.decode(tokens, caches, pos)
 
-def gather_paged_rows(pools: Sequence[dict], table: torch.Tensor,
-                      hw_blocks: Optional[int] = None) -> List[dict]:
-    """One slot's contiguous view of flat per-layer pools ``[n_blocks,
-    block, X]`` through its table ``[max_blocks]`` ->
-    ``[1, hw_blocks * block, X]`` (a copy; ``hw_blocks`` caps the
-    gather at the slot's high-water block).  Per-shard pools ``[tp,
-    n_blocks, block, X]`` give the unsharded row ``[1, S, tp * X]``: the
-    shards' minor axes side by side, which is the head-major row."""
+    @torch.no_grad()
+    def decode_paged(self, tokens: torch.Tensor, pools: Sequence[dict],
+                     tables: torch.Tensor, pos,
+                     hw_blocks: Optional[int] = None, tp: int = 1,
+                     last_only: bool = False):
+        """``decode`` against the paged pool through a gather (JAX
+        ``decode_paged``, the gather fallback): every slot's rows are
+        gathered through ``tables [N, max_blocks]`` (or one slot's
+        ``[max_blocks]``), capped at ``hw_blocks``, into ONE ``[N,
+        hw_blocks * block, ...]`` row set — where JAX ``vmap``s a slot at a
+        time — and the ordinary dense decode runs on it at ``pos`` (an int
+        or an ``[N]`` int32 tensor).  Returns ``(logits, rows)``, the rows
+        holding this step's K/V at ``[pos, pos + tq)`` for the caller's
+        scatter (:func:`scatter_paged_rows`).
+
+        The gather moves stored bytes, so the path is the dense cache's
+        at any ``hw_blocks`` covering ``pos + tq``.  Routes, as JAX's: a
+        grouped fp pool feeds ``_cached_attention``; a tp pool's flat rows
+        are regrouped (:func:`_regroup_tp_rows`) onto that same branch; an
+        int8 pool's flat rows decode on a CUDA device through the
+        decode-attention kernel at the position vector (one launch a layer
+        for every slot, tp pools too, so tp = 2 computes what tp = 1 does)
+        and elsewhere through ``_cached_attention_q8``, the path JAX takes
+        off its accelerator."""
+        _check_pool_tp(self.cfg, pools, tp)
+        rows = _grouped_rows(self.cfg, gather_paged_rows(
+            pools, tables, hw_blocks=hw_blocks, tp=tp))
+        logits, _ = self.decode(tokens, rows, pos, last_only=last_only)
+        return logits, rows
+
+    @torch.no_grad()
+    def verify_tokens_paged(self, tokens: torch.Tensor, pools: Sequence[dict],
+                            tables: torch.Tensor, pos,
+                            hw_blocks: Optional[int] = None, tp: int = 1):
+        """:meth:`verify_tokens` over the paged pool through a gather (JAX
+        ``verify_tokens_paged``): :meth:`decode_paged` at ``k + 1`` query
+        positions, returning ``(logits [N, k+1, vocab], rows)``."""
+        return self.decode_paged(tokens, pools, tables, pos, hw_blocks, tp)
+
+
+def _check_pool_tp(cfg: TransformerConfig, pools: Sequence[dict],
+                   tp: int) -> None:
+    """Refuse a ``tp`` that the pools' layout (``init_paged_cache``'s at
+    that tp) does not carry, where the gather would read a shard axis as
+    the block axis: ``tp > 1`` pools lead with ``tp`` shards of
+    ``(KV/tp)*D``; ``tp = 1`` values are ``[n_blocks, block]`` rows of
+    ``KV*D`` or ``(KV, D)``, scales ``[n_blocks, block, KV]``."""
+    c = pools[0]
+    KV, D = cfg.kv_heads, cfg.d_head
+    k = c["k"]
+    if tp > 1:
+        ok = (all(t.ndim == 4 and t.shape[0] == tp for t in c.values())
+              and k.shape[-1] * tp == KV * D)
+    else:
+        ok = (tuple(k.shape[2:]) in ((KV * D,), (KV, D))
+              and all(t.ndim == 3 for n, t in c.items() if n != "k"
+                      and n != "v"))
+    if not ok:
+        raise ValueError(f"paged pools of shape {tuple(k.shape)} are not "
+                         f"a tp={tp} pool")
+
+
+def _regroup_tp_rows(cfg: TransformerConfig, rows: Sequence[dict]):
+    """Flat k/v rows ``[B, S, KV*D]`` viewed grouped ``[B, S, KV, D]``
+    (scale leaves stay ``[B, S, KV]``), the JAX ``_regroup_tp_rows``: the
+    flat minor axis is head-major, so the view is byte-identical to a
+    grouped gather, and it routes the tp gather onto the grouped dense
+    branch an unsharded grouped engine runs."""
+    KV, D = cfg.kv_heads, cfg.d_head
+    return [{n: (r[n].view(*r[n].shape[:2], KV, D) if n in ("k", "v")
+                 else r[n]) for n in r} for r in rows]
+
+
+def _grouped_rows(cfg: TransformerConfig, rows: List[dict]) -> List[dict]:
+    """The gathered rows as :meth:`Transformer.decode_paged` attends them:
+    flat fp rows (a tp pool's) regrouped, as JAX does; flat int8 rows
+    regrouped except on a CUDA device, where the decode kernel reads them
+    flat (JAX regroups an int8 tp pool's rows too, and its tp = 1 rows
+    reach its decode kernel only on its accelerator: off it, both attend
+    through ``_cached_attention_q8``, as the regrouped rows do here)."""
+    k = rows[0]["k"]
+    if k.ndim == 4 or (k.dtype == torch.int8 and k.is_cuda):
+        return rows
+    return _regroup_tp_rows(cfg, rows)
+
+
+def gather_paged_rows(pools: Sequence[dict], tables: torch.Tensor,
+                      hw_blocks: Optional[int] = None,
+                      tp: int = 1) -> List[dict]:
+    """Contiguous rows of per-layer pools through block tables: ``tables
+    [N, max_blocks]`` (or one slot's ``[max_blocks]``, ``N = 1``) ->
+    ``[N, hw_blocks * block, ...]`` (a copy; ``hw_blocks`` caps the
+    gather at the slots' high-water block).  Flat ``[n_blocks, block,
+    X]`` and grouped ``[n_blocks, block, KV, D]`` pools keep their
+    layout; per-shard pools ``[tp, n_blocks, block, X]`` (``tp > 1``)
+    give the unsharded flat row ``[N, S, tp * X]``: the shards' minor
+    axes side by side, which is the head-major row, byte for byte.
+    Positions past a slot's cursor gather whatever the blocks hold (the
+    null block's, or a stale block's), which the causal mask never
+    admits."""
+    idx = tables.long().reshape(-1, tables.shape[-1])
     if hw_blocks is not None:
-        table = table[:hw_blocks]
-    idx = table.long()
+        idx = idx[:, :hw_blocks]
+    N, nb = idx.shape
+    flat = idx.reshape(-1)
     out = []
     for layer in pools:
         row = {}
         for name, c in layer.items():
-            if c.ndim == 4:
-                g = c[:, idx]                     # [tp, nb, block, X]
-                row[name] = g.permute(1, 2, 0, 3).reshape(
-                    1, g.shape[1] * g.shape[2], -1)
+            if tp > 1:
+                # (contiguous: with one KV head a shard, the scale rows'
+                # reshape would be a strided view)
+                g = c.index_select(1, flat)      # [tp, N * nb, block, X]
+                g = g.view(tp, N, -1, g.shape[-1]).permute(1, 2, 0, 3)
+                row[name] = g.reshape(N, -1, tp * g.shape[-1]).contiguous()
             else:
-                g = c[idx]
-                row[name] = g.reshape((1, g.shape[0] * g.shape[1])
-                                      + tuple(g.shape[2:]))
+                g = c.index_select(0, flat)      # [N * nb, block, ...]
+                row[name] = g.view((N, -1) + tuple(g.shape[2:]))
         out.append(row)
     return out
+
+
+def scatter_paged_rows(pools: Sequence[dict], rows: Sequence[dict],
+                       positions: torch.Tensor, wblk: torch.Tensor,
+                       woff: torch.Tensor, tp: int = 1) -> None:
+    """Write the gathered ``rows``' values at ``positions [N, t]`` back
+    into the pools at ``(wblk, woff) [N, t]``, in place: the written span
+    of a gather step (the JAX engine's scatter after ``decode_paged``).
+    A position past a row's end (a verify span at the row's last
+    positions, aimed at the null block) reads the row's last position.
+    A tp pool takes each shard's head-major slice."""
+    S = rows[0]["k"].shape[1]
+    at = (torch.arange(positions.shape[0], device=positions.device)[:, None],
+          positions.long().clamp(max=S - 1))
+    wb, wo = wblk.long(), woff.long()
+    for pool, row in zip(pools, rows):
+        for n, c in pool.items():
+            fresh = row[n][at]                       # [N, t, ...]
+            if tp == 1:
+                c[wb, wo] = fresh.reshape(wb.shape + c.shape[2:])
+            else:
+                c[:, wb, wo] = fresh.reshape(*fresh.shape[:2], tp, -1) \
+                    .permute(2, 0, 1, 3)
 
 
 def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,

@@ -339,7 +339,8 @@ def decode_attention(q, ck, cv, pos, *, k_scale=None, v_scale=None,
                     ("v_scale", v_scale)):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte "
-                             f"aligned")
+                             f"aligned, got shape {tuple(t.shape)} strides "
+                             f"{t.stride()} at offset {t.data_ptr() % 16}")
     if device_pos and not pos.is_contiguous():
         raise ValueError("the position vector must be contiguous")
     lib = _library()

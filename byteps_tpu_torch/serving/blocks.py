@@ -1,9 +1,10 @@
 """Paged KV cache: block-granular slot memory — the port of
-``byteps_tpu/serving/blocks.py`` in its flat layout.
+``byteps_tpu/serving/blocks.py``.
 
   * one flat pool per layer ``{"k","v"} [n_blocks, block, KV * D]`` in
     the model dtype — the layout the paged-attention kernel reads, one
-    block being one contiguous ``[block, KV*D]`` chunk; or, with
+    block being one contiguous ``[block, KV*D]`` chunk (or grouped,
+    ``[n_blocks, block, KV, D]``, the gather fallback's fp pool); or, with
     ``kv_dtype="int8"``, s8 values plus fp32 per-(position, head) scale
     pools ``{"k_scale","v_scale"} [n_blocks, block, KV]``; and with
     ``tp > 1`` a leading shard axis (``[tp, n_blocks, block,
@@ -190,25 +191,36 @@ def _check_tp(cfg: TransformerConfig, tp: int) -> None:
 
 
 def init_paged_cache(cfg: TransformerConfig, n_blocks: int, block: int,
-                     kv_dtype: str = "", tp: int = 1,
-                     device=None) -> List[dict]:
-    """Zeroed flat paged pools, per layer ``{"k","v"} [n_blocks, block,
-    kv_heads * d_head]`` in the model dtype (the JAX ``layout="flat"``
-    pool — the paged-attention kernel's layout).
+                     kv_dtype: str = "", tp: int = 1, device=None,
+                     layout: str = "flat") -> List[dict]:
+    """Zeroed paged pools, per layer ``{"k","v"}`` in the model dtype:
+    ``layout="flat"``, ``[n_blocks, block, kv_heads * d_head]`` (the
+    paged-attention kernel's layout), or ``"grouped"``, ``[n_blocks,
+    block, kv_heads, d_head]`` (the gather fallback's fp pool, whose
+    gathered rows feed the grouped dense attention), as the JAX
+    ``init_paged_cache``.
 
-    ``kv_dtype="int8"`` stores s8 values plus fp32 per-(position, head)
-    scales ``{"k_scale","v_scale"} [n_blocks, block, kv_heads]``
-    (``_quantize_kv``).  ``tp > 1`` adds a leading shard axis over pools
-    ``(kv_heads / tp) * d_head`` wide — shard ``s`` holds KV heads ``[s
-    * KV/tp, (s+1) * KV/tp)`` in the same head-major order, so the
-    shards' minor axes concatenated are the unsharded block."""
+    ``kv_dtype="int8"`` stores s8 values, flat whatever ``layout`` says,
+    plus fp32 per-(position, head) scales ``{"k_scale","v_scale"}
+    [n_blocks, block, kv_heads]`` (``_quantize_kv``).  ``tp > 1`` adds a
+    leading shard axis over flat pools ``(kv_heads / tp) * d_head`` wide
+    — shard ``s`` holds KV heads ``[s * KV/tp, (s+1) * KV/tp)`` in the
+    same head-major order, so the shards' minor axes concatenated are
+    the unsharded block."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                          f"{kv_dtype!r}")
     _check_tp(cfg, tp)
+    if tp > 1 and layout != "flat" and kv_dtype != "int8":
+        raise ValueError(
+            f'tensor-parallel paged cache requires the flat block '
+            f'layout (per-shard [n_blocks, block, (kv_heads/tp)*'
+            f'd_head] pools), got layout={layout!r}')
     KVs = cfg.kv_heads // tp
     lead = (tp,) if tp > 1 else ()
     shape = lead + (n_blocks, block, KVs * cfg.d_head)
+    if layout == "grouped" and not kv_dtype:
+        shape = (n_blocks, block, cfg.kv_heads, cfg.d_head)
 
     def layer():
         if not kv_dtype:
@@ -232,12 +244,13 @@ class PagedSlotPool(SlotPool):
     ``n_slots * max_seq / block`` plus the null block.  ``kv_dtype`` and
     ``tp`` shape the pools (:func:`init_paged_cache`); the allocator,
     tables and refcounts are the same at any tp, and ``block_bytes`` is
-    the total across shards."""
+    the total across shards.  ``layout`` is the pools' (``"flat"``, or
+    ``"grouped"`` for the gather fallback's fp pool at tp = 1)."""
 
     def __init__(self, cfg: TransformerConfig, n_slots: int, max_seq: int,
                  *, block: int = 16, n_blocks: Optional[int] = None,
                  kv_bytes: int = 0, kv_dtype: str = "", tp: int = 1,
-                 device=None):
+                 layout: str = "flat", device=None):
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
         if max_seq % block:
@@ -273,7 +286,7 @@ class PagedSlotPool(SlotPool):
                 f"plus the null block; raise BYTEPS_SERVE_KV_MB or "
                 f"lower max_seq")
         self._n_blocks = n_blocks
-        super().__init__(cfg, n_slots, max_seq, layout="flat", device=device)
+        super().__init__(cfg, n_slots, max_seq, layout=layout, device=device)
         self.alloc = BlockAllocator(n_blocks, block)
         self.null_block = self.alloc.alloc(1)[0]
         self.tables: List[BlockTable] = [
@@ -284,7 +297,7 @@ class PagedSlotPool(SlotPool):
     def _init_caches(self):
         return init_paged_cache(self.cfg, self._n_blocks, self.block,
                                 kv_dtype=self.kv_dtype, tp=self.tp,
-                                device=self.device)
+                                device=self.device, layout=self.layout)
 
     def reset_locked(self, slot: int) -> None:
         super().reset_locked(slot)

@@ -28,6 +28,18 @@ fp or ``kv_quant`` int8):
     write is aimed at its post-prefill cursor, which its own first
     decode overwrites before the mask admits it, so a chunk it already
     wrote is never touched.
+  * **prefix reuse** (``prefix_cache``, :class:`PrefixCache`) — at
+    admission the longest stored prefix of the sequence, matched at the
+    store's own ``prefix_block``, has its full stored row copied into
+    the slot, and prefill resumes at the match (chunked, or split into
+    buckets that fit the row); after prefill the row is extracted with
+    positions past the block-aligned length zeroed and inserted, unless
+    one row exceeds the store's budget.
+  * **speculative decoding** (``spec_k > 0``, grouped rows) — every tick
+    is one ``Transformer.verify_tokens`` call at ``tq = k + 1`` over every
+    row at the position vector, sharing the paged engine's
+    accept/truncate tail (below); a span running past a row's end is
+    clamped there by the model.
 
 The paged engine (``paged=True``):
 
@@ -43,6 +55,15 @@ The paged engine (``paged=True``):
     paged-attention kernel reads blocks in place through the tables.
     Masked slots (free or PREFILLING) sit at pos 0 and write the null
     block.
+  * **the gather fallback** (``paged_kernel="off"``) — decode and verify
+    gather every slot's blocks through the tables, up to the high-water
+    bucket (:meth:`_gather_hw`), into one row set, run the dense decode
+    on it (``Transformer.decode_paged`` / ``verify_tokens_paged``) and
+    scatter only the written positions back to their ``(block, offset)``
+    targets (masked slots to the null block; a tp pool per shard).  An
+    fp pool at tp = 1 is grouped, an int8 or tp pool flat; an int8
+    pool's rows decode on CUDA through the decode-attention kernel at
+    the slots' position vector, one launch a layer.
   * **block pressure** — blocks are granted lazily at boundary
     crossings; on exhaustion the prefix store gives up its least
     recently used unpinned blocks first, then the newest other request
@@ -86,12 +107,11 @@ plain tick emits it), but does not reproduce ``jax.random``'s draws
 
 PyTorch runs eagerly, so there are no compiled programs to count:
 :meth:`step_counts` reports the decode and verify ticks, prefill chunks,
-proposed and accepted tokens, prefix hits and copy-on-write forks run,
-and the paged-attention kernel's launch count.
+proposed and accepted tokens, prefix hits, row copies and extracts,
+copy-on-write forks, the gather buckets used, and the launch counts of
+the paged- and decode-attention kernels.
 
-Not ported yet, and refused by name: the dense engine's row-copy prefix
-store and speculative verify (the next slice of the dense engine), the
-paged gather fallback (``paged_kernel="off"``), disaggregated KV
+Not ported yet (the serving-over-the-wire slice): disaggregated KV
 shipping and router epochs.
 """
 
@@ -111,13 +131,13 @@ import torch
 from ..common import logging as bps_log
 from ..common.device import resolve_device
 from ..inference import sample_logits, token_generator
-from ..models.transformer import Transformer
+from ..models.transformer import Transformer, scatter_paged_rows
 from ..ops import decode_attention as _da
 from ..ops import paged_attention as _pa
 from . import metrics as sm
 from .blocks import BlocksExhaustedError, PagedSlotPool
 from .metrics import ServeMetrics, get_serve_metrics
-from .prefix import PagedPrefixCache, weights_fingerprint
+from .prefix import PagedPrefixCache, PrefixCache, weights_fingerprint
 from .scheduler import ServeScheduler
 from .slots import SlotPool
 from .spec import NgramProposer
@@ -221,12 +241,6 @@ def _next_bucket(n: int, lo: int, hi: int) -> int:
     return min(b, hi)
 
 
-# the slice that ports the dense engine's row-copy prefix store and its
-# speculative verify; the features it will bring are refused until then
-_DENSE_NEXT = ("the dense engine's row-copy prefix store and speculative "
-               "verify, the slice after the dense slot engine")
-
-
 class ServingEngine:
     """Continuous batching over a dense :class:`SlotPool` (``paged=False``,
     the default) or a :class:`PagedSlotPool` (``paged=True``, with the
@@ -236,18 +250,21 @@ class ServingEngine:
 
     Dense: ``kv_quant`` (an int8 cache) and ``cache_layout`` (``"grouped"``
     or ``"flat"``, the decode kernel's) shape the rows; ``chunk`` turns on
-    chunked prefill.  Not ported on a dense engine, refused by name:
-    ``prefix_cache`` and ``spec_k > 0``.
+    chunked prefill; ``prefix_cache`` (True, or a :class:`PrefixCache`
+    to share across engines) the row-copy store, of at most
+    ``prefix_bytes``, matching at ``prefix_block`` tokens (16 unless
+    set).
 
     Paged: ``kv_dtype`` ("" or "int8") and ``tp`` shape the pool;
-    ``paged_kernel`` must leave the kernel on (the gather fallback is
-    not ported); ``prefix_cache`` turns on the radix prefix store, of at
-    most ``prefix_bytes``, matching at the pool's ``block`` (a
-    ``prefix_block`` other than ``block`` selects the dense store's own
-    granularity, which is not ported, and is refused); ``spec_k > 0``
-    turns on speculation with up to ``spec_k`` proposed tokens (rounded
-    down to a power of two) from a trailing n-gram of up to
-    ``spec_ngram`` tokens (floored at 2).  ``tp = 0`` takes ``BYTEPS_TP``.
+    ``paged_kernel`` ("auto" or "on": the kernel; "off": the gather
+    fallback); ``prefix_cache`` turns on the radix prefix store, of at
+    most ``prefix_bytes``, matching at the pool's ``block`` (another
+    ``prefix_block`` is refused).
+
+    Both: ``spec_k > 0`` turns on speculation with up to ``spec_k``
+    proposed tokens (rounded down to a power of two) from a trailing
+    n-gram of up to ``spec_ngram`` tokens (floored at 2).  ``tp = 0``
+    takes ``BYTEPS_TP``.
 
     Sampling parameters are fixed per engine; per-request variation
     rides the ``seed``.  Drive it with :meth:`step` (deterministic,
@@ -281,6 +298,7 @@ class ServingEngine:
                                    self.max_seq) if chunk and chunk > 0
                       else 0)
         self.paged = bool(paged)
+        self.device = resolve_device(device)
         self._check_options(cfg, kv_quant, cache_layout, prefix_cache,
                             kv_dtype, paged_kernel, spec_k)
         if not tp:
@@ -299,20 +317,21 @@ class ServingEngine:
         if self.paged and prefix_block is not None and prefix_block != block:
             raise NotImplementedError(
                 f"prefix_block {prefix_block} != block {block}: a paged "
-                f"store matches at the pool's block; the dense store that "
-                f"takes its own granularity is not ported ({_DENSE_NEXT})")
-        self.device = resolve_device(device)
+                f"engine's store matches at the pool's block")
         if self.device.type == "cuda":
-            if self.paged:
+            if self.paged_kernel:
                 _pa.check_kernel_config(cfg.dtype, cfg.d_head, block,
                                         kv_dtype)
-            elif cache_layout == "flat":
+            elif cache_layout == "flat" or kv_dtype:
                 _da.check_kernel_config(cfg.dtype, cfg.d_head)
         self.model = model.to(self.device).eval()
         if self.paged:
+            # the kernel reads flat pools; the gather's fp pool at tp = 1
+            # is grouped (int8 and tp pools are flat whatever it says)
             self.pool = PagedSlotPool(
                 cfg, n_slots, self.max_seq, block=block, n_blocks=kv_blocks,
                 kv_bytes=kv_mb << 20, kv_dtype=kv_dtype, tp=tp,
+                layout="flat" if self.paged_kernel or tp > 1 else "grouped",
                 device=self.device)
         else:
             self.pool = SlotPool(cfg, n_slots, self.max_seq,
@@ -352,21 +371,46 @@ class ServingEngine:
         self.scheduler = ServeScheduler(max_queue=max_queue,
                                         credit_budget=budget)
         self.metrics = metrics if metrics is not None else get_serve_metrics()
-        # the prefix store references this pool's blocks, so it is
-        # private; its keys are salted with the weights and the pool's
-        # geometry, as in JAX
+        # a paged store references this pool's blocks, so it is private;
+        # a dense one holds copied rows and may back several engines.
+        # Keys are salted with the weights and the per-slot row (or pool)
+        # geometry, so another model or row shape is a miss, as in JAX
         self._weights_fp: Optional[str] = None
         self._prefix_salt = b""
-        self.prefix: Optional[PagedPrefixCache] = None
-        if prefix_cache:
+        self.prefix: Optional[PrefixCache] = None
+        if self.paged and prefix_cache:
+            if isinstance(prefix_cache, PrefixCache):
+                raise ValueError(
+                    "a paged engine's prefix store references its own "
+                    "KV block pool (entries are block ids, not copied "
+                    "buffers) and cannot be shared across engines; "
+                    "pass prefix_cache=True")
             self.prefix = PagedPrefixCache(
                 self.pool.alloc, block=self.pool.block,
                 block_bytes=self.pool.block_bytes, max_bytes=prefix_bytes,
                 on_evict=lambda n: self.metrics.bump(sm.BLOCK_EVICTIONS, n))
+        elif isinstance(prefix_cache, PagedPrefixCache):
+            raise ValueError(
+                "a PagedPrefixCache references a paged engine's block "
+                "pool and cannot back a dense engine; pass "
+                "prefix_cache=True (or a plain PrefixCache)")
+        elif isinstance(prefix_cache, PrefixCache):
+            self.prefix = prefix_cache
+        elif prefix_cache:
+            self.prefix = PrefixCache(block=prefix_block or 16,
+                                      max_bytes=prefix_bytes)
+        # a dense entry is one full row, so its size is the geometry's;
+        # when even one cannot fit the budget the extract is skipped
+        self._prefix_row_bytes = 0
+        if self.prefix is not None:
             geom = hashlib.blake2b(digest_size=16)
-            for layer in self.pool.caches[:1]:
+            for layer in self.pool.caches:
                 for name, t in sorted(layer.items()):
-                    geom.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
+                    geom.update(f"{name}{tuple(t.shape[1:])}"
+                                f"{t.dtype}".encode())
+                    if not self.paged:
+                        self._prefix_row_bytes += (
+                            t[0].numel() * t.element_size())
             wfp = weights_fingerprint(self.model)
             self._weights_fp = wfp.hex()
             self._prefix_salt = wfp + geom.digest()
@@ -391,12 +435,15 @@ class ServingEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.prefix_hits = 0
+        self.prefix_copies = 0      # dense rows copied in at a hit
+        self.prefix_extracts = 0    # dense rows extracted for an insert
         self.cow_copies = 0
+        self.gather_buckets: set = set()  # high-water buckets gathered
 
     def _check_options(self, cfg, kv_quant, cache_layout, prefix_cache,
                        kv_dtype, paged_kernel, spec_k) -> None:
         """The JAX engine's refusals, with its messages, in its order;
-        then the dense engine's features that are not ported yet."""
+        sets ``paged_kernel`` (the kernel, or the gather fallback)."""
         if kv_dtype not in ("", "int8"):
             raise ValueError(
                 f"kv_dtype must be '' or 'int8', got {kv_dtype!r}")
@@ -421,17 +468,15 @@ class ServingEngine:
             raise ValueError(
                 f"paged_kernel must be 'auto'|'on'|'off', got "
                 f"{paged_kernel!r}")
-        if self.paged and pk == "off":
-            if cache_layout == "flat":
-                raise ValueError(
-                    "cache_layout='flat' on a paged engine requires the "
-                    "fused paged-attention kernel (paged_kernel='on'): the "
-                    "gather fallback would route flat rows through the "
-                    "dense decode kernel under vmap")
-            raise NotImplementedError(
-                "paged_kernel='off' selects the paged gather fallback, "
-                "which is not ported: the port's paged engine decodes "
-                "through the kernel")
+        # "auto" is the kernel on every device: its plain version serves
+        # CPU tensors, as JAX's interpret mode would
+        self.paged_kernel = self.paged and pk != "off"
+        if self.paged and not self.paged_kernel and cache_layout == "flat":
+            raise ValueError(
+                "cache_layout='flat' on a paged engine requires the "
+                "fused paged-attention kernel (paged_kernel='on'): the "
+                "gather fallback would route flat rows through the "
+                "dense decode kernel under vmap")
         if kv_quant and (self.chunk or prefix_cache or self.paged):
             raise ValueError(
                 "chunked prefill / prefix cache / paged KV cache "
@@ -472,17 +517,20 @@ class ServingEngine:
                     f"attention — the two differ in accumulation order, "
                     f"so accepted tokens could silently diverge from the "
                     f"non-speculative stream")
-        if not self.paged:
-            if cache_layout not in ("grouped", "flat"):
-                raise ValueError(f"cache_layout must be 'grouped' or "
-                                 f"'flat', got {cache_layout!r}")
-            for name, on in (("prefix_cache", prefix_cache),
-                             ("spec_k > 0", spec_k and spec_k > 0)):
-                if on:
-                    raise NotImplementedError(
-                        f"{name} on a dense engine (paged=False) is not "
-                        f"ported yet: it belongs to {_DENSE_NEXT}; the "
-                        f"paged engine (paged=True) has it")
+            if (kv_dtype and not self.paged_kernel
+                    and self.device.type == "cuda"):
+                # the gather's int8 rows decode tq = 1 through the decode
+                # kernel on CUDA while the verify runs dense q8 attention
+                raise ValueError(
+                    "speculative decoding on an int8 paged pool "
+                    "(kv_dtype='int8') requires the fused paged kernel "
+                    "on a CUDA device (paged_kernel='on'/'auto'): the "
+                    "gather fallback decodes tq=1 through the fused "
+                    "dense kernel while the tq>1 verify runs dense q8 "
+                    "attention, which differ in accumulation order")
+        if not self.paged and cache_layout not in ("grouped", "flat"):
+            raise ValueError(f"cache_layout must be 'grouped' or 'flat', "
+                             f"got {cache_layout!r}")
 
     # ------------------------------------------------------------- submit
 
@@ -666,14 +714,18 @@ class ServingEngine:
             m = self.prefix.match(seq, salt=self._prefix_salt,
                                   digests=req._prefix_digs)
             if m is not None:
-                # a hit shares the stored blocks (no copy) and prefill
-                # resumes at the boundary: the shared bytes are the K/V
-                # the prefill would recompute
+                # a hit shares the stored blocks (paged: refcounts, no
+                # copy) or copies the stored row (dense), and prefill
+                # resumes at the boundary: the bytes are the K/V the
+                # prefill would recompute
                 entry, p0 = m
                 self.prefix.acquire(entry)
                 try:
-                    self.pool.share_prefix(
-                        slot, entry.buffer[:p0 // self.pool.block])
+                    if self.paged:
+                        self.pool.share_prefix(
+                            slot, entry.buffer[:p0 // self.pool.block])
+                    else:
+                        self._prefix_copy(entry.buffer, slot)
                 finally:
                     self.prefix.release(entry)
                 self.prefix_hits += 1
@@ -681,13 +733,36 @@ class ServingEngine:
                 self.metrics.bump(sm.PREFIX_HIT_TOKENS, p0)
             else:
                 self.metrics.bump(sm.PREFIX_MISSES)
-        if not self.paged and not self.chunk:
+        if p0 == 0 and not self.paged and not self.chunk:
             return self._prefill_whole(req)
         req.state = RequestState.PREFILLING
         req.prefill_pos = p0
         req._pf_paid = True
         self._prefilling[slot] = req
         return self._advance_prefill(req)
+
+    def _prefix_copy(self, buffer: List[dict], slot: int) -> None:
+        """Overwrite a dense slot's whole row with a stored one (JAX
+        ``_prefix_copy_fn``); the rows past the match are the entry's
+        zeros, rewritten before the mask admits them."""
+        for layer, stored in zip(self.pool.caches, buffer):
+            for n, c in layer.items():
+                c[slot].copy_(stored[n][0])
+        self.prefix_copies += 1
+
+    def _prefix_extract(self, slot: int, length: int) -> List[dict]:
+        """A copy of a dense slot's row with positions ``>= length``
+        zeroed (JAX ``_prefix_extract_fn``)."""
+        out = []
+        for layer in self.pool.caches:
+            row = {}
+            for n, c in layer.items():
+                r = c[slot:slot + 1].clone()
+                r[:, length:] = 0
+                row[n] = r
+            out.append(row)
+        self.prefix_extracts += 1
+        return out
 
     def _slot_row(self, slot: int) -> List[dict]:
         """A dense slot's ``[1, max_seq, ...]`` row of every layer's
@@ -798,7 +873,7 @@ class ServingEngine:
             if self.paged:
                 logits = self.model.prefill_chunk_paged(
                     toks, self.pool.caches, self.pool.table_row(slot), start,
-                    last_idx)
+                    last_idx, tp=self.tp)
             else:
                 logits = self.model.prefill_chunk(
                     toks, self._slot_row(slot), start, last_idx)
@@ -811,9 +886,11 @@ class ServingEngine:
                 return self._prefill_done(req, logits)
 
     def _maybe_insert_prefix(self, req: Request) -> None:
-        """After a completed prefill, register the sequence's full
-        blocks in the prefix store (refcount bumps, no copy); skipped
-        when its last full boundary is already stored."""
+        """After a completed prefill, store the sequence's block-aligned
+        prefix: a paged engine registers the slot's own blocks (refcount
+        bumps, no copy), a dense one inserts the zero-masked row extract
+        (skipped when one row exceeds the budget).  Skipped when its last
+        full boundary is already stored."""
         if self.prefix is None:
             return
         seq = req._seq if req._seq is not None else req.prompt
@@ -821,11 +898,20 @@ class ServingEngine:
                                          digests=req._prefix_digs)
         if ins <= 0:
             return
-        ids = self.pool.tables[req.slot].blocks[:ins // self.pool.block]
-        if (len(ids) == ins // self.pool.block
-                and self.prefix.insert_blocks(
-                    seq[:ins], ids, salt=self._prefix_salt,
-                    digests=req._prefix_digs)):
+        if self.paged:
+            ids = self.pool.tables[req.slot].blocks[:ins // self.pool.block]
+            if (len(ids) == ins // self.pool.block
+                    and self.prefix.insert_blocks(
+                        seq[:ins], ids, salt=self._prefix_salt,
+                        digests=req._prefix_digs)):
+                self.metrics.bump(sm.PREFIX_INSERTIONS)
+            return
+        if (self.prefix.max_bytes
+                and self._prefix_row_bytes > self.prefix.max_bytes):
+            return
+        if self.prefix.insert(seq[:ins], self._prefix_extract(req.slot, ins),
+                              salt=self._prefix_salt,
+                              digests=req._prefix_digs):
             self.metrics.bump(sm.PREFIX_INSERTIONS)
 
     def _cow_copy(self, src: int, dst: int) -> None:
@@ -887,54 +973,85 @@ class ServingEngine:
         self.metrics.bump(sm.PREEMPTIONS)
 
     def _decode_tick(self, active: List[int]) -> int:
-        if not self.paged:
-            return self._dense_tick(active)
         n = self.pool.n_slots
-        for slot in list(active):
-            req = self._slot_req[slot]
-            if req is None:
-                continue  # a victim of an earlier preemption
-            self._with_block_pressure(
-                req, lambda s=slot: self.pool.ensure_blocks(
-                    s, self.pool.pos[s] + 1))
-        active = [s for s in active
-                  if self._slot_req[s] is not None
-                  and s not in self._prefilling]
-        if not active:
-            return 0
+        if self.paged:
+            for slot in list(active):
+                req = self._slot_req[slot]
+                if req is None:
+                    continue  # a victim of an earlier preemption
+                self._with_block_pressure(
+                    req, lambda s=slot: self.pool.ensure_blocks(
+                        s, self.pool.pos[s] + 1))
+            active = [s for s in active
+                      if self._slot_req[s] is not None
+                      and s not in self._prefilling]
+            if not active:
+                return 0
         if self.spec is not None:
             return self._verify_tick(active, self._collect_proposals(active))
         self.decode_ticks += 1
         self.metrics.bump(sm.DECODE_TICKS)
         pos = np.zeros((n,), np.int32)
+        dev = self.device
+        tok = torch.from_numpy(self._tok[:, None]).to(dev)
+        if not self.paged:
+            # one pass over every row at its fixed width: active slots at
+            # their cursors, free slots at 0, PREFILLING slots at their
+            # post-prefill cursor (JAX ``_decode_tick``)
+            for slot in [*active, *self._prefilling]:
+                pos[slot] = self.pool.pos[slot]
+            logits, _ = self.model.decode(
+                tok, self.pool.caches, torch.from_numpy(pos).to(dev),
+                last_only=True)
+            return self._emit_tick(active, logits[:, -1])
         wblk = np.full((n, 1), self.pool.null_block, np.int32)
         woff = np.zeros((n, 1), np.int32)
         for slot in active:
             pos[slot] = self.pool.pos[slot]
             wblk[slot, 0], woff[slot, 0] = self.pool.write_target(slot)
-        dev = self.device
-        logits = self.model.decode_paged_fused(
-            torch.from_numpy(self._tok[:, None]).to(dev), self.pool.caches,
-            self.pool.tables_device(), torch.from_numpy(pos).to(dev),
-            torch.from_numpy(wblk).to(dev), torch.from_numpy(woff).to(dev),
-            last_only=True)[:, -1]                       # [n, vocab]
-        return self._emit_tick(active, logits)
-
-    def _dense_tick(self, active: List[int]) -> int:
-        """One decode pass over every row of the dense pool at its fixed
-        width: active slots at their cursors, free slots at 0, PREFILLING
-        slots at their post-prefill cursor (JAX ``_decode_tick``), as a
-        ``[n_slots]`` position vector on the device."""
-        self.decode_ticks += 1
-        self.metrics.bump(sm.DECODE_TICKS)
-        pos = np.zeros((self.pool.n_slots,), np.int32)
-        for slot in [*active, *self._prefilling]:
-            pos[slot] = self.pool.pos[slot]
-        dev = self.device
-        logits, _ = self.model.decode(
-            torch.from_numpy(self._tok[:, None]).to(dev), self.pool.caches,
-            torch.from_numpy(pos).to(dev), last_only=True)
+        if self.paged_kernel:
+            logits = self.model.decode_paged_fused(
+                tok, self.pool.caches, self.pool.tables_device(),
+                torch.from_numpy(pos).to(dev),
+                torch.from_numpy(wblk).to(dev),
+                torch.from_numpy(woff).to(dev), last_only=True)
+        else:
+            logits = self._gather_step(tok, pos, wblk, woff)
         return self._emit_tick(active, logits[:, -1])
+
+    def _gather_hw(self, tq: int) -> int:
+        """The gather's block high-water bucket (JAX ``_gather_hw``): the
+        smallest power-of-two block count, capped at ``max_blocks``,
+        covering every assigned non-PREFILLING slot's ``[0, pos + tq)``
+        (masked slots sit at pos 0 and write the null block)."""
+        need = tq
+        for slot in self.pool.active_slots():
+            if slot not in self._prefilling:
+                need = max(need, self.pool.pos[slot] + tq)
+        return _next_bucket(-(-need // self.pool.block), 1,
+                            self.pool.max_blocks)
+
+    def _gather_step(self, toks, pos: np.ndarray, wblk: np.ndarray,
+                     woff: np.ndarray) -> torch.Tensor:
+        """One gather-fallback pass at ``tq = toks.shape[1]``: every slot's
+        rows up to the high-water bucket, the dense decode on them at the
+        position vector (``Transformer.decode_paged``), then only the
+        written positions scattered back to ``(wblk, woff) [n, tq]``.
+        Returns the logits ``[n, tq, vocab]``."""
+        tq = toks.shape[1]
+        hw = self._gather_hw(tq)
+        self.gather_buckets.add(hw)
+        self.metrics.bump(sm.GATHERED_BLOCKS, self.pool.n_slots * hw)
+        dev = self.device
+        posd = torch.from_numpy(pos).to(dev)
+        logits, rows = self.model.decode_paged(
+            toks, self.pool.caches, self.pool.tables_device(), posd,
+            hw_blocks=hw, tp=self.tp)
+        positions = posd.long()[:, None] + torch.arange(tq, device=dev)
+        scatter_paged_rows(self.pool.caches, rows, positions,
+                           torch.from_numpy(wblk).to(dev),
+                           torch.from_numpy(woff).to(dev), self.tp)
+        return logits
 
     def _emit_tick(self, active: List[int], logits: torch.Tensor) -> int:
         """Pick every active slot's next token from ``logits [n_slots,
@@ -988,34 +1105,45 @@ class ServingEngine:
 
     def _verify_tick(self, active: List[int],
                      props: Dict[int, List[int]]) -> int:
-        """One speculative tick: every slot rides one kernel pass at
-        ``tq = k + 1``, inputs ``[next token, proposals...]`` at ``[pos,
-        pos + tq)``.  Slot ``s`` emits the model's tokens ``t_0..t_{m-1}``
-        with ``m = 1 + `` the leading run of proposals equal to the
-        model's own tokens, truncated at its budget and at the first
-        EOS; ``t_{m-1}`` is its next input and its cursor moves ``m``.
+        """One speculative tick: every slot rides one pass at ``tq = k +
+        1``, inputs ``[next token, proposals...]`` at ``[pos, pos + tq)``
+        (the kernel, the gather, or on dense rows
+        ``Transformer.verify_tokens`` at the position vector).  Slot ``s``
+        emits the model's tokens ``t_0..t_{m-1}`` with ``m = 1 + `` the
+        leading run of proposals equal to the model's own tokens,
+        truncated at its budget and at the first EOS; ``t_{m-1}`` is its
+        next input and its cursor moves ``m`` (JAX ``_verify_accept``).
         Rejected positions' K/V lies past the cursor, never attended
         before it is rewritten.  The width never changes, so a slot's
         arithmetic does not depend on the other slots: near the row's
-        end a span's positions past the granted blocks write the null
-        block, and their rows (which the kernel serves from the row's
-        own blocks) are discarded, as proposals are capped to the row."""
+        end a span's positions past the row (paged: past the granted
+        blocks, which write the null block) are discarded, as proposals
+        are capped to the row."""
         n = self.pool.n_slots
         S = self.max_seq
-        blk = self.pool.block
         d = self.spec.k
         tq = d + 1
         toks = np.full((n, tq), self.pad_id, np.int64)
         toks[:, 0] = self._tok
         plen = np.zeros((n,), np.int64)
         pos = np.zeros((n,), np.int32)
-        wblk = np.full((n, tq), self.pool.null_block, np.int32)
-        woff = np.zeros((n, tq), np.int32)
+        if self.paged:
+            blk = self.pool.block
+            wblk = np.full((n, tq), self.pool.null_block, np.int32)
+            woff = np.zeros((n, tq), np.int32)
+        else:
+            # PREFILLING rows' masked span aims at their cursor, as on a
+            # plain tick
+            for slot in self._prefilling:
+                pos[slot] = self.pool.pos[slot]
         for slot in active:
             p0 = self.pool.pos[slot]
             pos[slot] = p0
             p = props.get(slot, [])[:d]
             toks[slot, 1:1 + len(p)] = p
+            plen[slot] = len(p)
+            if not self.paged:
+                continue
             # best-effort span grant: speculation never evicts or
             # preempts to hold guess-width; a proposal the grant cannot
             # cover is clipped before the verify, so acceptance never
@@ -1035,10 +1163,18 @@ class ServingEngine:
         self.metrics.bump(sm.DECODE_TICKS)
         self.metrics.bump(sm.SPEC_VERIFY_TICKS)
         dev = self.device
-        logits = self.model.decode_paged_fused(
-            torch.from_numpy(toks).to(dev), self.pool.caches,
-            self.pool.tables_device(), torch.from_numpy(pos).to(dev),
-            torch.from_numpy(wblk).to(dev), torch.from_numpy(woff).to(dev))
+        tokd = torch.from_numpy(toks).to(dev)
+        if not self.paged:
+            logits, _ = self.model.verify_tokens(
+                tokd, self.pool.caches, torch.from_numpy(pos).to(dev))
+        elif self.paged_kernel:
+            logits = self.model.decode_paged_fused(
+                tokd, self.pool.caches, self.pool.tables_device(),
+                torch.from_numpy(pos).to(dev),
+                torch.from_numpy(wblk).to(dev),
+                torch.from_numpy(woff).to(dev))
+        else:
+            logits = self._gather_step(tokd, pos, wblk, woff)
         tmat = (torch.argmax(logits, dim=-1).cpu().numpy() if self.greedy
                 else None)                                # [n, tq]
         emitted = accepted = 0
@@ -1198,17 +1334,23 @@ class ServingEngine:
     def step_counts(self) -> Dict[str, int]:
         """What ran in this engine: decode ticks (verify ticks included)
         and verify ticks, prefill forwards (chunks, and whole prompts on a
-        dense engine), proposed and accepted tokens, prefix hits and
-        copy-on-write forks; and the process-wide launch counts of the
-        paged-attention kernel (a paged CUDA engine: one a layer a tick,
-        at any tp) and the decode-attention kernel (a flat dense CUDA
-        engine: one a layer a tick, for every slot)."""
+        dense engine), proposed and accepted tokens, prefix hits, dense
+        row copies and extracts, copy-on-write forks, and the distinct
+        high-water buckets the gather fallback used (JAX's
+        ``compile_counts()["decode_buckets"]``, one program a bucket
+        there); and the process-wide launch counts of the paged-attention
+        kernel (a paged CUDA engine: one a layer a tick, at any tp) and
+        the decode-attention kernel (a flat dense CUDA engine, or the
+        gather over an int8 pool: one a layer a tick, for every slot)."""
         return {"decode_ticks": self.decode_ticks,
                 "verify_ticks": self.verify_ticks,
                 "prefill_chunks": self.prefill_chunks,
                 "spec_proposed": self.spec_proposed,
                 "spec_accepted": self.spec_accepted,
                 "prefix_hits": self.prefix_hits,
+                "prefix_copies": self.prefix_copies,
+                "prefix_extracts": self.prefix_extracts,
                 "cow_copies": self.cow_copies,
+                "gather_buckets": len(self.gather_buckets),
                 "paged_attention_launches": _pa.launches,
                 "decode_attention_launches": _da.launches}

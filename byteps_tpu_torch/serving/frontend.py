@@ -36,7 +36,7 @@ import numpy as np
 
 from ..common import logging as bps_log
 from ..engine.wire import _decode, _encode
-from .engine import _DENSE_NEXT, Request, ServingEngine
+from .engine import Request, ServingEngine
 
 OP_SUBMIT, OP_STATS, OP_PING, OP_STREAM = range(4)
 
@@ -379,10 +379,13 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
     (blocking, or with ``in_thread`` returning ``(server, thread)``).
     ``device`` defaults to ``cuda`` and raises without a GPU.  Without
     ``BYTEPS_SERVE_PAGED`` the engine is the dense slot engine, as in
-    JAX.  Knobs for features the port does not have (a checkpoint, the
-    paged gather fallback, and on a dense engine the row-copy prefix
-    store and speculation; the dense store's ``BYTEPS_SERVE_PREFIX_BLOCK``
-    on a paged one) are refused, never ignored."""
+    JAX, with its row-copy prefix store (``BYTEPS_SERVE_PREFIX_CACHE``,
+    matching at ``BYTEPS_SERVE_PREFIX_BLOCK``) and speculation
+    (``BYTEPS_SERVE_SPEC``); with it the paged engine, on the kernel or
+    (``BYTEPS_SERVE_PAGED_KERNEL=off``) the gather fallback.  A
+    checkpoint (``BYTEPS_SERVE_CHECKPOINT``), which the port cannot load
+    yet, is refused, never ignored; so is a ``BYTEPS_SERVE_PREFIX_BLOCK``
+    other than ``BYTEPS_SERVE_BLOCK`` on a paged engine."""
     import os
 
     from ..common.config import get_config, reset_config
@@ -393,21 +396,10 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
                            if k.startswith(("BYTEPS_", "DMLC_"))})
     reset_config()
     cfg = get_config()
-    refused = [name for name, on in (
-        ("BYTEPS_SERVE_CHECKPOINT", bool(cfg.serve_checkpoint)),
-        ("BYTEPS_SERVE_PAGED_KERNEL=off",
-         cfg.serve_paged_kernel not in ("auto", "on"))) if on]
-    if refused:
+    if cfg.serve_checkpoint:
         raise NotImplementedError(
-            f"{refused} select features this port does not implement yet")
-    dense = [name for name, on in (
-        ("BYTEPS_SERVE_PREFIX_CACHE", cfg.serve_prefix_cache),
-        ("BYTEPS_SERVE_SPEC", cfg.serve_spec)) if on]
-    if dense and not cfg.serve_paged:
-        raise NotImplementedError(
-            f"{dense} on the dense engine (BYTEPS_SERVE_PAGED unset) "
-            f"belong to {_DENSE_NEXT}, not ported yet; the paged engine "
-            f"(BYTEPS_SERVE_PAGED=1) has them")
+            "['BYTEPS_SERVE_CHECKPOINT'] selects a checkpoint, which this "
+            "port cannot load yet")
     dev = resolve_device(device)
     model = _model_from_env(cfg.serve_model, dev)
     engine = ServingEngine(
@@ -428,6 +420,7 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
         prefix_block=cfg.serve_prefix_block,
         prefix_bytes=cfg.serve_prefix_mb << 20,
         paged=cfg.serve_paged,
+        paged_kernel=cfg.serve_paged_kernel,
         spec_k=(cfg.serve_spec_k if cfg.serve_spec else 0),
         spec_ngram=cfg.serve_spec_ngram,
         device=dev)

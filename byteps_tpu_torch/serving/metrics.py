@@ -35,6 +35,9 @@ KV_BLOCKS_SHARED = "serve.kv_blocks_shared"
 # prefix-store nodes evicted (each released one block reference)
 BLOCK_EVICTIONS = "serve.block_evictions"
 PREEMPTIONS = "serve.preemptions"
+# blocks the gather fallback copied into rows this tick (n_slots x the
+# high-water bucket, decode and verify passes alike)
+GATHERED_BLOCKS = "serve.gathered_blocks"
 # ticks that ran a decode or verify forward (the tokens-per-tick
 # denominator; one paged-attention launch per layer — tp per layer on a
 # tp pool — per tick)

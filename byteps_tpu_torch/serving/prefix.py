@@ -1,35 +1,41 @@
-"""Prefix reuse over the paged KV pool — the port of the paged half of
-``byteps_tpu/serving/prefix.py`` (``PagedPrefixCache`` and what it
-inherits from ``PrefixCache``).
+"""Prefix reuse — the port of ``byteps_tpu/serving/prefix.py``: the dense
+engine's row-copy :class:`PrefixCache` and the paged engine's radix
+:class:`PagedPrefixCache`.
 
 For a causal model the K/V of a shared token prefix is position for
-position the same in every request, so once the cache is a pool of
-blocks a prefix *is* a list of blocks: a hit adopts the stored blocks
-into the admitted slot's table (refcount bumps, no device copy), and
-prefill resumes at the block boundary.  Under an int8 pool the stored
-bytes are the quantized ones, which a re-prefill reproduces exactly
-(quantize at write, ``models/transformer.py``).
+position the same in every request, so it can be moved instead of
+recomputed, and the move is bit-exact by construction.
 
   * **Digests.**  ``h_j = blake2b(h_{j-1} || block_j)`` seeded with a
-    salt (the engine's weights fingerprint and pool geometry), so the
-    ``j``-block digest commits to every earlier token and to the key
+    salt (the engine's weights fingerprint and row or pool geometry), so
+    the ``j``-block digest commits to every earlier token and to the key
     space; a match compares the stored tokens before it is returned, so
-    a collision is a miss, never wrong K/V.
-  * **A radix store.**  One node per block boundary, each owning one
-    store reference on its own block and keyed by its boundary digest;
-    an insert that walks onto an indexed boundary reuses that node's
-    block (the canonical copy), so two requests whose common prefix was
-    never inserted as one entry still meet at the same nodes.  The
-    walk stores the longest affordable prefix under ``max_bytes``.
-  * **Leaf-only LRU eviction.**  Only unpinned nodes without children
-    are victims, so boundary ``j`` indexed implies boundary ``j - 1``
-    indexed, and the last-boundary probe of :meth:`insertable_len`
-    stays exact.  Under block pressure the engine calls
-    :meth:`evict_for` before it preempts a live request.
-
-The store is bound to one allocator (block ids mean nothing in another
-pool).  The dense engine's row-copy store (``PrefixCache.insert``) is
-not ported: the port has no dense slot engine yet.
+    a collision is a miss, never wrong K/V.  The usable match is capped
+    at ``len(prompt) - 1``: one position must remain to prefill for the
+    first token's logits.
+  * **Dense entries are full cache rows** (:class:`PrefixCache`): the
+    request's slot row with positions ``>= length`` zeroed, indexed
+    under every block boundary it covers (a request sharing only the
+    first block of a longer entry still hits), at the store's own
+    ``block``.  A hit copies the whole row into the admitted slot; rows
+    past the match are zeros the request overwrites before the mask
+    admits them.  ``refs`` pins an entry across the copy; LRU eviction
+    keeps the summed bytes under ``max_bytes``, re-pointing a boundary an
+    evicted entry first registered at a surviving entry that covers it.
+    A store may back several engines: the salt keeps different weights
+    and row geometries apart.
+  * **Paged entries are block chains** (:class:`PagedPrefixCache`): one
+    radix node per block boundary owning one reference on its block; a
+    hit adopts the stored blocks into the admitted slot's table
+    (refcount bumps, no device copy), and an insert that walks onto an
+    indexed boundary reuses that node's block.  Only unpinned nodes
+    without children are evicted, so boundary ``j`` indexed implies
+    ``j - 1`` indexed.  Under block pressure the engine calls
+    :meth:`PagedPrefixCache.evict_for` before it preempts a live
+    request.  The store is bound to one allocator (block ids mean
+    nothing in another pool), so it is private to its engine.  Under an
+    int8 pool the stored bytes are the quantized ones, which a
+    re-prefill reproduces exactly.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["PagedPrefixCache", "PrefixEntry", "weights_fingerprint"]
+__all__ = ["PrefixCache", "PagedPrefixCache", "PrefixEntry",
+           "weights_fingerprint"]
 
 
 def weights_fingerprint(model: torch.nn.Module) -> bytes:
@@ -63,45 +70,49 @@ def weights_fingerprint(model: torch.nn.Module) -> bytes:
 
 
 class PrefixEntry:
-    """One radix node: the block-id chain root..self (``buffer``), the
-    tokens it covers (verified on match), and its LRU stamp.  ``refs``
-    pins it against eviction while the engine attaches its blocks."""
+    """One stored prefix: a full cache-row buffer (dense) or the block-id
+    chain root..self (paged), the tokens it holds (verified on match),
+    its block-aligned ``length`` and ``nbytes``, its LRU stamp and the
+    salt it was inserted under.  ``refs`` pins it against eviction while
+    the engine copies or attaches it."""
 
-    __slots__ = ("buffer", "tokens", "refs", "keys", "stamp")
+    __slots__ = ("buffer", "tokens", "length", "nbytes", "refs", "keys",
+                 "stamp", "salt")
 
-    def __init__(self, buffer, tokens: np.ndarray, stamp: int):
+    def __init__(self, buffer, tokens: np.ndarray, length: int,
+                 nbytes: int, stamp: int, salt: bytes = b""):
         self.buffer = buffer
-        self.tokens = tokens          # int32, verified on match
+        self.tokens = tokens          # [length] int32, verified on match
+        self.length = length
+        self.nbytes = nbytes
         self.refs = 0
-        # (digest, boundary_length) index keys of this node
+        # (digest, boundary_length) index keys referencing this entry
         self.keys: List[Tuple[bytes, int]] = []
         self.stamp = stamp            # LRU clock (monotonic per touch)
+        self.salt = salt              # the inserter's key space
 
 
-class PagedPrefixCache:
-    """Radix prefix store over a paged pool's :class:`BlockAllocator`
-    (see the module docstring).  ``block`` is the pool's block size in
-    tokens, ``block_bytes`` one block's bytes across every layer (what a
-    node charges), ``max_bytes`` the store's budget (0 = unbounded),
-    ``on_evict(n)`` a callback per released node.  Thread-safe; the
-    engine also serializes every call under its tick lock."""
+def _tree_bytes(rows) -> int:
+    return sum(t.numel() * t.element_size() for layer in rows
+               for t in layer.values())
 
-    def __init__(self, allocator, block: int, block_bytes: int,
-                 max_bytes: int = 0, on_evict=None):
+
+class PrefixCache:
+    """The dense engine's block-aligned row-copy store (see the module
+    docstring).  ``block`` is the match granularity in tokens,
+    ``max_bytes`` the budget over the summed row bytes (0 = unbounded).
+    Thread-safe; the engine also serializes every call under its tick
+    lock."""
+
+    def __init__(self, block: int = 16, max_bytes: int = 256 << 20):
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
         if max_bytes < 0:
             raise ValueError(f"max_bytes must be >= 0, got {max_bytes}")
-        self.allocator = allocator
         self.block = block
-        self.block_bytes = block_bytes
         self.max_bytes = max_bytes
-        self._on_evict = on_evict
         self._index: Dict[bytes, Tuple[PrefixEntry, int]] = {}
         self._entries: List[PrefixEntry] = []
-        # radix bookkeeping, keyed by each node's boundary digest
-        self._node_parent: Dict[bytes, Optional[bytes]] = {}
-        self._node_children: Dict[bytes, int] = {}
         self._clock = itertools.count(1)
         self._lock = threading.RLock()
         self.hits = 0
@@ -143,9 +154,9 @@ class PagedPrefixCache:
               digests: Optional[List[bytes]] = None,
               ) -> Optional[Tuple[PrefixEntry, int]]:
         """Longest stored block-aligned prefix of ``prompt`` usable for
-        serving: ``(node, length)`` with ``length <= len(prompt) - 1``
-        (one position must remain to prefill for the first token's
-        logits), or None.  Touches the node's LRU stamp."""
+        serving: ``(entry, length)`` with ``length <= len(prompt) - 1``,
+        or None.  Only entries inserted under ``salt`` can match.
+        Touches the entry's LRU stamp."""
         toks = np.asarray(prompt, np.int32).reshape(-1)
         max_blocks = (int(toks.shape[0]) - 1) // self.block
         if max_blocks < 1:
@@ -183,6 +194,120 @@ class PagedPrefixCache:
         return nblocks * self.block
 
     # -------------------------------------------------------------- insert
+
+    def insert(self, tokens, buffer, salt: bytes = b"",
+               digests: Optional[List[bytes]] = None) -> bool:
+        """Store ``buffer`` (a full cache row, per layer a dict of ``[1,
+        S, ...]`` tensors, rows ``>= len(tokens)`` zeroed) under every
+        block boundary of ``tokens`` (block-aligned), in ``salt``'s key
+        space.  Returns False when nothing was stored (already indexed,
+        or larger than the whole budget)."""
+        toks = np.asarray(tokens, np.int32).reshape(-1).copy()
+        length = int(toks.shape[0])
+        if length < self.block or length % self.block:
+            raise ValueError(
+                f"insert length {length} is not a positive multiple of "
+                f"block {self.block}")
+        nblocks = length // self.block
+        digs = self._digs(toks, nblocks, salt, digests)
+        nbytes = _tree_bytes(buffer)
+        with self._lock:
+            if digs[-1] in self._index:
+                return False  # a concurrent insert won the race
+            if self.max_bytes and nbytes > self.max_bytes:
+                return False  # one entry cannot fit the budget
+            entry = PrefixEntry(buffer, toks, length, nbytes,
+                                next(self._clock), salt)
+            for j in range(1, nblocks + 1):
+                if digs[j - 1] not in self._index:
+                    self._index[digs[j - 1]] = (entry, j * self.block)
+                    entry.keys.append((digs[j - 1], j * self.block))
+            self._entries.append(entry)
+            self.insertions += 1
+            self._evict_to_budget_locked()
+            return True
+
+    # ------------------------------------------------------------ eviction
+
+    def acquire(self, entry: PrefixEntry) -> None:
+        """Pin ``entry`` against eviction (bracket a copy or attach)."""
+        with self._lock:
+            entry.refs += 1
+
+    def release(self, entry: PrefixEntry) -> None:
+        with self._lock:
+            if entry.refs < 1:
+                raise ValueError("release() without matching acquire()")
+            entry.refs -= 1
+
+    def _evict_entry_locked(self, victim: PrefixEntry) -> None:
+        self._entries.remove(victim)
+        for digest, blen in victim.keys:
+            self._index.pop(digest, None)
+            # a boundary the victim registered first may be covered by a
+            # later entry sharing its blocks: re-point the key there
+            for heir in self._entries:
+                if (heir.salt == victim.salt and heir.length >= blen
+                        and np.array_equal(heir.tokens[:blen],
+                                           victim.tokens[:blen])):
+                    self._index[digest] = (heir, blen)
+                    heir.keys.append((digest, blen))
+                    break
+        self.evictions += 1
+
+    def _evict_to_budget_locked(self) -> None:
+        if not self.max_bytes:
+            return
+        while self.total_bytes > self.max_bytes:
+            victims = [e for e in self._entries if e.refs == 0]
+            if not victims:
+                return  # everything pinned; retry on the next insert
+            self._evict_entry_locked(min(victims, key=lambda e: e.stamp))
+
+    # ---------------------------------------------------------- inspection
+
+    @property
+    def total_bytes(self) -> int:
+        with self._lock:
+            return sum(e.nbytes for e in self._entries)
+
+    @property
+    def entry_count(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "insertions": self.insertions,
+                    "evictions": self.evictions,
+                    "entries": self.entry_count, "bytes": self.total_bytes}
+
+
+class PagedPrefixCache(PrefixCache):
+    """Radix prefix store over a paged pool's :class:`BlockAllocator`
+    (see the module docstring).  ``block`` is the pool's block size in
+    tokens, ``block_bytes`` one block's bytes across every layer (what a
+    node charges), ``max_bytes`` the store's budget (0 = unbounded),
+    ``on_evict(n)`` a callback per released node."""
+
+    def __init__(self, allocator, block: int, block_bytes: int,
+                 max_bytes: int = 0, on_evict=None):
+        super().__init__(block=block, max_bytes=max_bytes)
+        self.allocator = allocator
+        self.block_bytes = block_bytes
+        self._on_evict = on_evict
+        # radix bookkeeping, keyed by each node's boundary digest
+        self._node_parent: Dict[bytes, Optional[bytes]] = {}
+        self._node_children: Dict[bytes, int] = {}
+
+    # -------------------------------------------------------------- insert
+
+    def insert(self, tokens, buffer, salt: bytes = b"",
+               digests: Optional[List[bytes]] = None) -> bool:
+        raise TypeError(
+            "PagedPrefixCache stores block references, not row buffers;"
+            " use insert_blocks()")
 
     def insert_blocks(self, tokens, block_ids, salt: bytes = b"",
                       digests: Optional[List[bytes]] = None) -> bool:
@@ -229,8 +354,9 @@ class PagedPrefixCache:
                 bid = int(block_ids[j - 1])
                 self.allocator.incref(bid)
                 chain.append(bid)
-                node = PrefixEntry(tuple(chain), toks[:blen],
-                                   next(self._clock))
+                node = PrefixEntry(tuple(chain), toks[:blen], blen,
+                                   self.block_bytes, next(self._clock),
+                                   salt)
                 node.keys.append((digs[j - 1], blen))
                 self._index[digs[j - 1]] = (node, blen)
                 self._entries.append(node)
@@ -245,17 +371,6 @@ class PagedPrefixCache:
             return created
 
     # ------------------------------------------------------------ eviction
-
-    def acquire(self, entry: PrefixEntry) -> None:
-        """Pin ``entry`` against eviction (bracket an attach)."""
-        with self._lock:
-            entry.refs += 1
-
-    def release(self, entry: PrefixEntry) -> None:
-        with self._lock:
-            if entry.refs < 1:
-                raise ValueError("release() without matching acquire()")
-            entry.refs -= 1
 
     def _evict_entry_locked(self, victim: PrefixEntry) -> None:
         digest, _ = victim.keys[0]
@@ -315,11 +430,6 @@ class PagedPrefixCache:
     # ---------------------------------------------------------- inspection
 
     @property
-    def total_bytes(self) -> int:
-        with self._lock:
-            return len(self._entries) * self.block_bytes
-
-    @property
     def entry_count(self) -> int:
         """Distinct stored prefixes = chain leaves (a store holding one
         4-block prefix counts 1)."""
@@ -329,9 +439,4 @@ class PagedPrefixCache:
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
-            return {"hits": self.hits, "misses": self.misses,
-                    "insertions": self.insertions,
-                    "evictions": self.evictions,
-                    "entries": self.entry_count,
-                    "bytes": self.total_bytes,
-                    "nodes": len(self._entries)}
+            return {**super().stats(), "nodes": len(self._entries)}

@@ -122,6 +122,45 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``classify_divergence``, request by request.  TTFT/TPOT p50/p99 and
    tokens/s of each run beside phase 4's paged numbers.  The counts are
    set to 0 just before each run and read just after.
+6f. Dense tiers reference — phase 3's fp32 model: the dense engine
+   (grouped rows) with the prefix store and speculation (k=4), together
+   and alone, gives exactly the tokens of both off (4 prompts sharing 64
+   tokens and ending in a repeated run, one after another: >= 3 hits,
+   every tick a verify); seeded speculation on == off; the paged gather
+   fallback (``paged_kernel="off"``: a grouped fp pool, int8, int8 and fp
+   at tp=2) gives exactly the tokens of a plain dense loop (fp, or int8
+   quantized at write), the int8 pools decoding through the decode
+   kernel at the slots' position vector (one launch a layer a tick, by
+   the wrapper's and the library's counts), no paged-kernel call.
+6g. Dense tiers serve (the main path of this slice's dense half) — phase
+   4's Llama-3.2-1B (bf16, attention ``local``: a flash model is refused
+   with a prefix store at this max_seq) on 8 dense grouped slots of 2048
+   rows with ``prefix_cache=True`` and ``spec_k=4`` behind a
+   ``ServeFrontend``, phase 6c's traffic (a warm request, then 8 sharing
+   a 256-token prefix): the n-gram run, a replayed-answer run (accepted,
+   token-identical to the n-gram run: the verify width is fixed), the
+   prefix store alone, speculation alone, and both off.  Every tick of a
+   spec run a verify, >= 8 prefix hits and one row copy a hit in a
+   prefix run, no kernel launched (grouped rows attend in plain torch);
+   each run against off not "real" by ``classify_divergence``, with
+   where it first parts from off and the off stream's logit gap there
+   (bf16 sums over other row counts can flip near-tied random logits).
+   TTFT/TPOT p50/p99, tokens/s, acceptance.
+6h. Gather serve (the main path of this slice's paged half) — phase 4's
+   model and traffic on ``ServingEngine(paged=True, paged_kernel="off")``:
+   a bf16 grouped pool of phase 4's 1025 blocks, an int8 pool at 513 MiB
+   twice, the int8 pool at tp=2, and the paged kernel on the int8 pool
+   as the reference.  Int8 gather runs: decode-kernel launches = ticks x
+   16, every one reading the position vector, no paged launch, no plain
+   call; reruns and tp=2 token-identical to the int8 run; bf16 and int8
+   not "real" against the kernel path's stream (phase 4's, or the int8
+   kernel run).  The first decode-kernel call at each gather bucket
+   (``[8, bucket x 16, 512]`` int8 rows at the position vector) is
+   recorded and, after the run, its output held to the plain version at
+   phase 16's limits, a call on the same inputs bit-identical, each
+   slot's bits independent of the others' positions and within the
+   limit of a one-slot launch.  TTFT/TPOT p50/p99, tokens/s, the gather
+   buckets used.
 7. Training reference — a small fp32 Llama-shaped model (2 layers,
    d_model 256, 4 heads over 2 KV heads, head_dim 64, vocab 1024), B=2,
    T=256: 3 ``Trainer.fit`` steps with ``attn_impl="flash"`` (the
@@ -232,6 +271,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    0 just before each run and read just after.  Eight decode steps of (a)
    and of (d) under ``torch.profiler``: kernels and device ms per step,
    the device's idle share, the costliest kernels.
+15b. Search (the main path of this slice's generation half) — phase 15's
+   model (``attn_impl="flash"``, bf16, the default flat cache):
+   ``beam_search`` of 2 prompts of 512 tokens, 4 beams, 32 new tokens
+   (16 flash forwards, 31 x 16 decode-kernel launches over the 8 beam
+   rows; reruns identical; one beam vs greedy ``generate`` identical or
+   not "real"), ms per search; ``speculative_generate`` of 4 prompts of
+   512, 64 new tokens, gamma 4, a 4-layer ``truncated_draft`` (flash 16 +
+   4, draft decode launches = rounds x 4 x 4; tokens not "real" against
+   target-only greedy ``generate``), acceptance, rounds, ms per emitted
+   token beside greedy ``generate``'s.  The first call of each shape to
+   the flash forward (``[2|4, 512]`` prompts) and the decode kernel (the
+   ``[8, 544, 512]`` beam rows, the ``[4, 581, 512]`` draft rows, int
+   positions) is recorded and held to its plain version after the run,
+   as in phase 6h.
 16. Decode-attention kernel — against its plain version at H=32, KV=8,
    D=64, B=8, S=2048: pos 0, 1000 and 2047 (the ring design's splits of
    >= 8 chunks checked there), window 256, S=2000 (a ragged tail), one
@@ -290,8 +343,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels":
 [...]}`` JSON object (each decode entry with a ``device_pos`` record of
 its own mode: phase 16's device-form cases and times, and the launches
-of the dense serve phase's flat run on that cache), and ``{"ok": true,
-"device": {...}}``.
+of the dense serve phase's flat run on that cache; the bf16 entry also
+the launches of phase 15b's beam search and speculative draft, the int8
+entry those of phase 6h's int8 gather run, and each its ``held_on_path``
+calls of 15b or 6h; the flash forward entry phase 15b's prefill launches
+and held calls), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -660,7 +716,7 @@ def serve_phase(torch, seed: int):
                                   if k not in ("run", "results")}
     del model, engine
     torch.cuda.empty_cache()
-    return info, runs[-1]["launches"], final_pos
+    return info, runs[-1]["launches"], final_pos, runs[-1]["results"]
 
 
 # ---------------------------------------------------------------- kernel
@@ -1485,6 +1541,471 @@ def dense_serve_phase(torch, seed: int, paged_info: dict):
     torch.cuda.empty_cache()
     return info, {"bfloat16": runs["flat_rerun"]["line"]["launches"],
                   "int8": runs["flat_int8"]["line"]["launches"]}
+
+
+# ----------------------------------------- dense prefix / spec, the gather
+
+DENSE_TIERS_RUNS = (("prefix_spec", dict(prefix_cache=True,
+                                         spec_k=TIERS_SPEC_K)),
+                    ("prefix", dict(prefix_cache=True)),
+                    ("spec", dict(spec_k=TIERS_SPEC_K)))
+GATHER_RUNS = (("fp", {}), ("int8", dict(kv_dtype="int8")),
+               ("int8_tp2", dict(kv_dtype="int8", tp=2)),
+               ("fp_tp2", dict(tp=2)))
+
+
+def dense_tiers_reference_phase(torch, seed: int) -> dict:
+    """Phase 3's fp32 model: the dense engine (grouped rows) with the
+    prefix store and speculation, together and alone, gives exactly the
+    tokens of both off (prompts sharing 64 tokens, a repeated run for
+    proposals; greedy, and seeded for speculation); the paged gather
+    fallback (fp grouped pool, int8, int8 and fp at tp=2) gives exactly
+    the tokens of a plain dense loop (fp, or int8 quantized at write),
+    the int8 pool through the decode kernel at the slots' position
+    vector, one launch a layer a tick, and no paged-kernel call."""
+    import numpy as np
+
+    from byteps_tpu_torch.models.transformer import init_cache
+    from byteps_tpu_torch.ops import decode_attention as da
+    from byteps_tpu_torch.ops import paged_attention as pa
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
+
+    model = _ref_model(torch, seed)
+    cfg = model.cfg
+    rng = np.random.RandomState(seed + 3)
+    shared = rng.randint(0, cfg.vocab_size, size=(64,))
+    prompts = [np.concatenate([shared, np.tile(rng.randint(
+        0, cfg.vocab_size, size=(6,)), 3)[:n]]) for n in (7, 12, 18, 9)]
+    n_new = 16
+
+    def run(kw, seeds=None):
+        eng = ServingEngine(model, n_slots=4, max_seq=256, device="cuda",
+                            metrics=ServeMetrics(), **kw)
+        reqs = []
+        for i, p in enumerate(prompts):
+            reqs.append(eng.submit(p, n_new, seed=seeds[i] if seeds else 0))
+            eng.drain(timeout=300)   # one by one: later ones hit the store
+        return [r.result().tolist() for r in reqs], eng
+
+    info = {"phase": "dense_tiers_reference", "requests": len(prompts),
+            "new_tokens": n_new}
+    base, _ = run({})
+    for name, kw in DENSE_TIERS_RUNS:
+        got, eng = run(kw)
+        c = eng.step_counts()
+        if got != base:
+            raise AssertionError(f"dense {name} on != off: {got} {base}")
+        if kw.get("prefix_cache") and c["prefix_hits"] < 3:
+            raise AssertionError(f"dense {name}: {c}")
+        if kw.get("spec_k") and c["verify_ticks"] != c["decode_ticks"]:
+            raise AssertionError(f"dense {name}: {c}")
+        info[name] = {"identical_to_off": True, "step_counts": c}
+    kw = dict(temperature=0.8, top_k=50, top_p=0.95)
+    seeds = [100 + i for i in range(len(prompts))]
+    if run(dict(spec_k=TIERS_SPEC_K, **kw), seeds)[0] != run(kw, seeds)[0]:
+        raise AssertionError("dense spec on != off (seeded)")
+    info["spec_seeded_identical"] = True
+
+    def loop(quant):
+        out = []
+        for p in prompts:
+            caches = init_cache(cfg, 1, len(p) + n_new, quantized=quant,
+                                layout="grouped", device="cuda")
+            logits, _ = model.decode(torch.tensor(p[None], device="cuda"),
+                                     caches, 0, last_only=True,
+                                     fresh_prefill=not quant)
+            toks = []
+            for i in range(n_new):
+                toks.append(int(torch.argmax(logits[0, -1]).item()))
+                if i + 1 < n_new:
+                    logits, _ = model.decode(
+                        torch.tensor([[toks[-1]]], device="cuda"), caches,
+                        len(p) + i)
+            out.append(toks)
+        return out
+
+    want = {"": loop(False), "int8": loop(True)}
+    for name, kw in GATHER_RUNS:
+        _zero_counts()
+        pa.launches = pa.plain_calls = 0
+        eng = ServingEngine(model, n_slots=4, max_seq=256, paged=True,
+                            block=BLOCK, paged_kernel="off", device="cuda",
+                            metrics=ServeMetrics(), **kw)
+        reqs = [eng.submit(p, n_new) for p in prompts]
+        eng.drain(timeout=300)
+        torch.cuda.synchronize()
+        got = [r.result().tolist() for r in reqs]
+        ticks = eng.decode_ticks
+        quant = bool(kw.get("kv_dtype"))
+        dec = ticks * cfg.num_layers if quant else 0
+        if (da.launches != dec or da.design_launches["device_pos"] != dec
+                or da.plain_calls or pa.launches or pa.plain_calls):
+            raise AssertionError(f"gather {name}: {da.launches} decode "
+                                 f"launches ({da.design_launches}), "
+                                 f"{da.plain_calls} plain, paged "
+                                 f"{pa.launches}/{pa.plain_calls}, {ticks} "
+                                 f"ticks")
+        if got != want[kw.get("kv_dtype", "")]:
+            raise AssertionError(f"gather {name}: {got} != plain loop")
+        info[f"gather_{name}"] = {"tokens_equal_loop": True,
+                                  "decode_ticks": ticks,
+                                  "decode_launches": da.launches,
+                                  "step_counts": eng.step_counts()}
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def _engine_run(torch, engine, prompts, warm=None):
+    """Serve ``prompts`` (after ``warm``, alone) through a ServeFrontend
+    over ``engine``, the kernel counts set to 0 just before and read just
+    after: the tokens, the counts, and the run's latency line."""
+    from byteps_tpu_torch.ops import decode_attention as da
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import paged_attention as pa
+    from byteps_tpu_torch.serving import RemoteServeClient, serve
+
+    if not all(t.is_cuda for layer in engine.pool.caches
+               for t in layer.values()):
+        raise AssertionError("KV cache is not on the GPU")
+    srv, thread = serve(engine, 0, host="127.0.0.1", in_thread=True)
+    addr = f"127.0.0.1:{srv.server_address[1]}"
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        pa.launches = pa.plain_calls = 0
+        warm_out = []
+        if warm is not None:
+            c = RemoteServeClient(addr, timeout=600)
+            warm_out = [c.generate(warm, NEW_TOKENS)]
+            c.close()
+        results, wall = _serve_requests(torch, addr, prompts,
+                                        engine.model.cfg.vocab_size)
+        counts = {"decode": da.launches,
+                  "decode_by_design": dict(da.design_launches),
+                  "flash_fwd": fa.fwd_launches, "paged": pa.launches,
+                  "plain": da.plain_calls + fa.plain_calls + pa.plain_calls}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    summ = engine.metrics.summary()
+    line = {"step_counts": engine.step_counts(), "launches": counts,
+            "wall_s": wall, "tokens_per_s": NEW_TOKENS * len(prompts) / wall,
+            "ttft_p50_ms": summ["ttft_p50_s"] * 1e3,
+            "ttft_p99_ms": summ["ttft_p99_s"] * 1e3,
+            "tpot_p50_ms": summ["tpot_p50_s"] * 1e3,
+            "tpot_p99_ms": summ["tpot_p99_s"] * 1e3}
+    return warm_out + results, counts, line
+
+
+def _not_real(torch, model, prompts, runs_a, runs_b, what):
+    """``classify_divergence`` request by request; raises on "real" and
+    returns the worst verdict, the mean agreement, the requests that
+    differ, and the earliest divergence: its request, its token and the
+    reference's logit gap there between the two choices (path A's
+    teacher-forced logits; within ``tie_threshold`` is a tie)."""
+    import numpy as np
+
+    from byteps_tpu_torch.inference import classify_divergence
+
+    verdicts = [classify_divergence(model, np.asarray(p)[None], a[None],
+                                    b[None])
+                for p, a, b in zip(prompts, runs_a, runs_b)]
+    worst = max(verdicts, key=lambda v: ["none", "tie", "real"].index(
+        v["divergence"]))
+    if worst["divergence"] == "real":
+        raise AssertionError(f"{what}: {worst}")
+    out = {"verdict": worst["divergence"], "agreement": float(np.mean(
+        [v["agreement"] for v in verdicts])),
+           "requests_differing": sum(v["divergence"] != "none"
+                                     for v in verdicts)}
+    split = [(v["first_div_pos"], i) for i, v in enumerate(verdicts)
+             if v["divergence"] != "none"]
+    if split:
+        d, i = min(split)
+        out["first_divergence"] = {
+            "request": i, "token": d,
+            **{k: verdicts[i][k] for k in ("divergence", "delta_logit",
+                                           "tie_threshold")}}
+    return out
+
+
+class _PathCalls:
+    """The first call of each shape a main path makes to the kernels the
+    model calls (row 7's ``decode_attention``, row 1's
+    ``flash_attention``, through ``models.transformer``'s names), its
+    inputs and output copied; :meth:`hold` then holds those outputs, and
+    the wrapper called again on the same inputs, to the plain versions.
+    Recording launches nothing, so the counts stay the main path's."""
+
+    NAMES = ("decode_attention", "flash_attention")
+
+    def __enter__(self):
+        from byteps_tpu_torch.models import transformer as tm
+
+        self.tm, self.calls = tm, {}
+        self.orig = {n: getattr(tm, n) for n in self.NAMES}
+        for n, fn in self.orig.items():
+            setattr(tm, n, self._recording(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.tm, n, fn)
+
+    def _recording(self, name, fn):
+        def sig(x):   # a shape, an int position's type, or the value
+            return ((tuple(x.shape), str(x.dtype)) if hasattr(x, "shape")
+                    else "int" if type(x) is int else x)
+
+        def copy(x):
+            return x.clone() if hasattr(x, "clone") else x
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            key = (name, tuple(map(sig, args)),
+                   tuple(sorted((k, sig(v)) for k, v in kw.items())))
+            if key not in self.calls:
+                self.calls[key] = (name, [copy(a) for a in args],
+                                   {k: copy(v) for k, v in kw.items()},
+                                   out.clone())
+            return out
+        return call
+
+    def hold(self, torch) -> list:
+        """Each recorded call: its output against the plain version at
+        phase 16's limits for row 7 (bf16 q: ulps of each row's largest;
+        fp32: absolute) and phase 9's for row 1 (relative to the largest
+        |o|), a call of the wrapper on the same inputs bit-identical to
+        it, and at a position vector each slot's bits unchanged when the
+        other slots' positions move, and within the limit of a one-slot
+        launch at its int position.  Raises on a miss; one line a call."""
+        from byteps_tpu_torch.ops import decode_attention as da
+        from byteps_tpu_torch.ops import flash_attention as fa
+
+        lines = []
+        for name, args, kw, got in self.calls.values():
+            bf16 = args[0].dtype == torch.bfloat16
+            if name == "decode_attention":
+                def call(*a):
+                    return da.decode_attention(*a, **kw)
+                ref = da.decode_attention_reference(*args, **kw)
+                err, tol = ((_row_ulps(torch, got, ref), DECODE_BF16_ULPS)
+                            if bf16 else
+                            ((got.float() - ref.float()).abs().max()
+                             .item(), 1e-4))
+            else:
+                def call(*a):
+                    return fa.flash_attention(*a, **kw)
+                ref = fa.flash_forward_reference(*args, **kw)[0]
+                top = ref.float().abs().max().item()
+                err = ((got.float() - ref.float()).abs().max().item()
+                       / (max(top, 1e-6) if bf16 else max(top, 1.0)))
+                tol = 2e-2 if bf16 else 1e-4
+            what = f"{name} at {[tuple(a.shape) for a in args[:3]]}"
+            if not (torch.isfinite(got.float()).all() and err <= tol):
+                raise AssertionError(f"{what}: error {err} > {tol}")
+            if not torch.equal(call(*args), got):
+                raise AssertionError(f"{what}: a call on the same inputs "
+                                     f"differs from the path's")
+            line = {"kernel": name, "shapes": [list(a.shape)
+                                               for a in args[:3]],
+                    "dtype": str(args[1].dtype).split(".")[-1],
+                    "max_abs_err": (got.float() - ref.float()).abs().max()
+                    .item(), "err": err, "tolerance": tol}
+            pos = args[3] if name == "decode_attention" else None
+            if hasattr(pos, "shape"):
+                q, ck, cv = args[:3]
+                one = dict(kw)
+                for b in range(q.shape[0]):
+                    moved = pos.flip(0)
+                    moved[b] = pos[b]
+                    if not torch.equal(call(q, ck, cv, moved)[b], got[b]):
+                        raise AssertionError(f"{what}: slot {b}'s bits "
+                                             f"moved with the others'")
+                    for k in ("k_scale", "v_scale"):
+                        if kw.get(k) is not None:
+                            one[k] = kw[k][b:b + 1]
+                    ref1 = da.decode_attention(
+                        q[b:b + 1], ck[b:b + 1], cv[b:b + 1],
+                        int(pos[b]), **one)
+                    e1 = (_row_ulps(torch, got[b:b + 1], ref1) if bf16
+                          else (got[b:b + 1].float() - ref1.float()).abs()
+                          .max().item())
+                    if e1 > tol:
+                        raise AssertionError(f"{what}: slot {b} is {e1} "
+                                             f"from its one-slot launch")
+                line["pos"] = pos.tolist()
+                line["slots_independent_and_one_slot_close"] = True
+            elif name == "decode_attention":
+                line["pos"] = pos
+            lines.append(line)
+        return lines
+
+
+def dense_tiers_serve_phase(torch, seed: int) -> dict:
+    """The dense engine's prefix store and verify at full width: phase 4's
+    serving model (bf16, attention in plain torch: a flash model is
+    refused with a prefix store at this max_seq) on 8 dense grouped slots
+    of 2048 rows with ``prefix_cache=True`` and ``spec_k=4``, phase 6c's
+    traffic (a warm request, then 8 sharing a 256-token prefix): the
+    n-gram run, a run replaying each first answer as its proposals (which
+    must be accepted and give the same tokens: the verify width is
+    fixed), the prefix store alone, speculation alone, and both off;
+    every tick of a spec run a verify, >= 8 prefix hits (row copies) in a
+    prefix run, no kernel launched.  Each run against off: identical, or
+    where it first parts and the off stream's logit gap there."""
+    import numpy as np
+
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16)
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
+    init_weights(model, seed)
+    warm, prompts = _tiers_prompts(np, cfg.vocab_size, seed)
+
+    both = dict(prefix_cache=True, spec_k=TIERS_SPEC_K)
+    runs = {}
+    # (name, options): both on with the n-gram proposer and with replayed
+    # proposals, each alone (which of them parts the streams from off,
+    # and where), and both off
+    for name, kw in (("ngram", both), ("replay", both),
+                     ("prefix_only", dict(prefix_cache=True)),
+                     ("spec_only", dict(spec_k=TIERS_SPEC_K)), ("off", {})):
+        eng = ServingEngine(model, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                            device="cuda", metrics=ServeMetrics(), **kw)
+        if name == "replay":
+            eng.spec = _ReplayProposer(eng.spec.k, [warm] + prompts,
+                                       runs["ngram"][0])
+        results, counts, line = _engine_run(torch, eng, prompts, warm)
+        c = line["step_counts"]
+        if counts["decode"] or counts["paged"] or counts["plain"] \
+                or counts["flash_fwd"]:
+            raise AssertionError(f"dense {name}: launches {counts}")
+        if (kw.get("spec_k") and c["verify_ticks"] != c["decode_ticks"]) \
+                or (kw.get("prefix_cache") and (
+                    c["prefix_hits"] < len(prompts)
+                    or c["prefix_copies"] != c["prefix_hits"])):
+            raise AssertionError(f"dense {name}: {c}")
+        if name == "replay" and not c["spec_accepted"]:
+            raise AssertionError(f"dense replay accepted nothing: {c}")
+        line["spec_acceptance"] = (c["spec_accepted"]
+                                   / max(c["spec_proposed"], 1))
+        runs[name] = (results, line)
+        del eng
+        torch.cuda.empty_cache()
+    for a, b in zip(runs["ngram"][0], runs["replay"][0]):
+        if not np.array_equal(a, b):
+            raise AssertionError("dense replay run != n-gram run")
+    vs_off = {name: _not_real(torch, model, [warm] + prompts,
+                              runs["off"][0], runs[name][0],
+                              f"dense {name} vs off")
+              for name in ("ngram", "prefix_only", "spec_only")}
+    info = {"phase": "dense_tiers_serve",
+            "model": "Llama-3.2-1B (random weights)",
+            "source": "meta-llama/Llama-3.2-1B config.json",
+            "reduced": {"max_seq": [131072, MAX_SEQ]}, "dtype": "bfloat16",
+            "layout": "grouped", "slots": N_SLOTS, "spec_k": TIERS_SPEC_K,
+            "prompt_lens": [len(warm)] + [len(p) for p in prompts],
+            "replay_identical_to_ngram": True,
+            "on_identical_to_off": vs_off["ngram"]["verdict"] == "none",
+            "on_vs_off": vs_off["ngram"],
+            **{f"{n}_vs_off": vs_off[n] for n in ("prefix_only",
+                                                  "spec_only")},
+            "nvidia_smi": _smi(),
+            **{n: r[1] for n, r in runs.items()}}
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def gather_serve_phase(torch, seed: int, paged_results) -> tuple:
+    """The paged gather fallback at full width on phase 4's model and
+    traffic: a bf16 grouped pool (phase 4's 1025 blocks), an int8 pool at
+    513 MiB (run twice) and the int8 pool at tp=2, and the paged kernel
+    on the int8 pool as its reference.  Int8 runs: decode-kernel launches
+    = ticks x 16, every one reading the slots' position vector, no paged
+    kernel, no plain call; reruns identical; tp=2 identical to tp=1; each
+    run not "real" against the kernel path's stream (phase 4's, or the
+    int8 kernel run).  Returns the phase line and the int8 run's
+    counts."""
+    import numpy as np
+
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16)
+    L = cfg.num_layers
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
+    init_weights(model, seed)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    runs = {}
+    for name, kw in (("bf16", dict(kv_blocks=1025)),
+                     ("int8_kernel", dict(kv_mb=TIERS_KV_MB,
+                                          kv_dtype="int8",
+                                          paged_kernel="on")),
+                     ("int8", dict(kv_mb=TIERS_KV_MB, kv_dtype="int8")),
+                     ("int8_rerun", dict(kv_mb=TIERS_KV_MB,
+                                         kv_dtype="int8")),
+                     ("int8_tp2", dict(kv_mb=TIERS_KV_MB, kv_dtype="int8",
+                                       tp=2))):
+        kw.setdefault("paged_kernel", "off")
+        eng = ServingEngine(model, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                            paged=True, block=BLOCK, device="cuda",
+                            metrics=ServeMetrics(), **kw)
+        with _PathCalls() as path:
+            results, counts, line = _engine_run(torch, eng, prompts)
+        ticks = line["step_counts"]["decode_ticks"]
+        gather = kw["paged_kernel"] == "off"
+        want_dec = ticks * L if gather and "kv_dtype" in kw else 0
+        want_paged = 0 if gather else ticks * L
+        if (counts["decode"] != want_dec or counts["plain"]
+                or counts["decode_by_design"]["device_pos"] != want_dec
+                or counts["paged"] != want_paged or ticks == 0):
+            raise AssertionError(f"gather {name}: {counts}, {ticks} ticks")
+        buckets = sorted(eng.gather_buckets)
+        # row 7 on this run's gathered rows, one held call a bucket
+        held = path.hold(torch)
+        rows = sorted(h["shapes"][1][1] // BLOCK for h in held)
+        if rows != (buckets if want_dec else []):
+            raise AssertionError(f"gather {name}: held decode calls at "
+                                 f"{rows} blocks, buckets {buckets}")
+        line.update(kv_blocks=eng.pool.block_stats()["n_blocks"],
+                    gather_buckets=buckets, held=held)
+        runs[name] = (results, line)
+        del eng
+        torch.cuda.empty_cache()
+    for other in ("int8_rerun", "int8_tp2"):
+        for a, b in zip(runs["int8"][0], runs[other][0]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"gather {other} != int8")
+    info = {"phase": "gather_serve",
+            "model": "Llama-3.2-1B (random weights)",
+            "source": "meta-llama/Llama-3.2-1B config.json",
+            "reduced": {"max_seq": [131072, MAX_SEQ]}, "dtype": "bfloat16",
+            "slots": N_SLOTS, "rerun_identical": True, "tp2_identical": True,
+            "bf16_vs_kernel": _not_real(torch, model, prompts,
+                                        paged_results, runs["bf16"][0],
+                                        "gather bf16 vs the paged kernel"),
+            "int8_vs_kernel": _not_real(torch, model, prompts,
+                                        runs["int8_kernel"][0],
+                                        runs["int8"][0],
+                                        "gather int8 vs the paged kernel"),
+            "nvidia_smi": _smi(),
+            **{n: r[1] for n, r in runs.items()}}
+    del model
+    torch.cuda.empty_cache()
+    return info, runs["int8"][1]["launches"]
 
 
 # -------------------------------------------------------------- training
@@ -2487,6 +3008,133 @@ def generate_phase(torch, seed: int):
     return info, launches
 
 
+SEARCH_BEAM = dict(B=2, T=512, beams=4, new=32)
+SEARCH_SPEC = dict(B=4, T=512, new=64, gamma=4, draft_layers=4)
+
+
+def search_phase(torch, seed: int):
+    """``beam_search`` and ``speculative_generate`` at full width on phase
+    15's model (``attn_impl="flash"``, bf16; ``init_cache``'s default, flat,
+    cache).  Beam search, 2 prompts of 512 tokens, 4 beams, 32 new tokens:
+    16 flash forwards (the prefill, once), 31 x 16 decode-kernel launches
+    over the 8 beam rows, reruns identical, one beam equal to greedy
+    ``generate`` (or a selection tie by ``classify_divergence``).
+    Speculative generation, 4 prompts of 512, 64 new tokens, gamma 4, a
+    4-layer ``truncated_draft``: the draft's decode launches (rounds x
+    gamma x 4), its tokens not "real" against target-only greedy
+    ``generate``; acceptance, rounds, and ms per emitted token.  Returns
+    the phase line and the launch counts."""
+    import numpy as np
+
+    from byteps_tpu_torch.inference import (beam_search, generate,
+                                            speculative_generate,
+                                            truncated_draft)
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16, attn_impl="flash")
+    L = cfg.num_layers
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
+    init_weights(model, seed)
+    rng = np.random.RandomState(seed + 5)
+    bm, sp = SEARCH_BEAM, SEARCH_SPEC
+    info = {"phase": "search", "model": "Llama-3.2-1B (random weights)",
+            "source": "meta-llama/Llama-3.2-1B config.json",
+            "reduced": {"max_seq": [131072, MAX_SEQ]}, "dtype": "bfloat16",
+            "attn_impl": "flash", "beam": bm, "speculative": sp}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, _gen_counts()
+
+    def held(path, want):
+        """Rows 7 and 1 on the run's own inputs, one held call a shape:
+        ``want`` the shapes the run must have given them."""
+        lines = path.hold(torch)
+        got = sorted((h["kernel"], tuple(h["shapes"][1])) for h in lines)
+        if got != sorted(want):
+            raise AssertionError(f"held calls {got}, want {want}")
+        return lines
+
+    D, KVD = cfg.d_head, cfg.kv_heads * cfg.d_head
+    prompt = rng.randint(0, cfg.vocab_size, size=(bm["B"], bm["T"]))
+    beams = []
+    with _PathCalls() as path:    # the first run's calls, held below
+        beams.append(timed(lambda: beam_search(
+            model, prompt, bm["new"], bm["beams"])))
+    for i in range(2):
+        out, ms, counts = beams[i] if i < len(beams) else timed(
+            lambda: beam_search(model, prompt, bm["new"], bm["beams"]))
+        want = {"flash_fwd": L, "decode": (bm["new"] - 1) * L,
+                "quant_dot": 0, "plain": 0}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"beam search launches {counts}, want "
+                                 f"{want}")
+        toks = out["tokens"].cpu().numpy()
+        if toks.shape != (bm["B"], bm["new"]) or not torch.isfinite(
+                out["beam_scores"]).all():
+            raise AssertionError(f"beam search output {toks.shape}")
+        beams[i:i + 1] = [(out, ms, counts)]
+    beam_held = held(path, [
+        ("flash_attention", (bm["B"], bm["T"], cfg.kv_heads, D)),
+        ("decode_attention", (bm["B"] * bm["beams"], bm["T"] + bm["new"],
+                              KVD))])
+    for k in ("beam_tokens", "beam_scores"):
+        if not torch.equal(beams[0][0][k], beams[1][0][k]):
+            raise AssertionError(f"beam search rerun: {k} differ")
+    one = beam_search(model, prompt, bm["new"], 1)["tokens"].cpu().numpy()
+    greedy = generate(model, prompt, bm["new"],
+                      temperature=0)["tokens"].cpu().numpy()
+    one_vs_greedy = _not_real(torch, model, prompt, greedy, one,
+                              "one beam vs greedy generate")
+    info["beam_run"] = {"ms": [b[1] for b in beams],
+                        "launches": beams[1][2],
+                        "best_scores": beams[1][0]["scores"].tolist(),
+                        "rerun_identical": True,
+                        "one_beam_equals_greedy":
+                            bool((one == greedy).all()),
+                        "one_beam_vs_greedy": one_vs_greedy,
+                        "held": beam_held, "nvidia_smi": _smi()}
+    prompt = rng.randint(0, cfg.vocab_size, size=(sp["B"], sp["T"]))
+    draft = truncated_draft(model, sp["draft_layers"])
+    greedy, g_ms, _ = timed(lambda: generate(model, prompt, sp["new"],
+                                             temperature=0)["tokens"])
+    spec_rows = sp["T"] + sp["new"] + sp["gamma"] + 1   # its cache_len
+    with _PathCalls() as path:
+        out, ms, counts = timed(lambda: speculative_generate(
+            model, draft, prompt, sp["new"], gamma=sp["gamma"]))
+    rounds = out["rounds"]
+    want = {"flash_fwd": L + sp["draft_layers"],
+            "decode": rounds * sp["gamma"] * sp["draft_layers"],
+            "quant_dot": 0, "plain": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"speculative launches {counts}, want {want}")
+    toks = out["tokens"].cpu().numpy()
+    info["speculative_run"] = {
+        "ms": ms, "ms_per_token": ms / sp["new"],
+        "greedy_generate_ms": g_ms,
+        "greedy_generate_ms_per_token": g_ms / sp["new"],
+        "acceptance": out["acceptance"], "rounds": rounds,
+        "tokens_per_target_forward": out["tokens_per_target_forward"],
+        "launches": counts,
+        "vs_greedy": _not_real(torch, model, prompt, greedy.cpu().numpy(),
+                               toks, "speculative vs greedy generate"),
+        # the target's and the draft's prefill share the flash shape
+        "held": held(path, [
+            ("flash_attention", (sp["B"], sp["T"], cfg.kv_heads, D)),
+            ("decode_attention", (sp["B"], spec_rows, KVD))]),
+        "nvidia_smi": _smi()}
+    del model, draft
+    torch.cuda.empty_cache()
+    return info, {"beam": beams[1][2], "speculative": counts}
+
+
 # ------------------------------------------------------ decode attention
 
 DECODE_MAIN = dict(B=GEN_B, S=MAX_SEQ, H=32, KV=8, D=64, pos=MAX_SEQ - 1,
@@ -3068,7 +3716,8 @@ def main() -> int:
                      for n, log in _build.build_logs.items()}})
     _line(ptxas_phase(_build.build_logs))
     _line(reference_phase(torch, args.seed))
-    serve_info, paged_launches, final_pos = serve_phase(torch, args.seed)
+    serve_info, paged_launches, final_pos, paged_results = serve_phase(
+        torch, args.seed)
     serve_info["nvidia_smi"] = smi
     _line(serve_info)
     _, paged_main = kernel_phase(torch, args.seed, final_pos)
@@ -3084,6 +3733,11 @@ def main() -> int:
     dense_info, dense_launches = dense_serve_phase(torch, args.seed,
                                                    serve_info)
     _line(dense_info)
+    _line(dense_tiers_reference_phase(torch, args.seed))
+    _line(dense_tiers_serve_phase(torch, args.seed))
+    gather_info, gather_launches = gather_serve_phase(torch, args.seed,
+                                                      paged_results)
+    _line(gather_info)
     _line(train_reference_phase(torch, args.seed))
     train_info, flash_launches, _ = train_phase(torch, args.seed)
     train_info["nvidia_smi"] = _smi()
@@ -3107,9 +3761,26 @@ def main() -> int:
     _line(generate_reference_phase(torch, args.seed))
     gen_info, gen_launches = generate_phase(torch, args.seed)
     _line(gen_info)
+    search_info, search_launches = search_phase(torch, args.seed)
+    _line(search_info)
     decode_main = decode_kernel_phase(torch, args.seed)
     quant_layers = quant_kernel_phase(torch, args.seed)
     print(_smi(), flush=True)
+    search_held = (search_info["beam_run"]["held"]
+                   + search_info["speculative_run"]["held"])
+    gather_held = [h for name in ("int8", "int8_rerun", "int8_tp2")
+                   for h in gather_info[name]["held"]]
+
+    def held(lines, kernel):
+        """This slice's calls of a kernel held on the main path's inputs
+        (phases 6h and 15b): how many, at which cache rows, the worst."""
+        hs = [h for h in lines if h["kernel"] == kernel]
+        return {"calls": len(hs),
+                "shapes": sorted({tuple(h["shapes"][1]) for h in hs}),
+                "max_abs_err": max(h["max_abs_err"] for h in hs),
+                "err": max(h["err"] for h in hs),
+                "tolerance": hs[0]["tolerance"]}
+
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "byteps_tpu_torch/csrc/paged_attention.cu",
@@ -3136,7 +3807,13 @@ def main() -> int:
     for kname, line, n in (("fwd", 116, flash_launches[0]),
                            ("dq", 374, flash_launches[1]),
                            ("dkv", 444, flash_launches[2])):
-        kernels.append({
+        extra = ({"beam_search_prefill_launches":
+                  search_launches["beam"]["flash_fwd"],
+                  "speculative_prefill_launches":
+                  search_launches["speculative"]["flash_fwd"],
+                  "held_on_path": held(search_held, "flash_attention")}
+                 if kname == "fwd" else {})
+        kernels.append({**extra,
             "name": f"flash_attention_{kname}", "route": "cuda",
             "source": "byteps_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"byteps_tpu/ops/flash_attention.py:{line}",
@@ -3176,6 +3853,16 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # this slice's paths: the beam search over 8 beam rows and the
+            # speculative draft (bf16, int pos), the gather over an int8
+            # pool (device positions)
+            **({"beam_search_launches": search_launches["beam"]["decode"],
+                "speculative_draft_launches":
+                    search_launches["speculative"]["decode"],
+                "held_on_path": held(search_held, "decode_attention")}
+               if mode == "bfloat16" else
+               {"gather_int8_launches": gather_launches["decode"],
+                "held_on_path": held(gather_held, "decode_attention")}),
             # the position-vector form (the dense engine's decode tick):
             # this mode's cases in phase 16, and its launches on the dense
             # serve phase's flat run of this cache (bf16, or kv_quant int8)

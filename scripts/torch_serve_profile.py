@@ -3,18 +3,23 @@
 GPU (byteps_tpu_torch, Llama-3.2-1B at full width, bf16, random weights).
 
     python3 scripts/torch_serve_profile.py [--ticks 20] [--seed 0]
-        [--kv-dtype int8] [--tp 2] [--spec-k 4]
+        [--kv-dtype int8] [--tp 2] [--spec-k 4] [--prefix]
+        [--paged-kernel off]
     python3 scripts/torch_serve_profile.py --dense flat|grouped
-        [--ticks 20] [--seed 0]
+        [--ticks 20] [--seed 0] [--prefix] [--spec-k 4 (grouped)]
 
-Admits 8 requests (prompts of 32-512 tokens, as ``chip_smoke.py``)
-straight into a ``ServingEngine`` (no TCP tier; the paged engine with an
-fp pool at tp=1 without speculation unless asked; ``--dense`` the dense
-slot engine on flat rows, whose tick is one decode-kernel launch a layer
-at a position vector, or grouped rows; the paged engine's ``--kv-dtype``,
-``--tp`` and ``--spec-k`` are refused with it), steps until every one is
-decoding, then measures steady decode (or, with ``--spec-k``, verify)
-ticks three ways:
+Admits 8 requests (prompts of 32-512 tokens, as ``chip_smoke.py``;
+with ``--prefix`` each behind a shared 256-token prefix, and the engine
+keeps a prefix store, so admissions after the first hit it) straight
+into a ``ServingEngine`` (no TCP tier; the paged engine with an fp pool
+at tp=1 on the paged kernel without speculation unless asked, or with
+``--paged-kernel off`` the gather fallback; ``--dense`` the dense slot
+engine on flat rows, whose tick is one decode-kernel launch a layer at a
+position vector, or grouped rows, which alone take ``--spec-k``: one
+``verify_tokens`` pass a tick; the paged engine's ``--kv-dtype``,
+``--tp`` and ``--paged-kernel`` are refused with it), steps until every
+one is decoding, then measures steady decode (or, with ``--spec-k``,
+verify) ticks three ways:
 
 * host wall time per tick (``engine.step()`` ending in the token
   read-back, which synchronizes);
@@ -24,12 +29,15 @@ ticks three ways:
 * host time per tick split by layer: the seconds spent inside the
   engine's step, the model's tick, each layer's attention (its q/k/v
   projections, its attention call: the decode or paged kernel's wrapper
-  or plain attention) and MLP, the linear layers and the head, timed on
-  the host's clock around each call over the same number of ticks
-  (inclusive: a part holds the parts it calls).
+  or plain attention) and MLP, the linear layers and the head, and on
+  the gather fallback the gather pass (rows gathered, decoded and
+  scattered back) and the row gather alone, timed on the host's clock
+  around each call over the same number of ticks (inclusive: a part
+  holds the parts it calls).
 
-Prints one JSON line per measurement; ``--out`` also writes them all to
-a file.  Needs a CUDA device.
+Prints one JSON line per measurement, the first with the card's name
+and power limit; ``--out`` also writes them all to a file.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -81,6 +89,8 @@ def _host_split(eng, ticks: int) -> dict:
     parts = {"engine_step": (type(eng), "step"),
              "model_tick": (tm.Transformer, "decode"),
              "model_tick_paged": (tm.Transformer, "decode_paged_fused"),
+             "gather_step": (type(eng), "_gather_step"),
+             "gather_rows": (tm, "gather_paged_rows"),
              "attention_layer": (tm.Attention, "forward_cached"),
              "attention_layer_paged": (tm.Attention, "forward_paged"),
              "qkv_rope": (tm.Attention, "_qkv"),
@@ -126,11 +136,18 @@ def main() -> int:
     ap.add_argument("--kv-dtype", default="", choices=("", "int8"))
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--prefix", action="store_true")
+    ap.add_argument("--paged-kernel", default="auto",
+                    choices=("auto", "on", "off"))
     ap.add_argument("--dense", default="", choices=("", "flat", "grouped"))
     args = ap.parse_args()
-    if args.dense and (args.kv_dtype or args.tp != 1 or args.spec_k):
-        ap.error("--kv-dtype, --tp and --spec-k are the paged engine's; "
-                 "the dense engine takes none of them")
+    if args.dense and (args.kv_dtype or args.tp != 1
+                       or args.paged_kernel != "auto"):
+        ap.error("--kv-dtype, --tp and --paged-kernel are the paged "
+                 "engine's; the dense engine takes none of them")
+    if args.dense == "flat" and args.spec_k:
+        ap.error("--spec-k needs grouped rows (--dense grouped): flat rows "
+                 "decode through the kernel while the verify runs dense")
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -157,15 +174,19 @@ def main() -> int:
     init_weights(model, args.seed)
     if args.dense:
         eng = ServingEngine(model, n_slots=8, max_seq=2048,
-                            cache_layout=args.dense, device="cuda",
+                            cache_layout=args.dense, spec_k=args.spec_k,
+                            prefix_cache=args.prefix, device="cuda",
                             metrics=ServeMetrics())
     else:
         eng = ServingEngine(model, n_slots=8, max_seq=2048, paged=True,
                             block=16, kv_dtype=args.kv_dtype, tp=args.tp,
-                            spec_k=args.spec_k, device="cuda",
+                            spec_k=args.spec_k, prefix_cache=args.prefix,
+                            paged_kernel=args.paged_kernel, device="cuda",
                             metrics=ServeMetrics())
-    knobs = ({} if args.dense else {"kv_dtype": args.kv_dtype or "model",
-                                    "tp": args.tp, "spec_k": args.spec_k})
+    knobs = {"spec_k": args.spec_k, "prefix": args.prefix}
+    if not args.dense:
+        knobs.update(kv_dtype=args.kv_dtype or "model", tp=args.tp,
+                     paged_kernel=args.paged_kernel)
     emit({"measure": "config", "engine": ("dense " + args.dense
                                           if args.dense else "paged"),
           **knobs, "device": torch.cuda.get_device_name(0),
@@ -175,8 +196,11 @@ def main() -> int:
               text=True).stdout.strip()})
     rng = np.random.RandomState(args.seed)
     budget = 3 * args.ticks + 8
-    reqs = [eng.submit(rng.randint(0, cfg.vocab_size, size=(n,)), budget)
-            for n in PROMPT_LENS]
+    shared = rng.randint(0, cfg.vocab_size, size=(256 if args.prefix
+                                                   else 0,))
+    reqs = [eng.submit(np.concatenate(
+        [shared, rng.randint(0, cfg.vocab_size, size=(n,))]), budget)
+        for n in PROMPT_LENS]
     while not all(r.state is RequestState.ACTIVE for r in reqs):
         eng.step()
     for _ in range(3):  # warm the steady tick
@@ -216,6 +240,7 @@ def main() -> int:
               "device_ms_per_tick": t / args.ticks / 1e3})
     emit({"measure": "host_split", "ticks": args.ticks,
           "ms_per_tick": _host_split(eng, args.ticks)})
+    emit({"measure": "step_counts", **eng.step_counts()})
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

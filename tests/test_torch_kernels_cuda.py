@@ -409,23 +409,33 @@ def test_flash_forward_bf16_at_the_t_edges(T, H, KV, D):
 
 @pytest.mark.cuda
 def test_flash_autograd_on_the_card_matches_the_cpu_function():
-    """The same Function on CUDA tensors (the kernels) and on CPU tensors
-    (the plain versions), fp32, GQA, causal, lse variant with a nonzero
-    lse cotangent; reruns on the card are bit-identical."""
+    """The same Function on CUDA tensors (the kernels, fp32) and on CPU
+    tensors (the plain versions, run in fp64: the exact values), GQA,
+    causal, lse variant with a nonzero lse cotangent; reruns on the card
+    are bit-identical.  The CPU side runs in fp64 because its fp32 sums
+    follow the host: on one host the process's first fp32 call landed
+    9.9e-5 from the exact values (dk[1, 1, 1, 45]), where the card's
+    kernels stay within 6.2e-6 (scripts/torch_flash_grad_drift.py).  The
+    fp32 plain versions stay held to JAX's kernels on the CPU by
+    ``tests/test_torch_flash_attention.py::
+    test_plain_versions_match_the_jax_kernels``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v, do, _, _ = _flash_inputs(3, 2, 150, 8, 2, 64, torch.float32,
                                       False, False)
     dlse = torch.randn(2, 150, 8, device="cuda")
     grads = []
-    for dev in ("cuda", "cpu", "cuda"):
-        qq, kk, vv = (t.detach().to(dev).requires_grad_() for t in (q, k, v))
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64),
+                       ("cuda", torch.float32)):
+        qq, kk, vv = (t.detach().to(dev, dtype).requires_grad_()
+                      for t in (q, k, v))
         o, lse = fa.flash_attention_with_lse(qq, kk, vv, causal=True)
-        torch.autograd.backward((o, lse), (do.to(dev), dlse.to(dev)))
+        torch.autograd.backward((o, lse), (do.to(dev, dtype),
+                                           dlse.to(dev, dtype)))
         grads.append([t.cpu() for t in (o.detach(), lse.detach(), qq.grad,
                                         kk.grad, vv.grad)])
     for a, b in zip(grads[0], grads[1]):
-        assert (a - b).abs().max().item() <= 1e-4
+        assert (a.double() - b).abs().max().item() <= 1e-4
     for a, b in zip(grads[0], grads[2]):
         assert torch.equal(a, b)
 
@@ -788,6 +798,142 @@ def test_decode_attention_device_positions(dtype, quant, window):
         torch.cuda.synchronize()
         check(got, live)
         assert torch.equal(got, call(live))
+
+
+# the gather fallback's int8 rows: the paged pool's blocks gathered up to
+# the high-water bucket (a power of two times block 16), 8 slots at
+# positions inside it, one launch at the position vector
+GATHER_ROWS = [16, 64, 256, 1024, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", GATHER_ROWS)
+def test_decode_attention_at_gathered_row_shapes(S, dtype):
+    """Row 7's int8 mode on gathered rows ``[8, S, KV*D]`` (S = the gather's
+    high-water bucket x 16) at an ``[8]`` position vector, as the gather
+    fallback calls it over an int8 pool: one launch reading the vector,
+    each slot against the plain version at its position and against a
+    one-slot int launch at the same S (phase 16's tolerances), reruns
+    bit-identical, and each slot's bits unchanged when the other slots'
+    positions change."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, H, KV, D = 8, 32, 8, 64
+    q, ck, cv, ks, vs = _decode_inputs(12, B, S, H, KV, D, dtype, True)
+    rng = np.random.RandomState(S)
+    pos = sorted(set([0, S - 1] + rng.randint(0, S, size=6).tolist()))
+    pos = (pos * B)[:B]
+    posv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    ring = dtype == torch.bfloat16
+
+    def call(p, sel=slice(None)):
+        return da.decode_attention(q[sel], ck[sel], cv[sel], p,
+                                   k_scale=ks[sel], v_scale=vs[sel])
+
+    def close(out, ref):
+        if ring:
+            assert _row_ulps(out, ref) <= 2, _row_ulps(out, ref)
+        else:
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= 1e-4, err
+
+    by = dict(da.design_launches)
+    out = call(posv)
+    took = [da.design_launches[k] - by[k] for k in da.COUNTS]
+    nsplit, _ = da._splits(B, KV, da._max_chunks(S, None),
+                           torch.cuda.get_device_properties(
+                               0).multi_processor_count, ring)
+    assert took == da._kernels_for(ring, nsplit, True), took
+    assert torch.isfinite(out.float()).all()
+    close(out, da.decode_attention_reference(q, ck, cv, posv, k_scale=ks,
+                                             v_scale=vs))
+    assert torch.equal(out, call(posv))
+    for b in range(B):
+        close(out[b:b + 1], call(pos[b], slice(b, b + 1)))
+        moved = torch.tensor(pos[::-1], dtype=torch.int32, device="cuda")
+        moved[b] = pos[b]
+        assert torch.equal(call(moved)[b], out[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_paged_int8_rows_at_tp2_are_tp1(dtype):
+    """The gather fallback over an int8 pool on the card: every slot's rows
+    gathered in one batch reach the decode kernel at the position vector
+    (one launch a layer); the same bytes cut into two per-shard pools
+    gather into the same rows, contiguous, so tp = 2 gives tp = 1's
+    logits bit for bit; the written rows scatter back per shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from byteps_tpu_torch.models import transformer as tm
+    from byteps_tpu_torch.serving.blocks import init_paged_cache
+
+    cfg = tm.TransformerConfig(vocab_size=300, num_layers=2, num_heads=8,
+                               num_kv_heads=2, d_model=256, d_ff=512,
+                               max_seq_len=256, pos_emb="rope", dtype=dtype)
+    model = tm.Transformer(cfg, device="cuda", param_dtype=dtype)
+    tm.init_weights(model, 3)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    pools = {tp: init_paged_cache(cfg, 40, 16, kv_dtype="int8", tp=tp,
+                                  device="cuda") for tp in (1, 2)}
+    for l1, l2 in zip(pools[1], pools[2]):
+        for n, t in l1.items():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                      device="cuda", dtype=torch.int8))
+            else:
+                t.copy_(torch.rand(t.shape, generator=gen, device="cuda")
+                        * 0.02 + 1e-3)
+            # shard s holds KV heads [s * KV/2, (s+1) * KV/2)
+            l2[n].copy_(t.reshape(*t.shape[:2], 2, -1).permute(2, 0, 1, 3))
+    tables = torch.arange(1, 33, dtype=torch.int32,
+                          device="cuda").reshape(4, 8)
+    pos = torch.tensor([5, 40, 77, 120], dtype=torch.int32, device="cuda")
+    toks = torch.randint(0, 300, (4, 1), generator=gen, device="cuda")
+    out = {}
+    for tp in (1, 2):
+        launches = da.design_launches["device_pos"]
+        logits, rows = model.decode_paged(toks, pools[tp], tables, pos,
+                                          hw_blocks=8, tp=tp)
+        assert da.design_launches["device_pos"] - launches == 2
+        assert all(t.is_contiguous() for r in rows for t in r.values())
+        out[tp] = (logits, rows)
+    assert torch.equal(out[1][0], out[2][0])
+    for r1, r2 in zip(out[1][1], out[2][1]):
+        for n in r1:
+            assert torch.equal(r1[n], r2[n]), n
+    wblk = tables.gather(1, (pos // 16).long()[:, None])
+    tm.scatter_paged_rows(pools[2], out[2][1], pos[:, None], wblk,
+                          (pos % 16)[:, None], 2)
+    tm.scatter_paged_rows(pools[1], out[1][1], pos[:, None], wblk,
+                          (pos % 16)[:, None], 1)
+    for l1, l2 in zip(pools[1], pools[2]):
+        for n, t in l1.items():
+            assert torch.equal(
+                t.reshape(*t.shape[:2], 2, -1).permute(2, 0, 1, 3), l2[n])
+
+
+@pytest.mark.cuda
+def test_spec_on_an_int8_gather_pool_is_refused_on_the_card():
+    """JAX's refusal where the decode kernel serves tq = 1: speculation
+    over the gather on an int8 pool (its tick and its verify would attend
+    by different sums); the paged kernel takes it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from byteps_tpu_torch.models import transformer as tm
+    from byteps_tpu_torch.serving import ServingEngine
+
+    cfg = tm.TransformerConfig(vocab_size=64, num_layers=1, num_heads=2,
+                               d_model=64, d_ff=64, max_seq_len=64,
+                               dtype=torch.float32)
+    model = tm.Transformer(cfg, device="cuda")
+    kw = dict(n_slots=2, paged=True, block=16, kv_dtype="int8", spec_k=4,
+              device="cuda")
+    with pytest.raises(ValueError, match="requires the fused paged kernel"):
+        ServingEngine(model, paged_kernel="off", **kw)
+    assert ServingEngine(model, **kw).paged_kernel
 
 
 def _quant_inputs(seed, M, N, K, dtype, bias):

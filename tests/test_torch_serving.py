@@ -261,8 +261,11 @@ def test_serve_from_env_on_cpu_answers_a_jax_client(monkeypatch):
 
 def test_serve_role_runs_on_the_gpu_unless_told_otherwise(monkeypatch):
     """``DMLC_ROLE=serve`` without a GPU raises instead of serving on the
-    CPU, and unported knobs are refused rather than ignored."""
+    CPU, and unported knobs are refused rather than ignored: a checkpoint
+    (``BYTEPS_SERVE_PAGED_KERNEL=off``, once refused, builds the gather
+    fallback now)."""
     from byteps_tpu_torch import launcher
+    from byteps_tpu_torch.common.config import reset_config
     from byteps_tpu_torch.serving.frontend import serve_from_env
 
     if torch.cuda.is_available():
@@ -272,7 +275,16 @@ def test_serve_role_runs_on_the_gpu_unless_told_otherwise(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launcher.main()
     monkeypatch.setenv("BYTEPS_SERVE_PAGED_KERNEL", "off")
-    with pytest.raises(NotImplementedError, match="PAGED_KERNEL=off"):
+    monkeypatch.setenv("BYTEPS_SERVE_MODEL",
+                       ",".join(f"{k}={v}" for k, v in KW.items()))
+    srv, thread = serve_from_env(device="cpu", port=0, in_thread=True)
+    srv.shutdown()
+    srv.server_close()
+    thread.join(timeout=10)
+    assert srv.engine.paged and not srv.engine.paged_kernel
+    monkeypatch.setenv("BYTEPS_SERVE_CHECKPOINT", "/nonexistent.ckpt")
+    with pytest.raises(NotImplementedError, match="CHECKPOINT"):
         serve_from_env(device="cpu")
     monkeypatch.setenv("DMLC_ROLE", "worker")
     assert launcher.main() == 2
+    reset_config()

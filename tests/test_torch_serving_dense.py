@@ -378,17 +378,20 @@ def test_jax_refusals_raise_in_both_packages(tiny):
             e.submit(_prompts((6,))[0], 4, resume_tokens=[3, 5])
 
 
-def test_unported_dense_features_are_refused_by_name(tiny):
-    """The dense engine's row-copy prefix store and its speculative
-    verify belong to the next slice: refused, naming it, never ignored;
-    and a paged engine's gather fallback (``paged_kernel="off"``)."""
-    for kw in (dict(prefix_cache=True), dict(spec_k=4)):
-        with pytest.raises(NotImplementedError,
-                           match="row-copy prefix store and speculative"):
-            _port(tiny, **kw)
-    with pytest.raises(NotImplementedError, match="gather fallback"):
-        _port(tiny, paged=True, block=8, paged_kernel="off")
-    # the paged engine keeps both
+def test_unported_dense_features_are_refused_by_name(tiny, tiny_base):
+    """What the dense slice once refused by name is served now: the dense
+    engine's row-copy prefix store and its speculative verify, and a
+    paged engine's gather fallback (``paged_kernel="off"``) — each
+    built, and serving the JAX dense engine's streams (the fixture holds
+    them to JAX ``generate()``).  The paged engine keeps both tiers."""
+    prompts, want = tiny_base
+    for kw in (dict(prefix_cache=True), dict(spec_k=4),
+               dict(paged=True, block=8, paged_kernel="off")):
+        eng = _port(tiny, **kw)
+        for g, w in zip(_run(eng, prompts), want):
+            np.testing.assert_array_equal(g, w)
+    assert eng.paged and not eng.paged_kernel
+    assert eng.pool.caches[0]["k"].shape[1:] == (8, 2, 16)   # grouped
     eng = _port(tiny, paged=True, block=8, prefix_cache=True, spec_k=2)
     assert eng.prefix is not None and eng.spec is not None
 
@@ -397,8 +400,9 @@ def test_serve_from_env_without_paged_serves_the_dense_engine(
         monkeypatch, tiny):
     """The serve role's defaults build the dense engine (grouped rows, as
     in JAX), which answers a JAX client, greedy reruns identical and
-    equal to the same model driven in-process; the dense engine's
-    unported knobs are refused by name."""
+    equal to the same model driven in-process; the dense engine's prefix
+    store and speculation knobs, and the paged gather's, build engines
+    that serve the same tokens."""
     from byteps_tpu_torch.common.config import reset_config
     from byteps_tpu_torch.serving.frontend import serve_from_env
 
@@ -429,24 +433,46 @@ def test_serve_from_env_without_paged_serves_the_dense_engine(
     again = ServingEngine(eng.model, n_slots=2, max_seq=64, device="cpu",
                           metrics=ServeMetrics())
     np.testing.assert_array_equal(_run(again, [p])[0], a)
-    for knob in ("BYTEPS_SERVE_PREFIX_CACHE", "BYTEPS_SERVE_SPEC"):
-        monkeypatch.setenv(knob, "1")
-        with pytest.raises(NotImplementedError, match="dense engine"):
-            serve_from_env(device="cpu")
-        monkeypatch.delenv(knob)
-    monkeypatch.setenv("BYTEPS_SERVE_PAGED_KERNEL", "off")
-    with pytest.raises(NotImplementedError, match="PAGED_KERNEL=off"):
-        serve_from_env(device="cpu")
-    reset_config()
+    for knobs in ({"BYTEPS_SERVE_PREFIX_CACHE": "1",
+                   "BYTEPS_SERVE_PREFIX_BLOCK": "4"},
+                  {"BYTEPS_SERVE_SPEC": "1"},
+                  {"BYTEPS_SERVE_PAGED": "1", "BYTEPS_SERVE_BLOCK": "8",
+                   "BYTEPS_SERVE_PAGED_KERNEL": "off"}):
+        for k, v in knobs.items():
+            monkeypatch.setenv(k, v)
+        srv, thread = serve_from_env(device="cpu", port=0, in_thread=True)
+        try:
+            eng = srv.engine
+            c = JaxRemoteServeClient(f"127.0.0.1:{srv.server_address[1]}",
+                                     timeout=60, transport="tcp")
+            np.testing.assert_array_equal(c.generate(p, M), a)
+            st = c.stats()
+            c.close()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=10)
+            reset_config()
+        assert ((eng.prefix is not None and eng.prefix.block == 4)
+                or eng.spec is not None
+                or (eng.paged and not eng.paged_kernel)), knobs
+        if eng.prefix is not None:   # the dense store's STATS, as JAX's
+            assert set(st["prefix_cache"]) == {
+                "hits", "misses", "insertions", "evictions", "entries",
+                "bytes"}
+            assert st["step_counts"]["prefix_extracts"] == 1
+        for k in knobs:
+            monkeypatch.delenv(k)
 
 
 @pytest.mark.parametrize("knob", [("--kv-dtype", "int8"), ("--tp", "2"),
-                                  ("--spec-k", "4")])
+                                  ("--paged-kernel", "off")])
 @pytest.mark.parametrize("layout", ["flat", "grouped"])
 def test_serve_profile_refuses_paged_knobs_on_the_dense_engine(layout, knob):
     """``scripts/torch_serve_profile.py --dense`` refuses the paged
     engine's knobs (argparse, before any device is touched) instead of
-    ignoring them."""
+    ignoring them.  (``--spec-k``, once among them, is the dense grouped
+    engine's too now: see the next test.)"""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(
         [sys.executable, os.path.join(root, "scripts",
@@ -455,3 +481,19 @@ def test_serve_profile_refuses_paged_knobs_on_the_dense_engine(layout, knob):
         timeout=60)
     assert r.returncode == 2, r.stderr
     assert "the dense engine takes none of them" in r.stderr
+
+
+def test_serve_profile_takes_prefix_and_spec_on_dense_grouped_rows():
+    """``--dense grouped --prefix --spec-k 4`` gets past the argument
+    checks (and, with no GPU here, stops at the device check), while
+    ``--spec-k`` on flat rows is refused, as the engine refuses it."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "scripts", "torch_serve_profile.py")
+    r = subprocess.run([sys.executable, script, "--dense", "grouped",
+                        "--prefix", "--spec-k", "4"], capture_output=True,
+                       text=True, timeout=60)
+    assert r.returncode == 1 and "needs a CUDA device" in r.stderr, r.stderr
+    r = subprocess.run([sys.executable, script, "--dense", "flat",
+                        "--spec-k", "4"], capture_output=True, text=True,
+                       timeout=60)
+    assert r.returncode == 2 and "needs grouped rows" in r.stderr, r.stderr

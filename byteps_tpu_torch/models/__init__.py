@@ -1,1 +1,6 @@
-"""The decoder-only Transformer and the JAX-parameter converter."""
+"""The decoder-only Transformer, the BERT encoder and its heads, and the
+JAX-parameter converter."""
+
+from .bert import BertClassifier, BertEncoder, BertMLM, bert_config
+
+__all__ = ["BertEncoder", "BertClassifier", "BertMLM", "bert_config"]

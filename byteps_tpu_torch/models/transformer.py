@@ -1033,11 +1033,13 @@ def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
 
 
 @torch.no_grad()
-def init_weights(model: Transformer, seed: int, std: float = 0.02) -> None:
+def init_weights(model: nn.Module, seed: int, std: float = 0.02) -> None:
     """Random weights from ``seed`` on the model's own device: normal
     ``std`` for matrices and embeddings, ones for norm scales, zeros
-    for biases.  The same seed gives the same weights on a device."""
-    g = torch.Generator(device=model.device)
+    for biases.  The same seed gives the same weights on a device.  Any
+    module of the port's layers takes it (a ``Transformer``, the BERT
+    models)."""
+    g = torch.Generator(device=next(model.parameters()).device)
     g.manual_seed(int(seed))
     for name, p in model.named_parameters():
         if name.endswith(".scale"):

@@ -194,7 +194,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    is_causal=True, enable_gqa=True)`` forward and its autograd backward
    (dq + dk + dv in one), with the SDPA kernel that ran; the bound is
    the kernel's FLOPs over the dtype's peak (or its bytes over 3.35
-   TB/s if larger).
+   TB/s if larger).  Also BERT-base's fine-tune shape (B=32, T=128,
+   H=KV=12, D=64, non-causal, padding segment ids ``1...1 0...0`` of
+   seeded lengths, a row unpadded and a row of one token) in both dtypes,
+   timed as the training shape beside SDPA under the same key mask
+   (its error read at the valid rows), the bound counting the attended
+   pairs only.
 10. Fused-head reference — the phase-7 model, 3 SGD-momentum steps with
    ``lm_loss_fn(fused_head=True)`` (the fused LM-head CE kernels) and 3
    from the same weights with the plain head; again with
@@ -240,8 +245,67 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    W loaded element by element, and dW, held to the chunk's rule, on its
    ``mma.sync`` kernel), and the TMA backward again: dW's time on each
    design, and the median SM clock and power draw ``nvidia-smi`` reads
-   while each design's backward runs back to back for 2 s.
+   while each design's backward runs back to back for 2 s.  GPT-2 small's
+   fused head (N=8192, H=768, V=50257) is checked and timed the same way
+   in bf16.
 
+13b. BERT reference — BERT-base (``bert_config()``: 12 x 768, 12 heads,
+   3072, vocab 30522) in fp32 from ``--seed``, ``attn_impl="flash"``
+   against ``"local"`` on the same weights and a padded batch (B=32,
+   T=128): logits within 1e-4 of max(|logit|, 1), every gradient within
+   1e-4 of its tensor's largest entry, 12 launches of each flash kernel.
+   Without ``transformers`` on the host, one line ``{"phase": "hf", "run":
+   false, "why": "transformers not installed"}`` stands for the HF
+   comparisons below (13e, and 13f-13g's HF logits), which are then not
+   run; the port's own models run those phases' kernel work.
+13c. BERT fine-tune (the main path of this slice) —
+   ``BertClassifier(bert_config(attn_impl="flash", dtype=bf16), 2)``,
+   fp32 weights from ``--seed``; its logits on the first batch against
+   the same weights in fp32 with ``"local"`` within 5e-2 of max(|logit|,
+   1); ``Trainer.fit`` with ``examples/train_bert.py``'s loss and
+   ``AdamW(lr=2e-5, weight_decay=1e-4)``: one warm-up step, then 5
+   counted steps at B=32, T=128 (4 batches with padding masks of seeded
+   lengths in [1, 128], then one with no mask): 12 launches of each flash
+   kernel a step, no plain call; the first flash call of each shape
+   (forward and backward, the path's own dO and gradients) held to the
+   plain versions at phase 9's limits after the run, the kernels again on
+   the same inputs bit-identical; step ms, tokens/s, peak memory, and one
+   more step under the profiler (the device's idle share, flash's share).
+13d. BertMLM — one forward and backward at B=8, T=512, padded rows: 12
+   launches of each flash kernel, a finite loss and gradients.
+13e. HF BERT — ``transformers``' ``BertForSequenceClassification(
+   BertConfig(attention_probs_dropout_prob=0.0, hidden_dropout_prob=0.0))``
+   (random weights, fp32, the installed attention implementation) at
+   B=32, T=128, padded: inside ``flash_attention_for_hf_bert`` the CLS
+   logits and every layer's valid-position hidden states within 1e-4 of
+   the stock model's outside it (12 covered calls, 0 uncovered); a fresh
+   context whose first call is unpadded (no mask) within 1e-4 of stock,
+   12 covered; two train steps inside it, the second counted and timed:
+   12 + 12 + 12 flash launches, 0 uncovered.
+13f. GPT-2 small — ``load_gpt2`` of a random ``GPT2LMHeadModel(
+   GPT2Config())`` (12 x 768, 12 heads, vocab 50257, 1024 positions,
+   tied head): fp32 prompt logits within 1e-4 of max(|logit|, 1) of HF's
+   forward on the card; greedy ``generate`` in bf16 of 4 prompts of 256,
+   64 new tokens, twice (identical): 12 flash prefills, 63 x 12 decode
+   launches at one query head a KV head; again after ``quantize_params``
+   (q, k, v, o and the MLP int8, the tied head not): 64 x 72 int8
+   products, the prefill's on tma, every step's on swap; each run's first
+   call of each shape to rows 1, 7 and 9 held to its plain version (phase
+   9's and 16's limits; row 9 within two bf16 ulps of the largest output,
+   the double rounding of sum and scaled product, beside controls on the
+   same inputs: exact sums, the tile design, one rounding, and one K step
+   dropped); 3 ``lm_loss_fn(fused_head=True)`` steps at
+   B=8, T=1024 on a fresh model: 1 forward, 7 dx and 7 dW fused-CE
+   launches a step (V = 50257, 7 chunks; 22 TMA launches), 12 of each
+   flash kernel, the first fused call's loss, dx and dW (the path's own
+   cotangent and gradients) held to the plain versions at phase 13's
+   limits and rerun bit-identical.
+13g. Llama-3.2-1B — ``load_llama`` of a random ``LlamaForCausalLM`` at
+   the published dimensions (llama3 rope scaling, head_dim 64, tied
+   head), its config read back equal to phase 4's: fp32 logits of 2 x 256
+   tokens within 1e-4 of max(|logit|, 1) of HF's forward; greedy
+   ``generate`` in bf16 of 4 prompts of 256, 32 new tokens: 16 flash
+   prefills, 31 x 16 decode launches, the first calls held.
 14. Generate reference — the phase-7 fp32 model with
    ``attn_impl="flash"``, B=2, a prompt of 128 (the flash prefill), 32
    new tokens, greedy through ``inference.generate``: a flat cache (the
@@ -317,6 +381,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    a window, from CUDA graphs behind both flushes: the one launch, 8
    one-slot int launches at the same depths, the int call with every
    slot at 2047, and SDPA on the same rows under each slot's key mask.
+   Also GPT-2 small's decode (B=4, S=1024, H=KV=12, D=64, pos 1023: one
+   query head a KV head), each mode, timed in bf16 as the main case.
 17. Int8 product kernel — against its plain version at M = 1, 8, 16,
    40, 64, 65, 4096 and 15360 rows on Llama-3.2-1B's projection shapes
    (2048->2048, 2048->512, 2048->8192, 8192->2048), the probe's 768->3072
@@ -338,7 +404,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    max(bytes over 3.35 TB/s, FLOPs over 989 TFLOP/s).  The kernels line
    reports the sums over one layer's seven projections at M = 8 and, as
    ``prefill_layer``, at M = 15360, and the main path's launches by
-   design (phase 15 (d)).
+   design (phase 15 (d)).  GPT-2 small's layer (four 768 -> 768
+   projections, 768 -> 3072, 3072 -> 768) is checked and timed the same
+   way at M = 4 and 1024, phase 13f's decode and prefill rows.
 
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels":
 [...]}`` JSON object (each decode entry with a ``device_pos`` record of
@@ -347,12 +415,19 @@ of the dense serve phase's flat run on that cache; the bf16 entry also
 the launches of phase 15b's beam search and speculative draft, the int8
 entry those of phase 6h's int8 gather run, and each its ``held_on_path``
 calls of 15b or 6h; the flash forward entry phase 15b's prefill launches
-and held calls), and ``{"ok": true, "device": {...}}``.
+and held calls; the flash entries also the BERT fine-tune's launches,
+its held forward and backward calls and the BERT case's times, GPT-2's
+and Llama's prefills and GPT-2's fused training; the fused-CE entries
+GPT-2's training launches and held call; the bf16 decode entry GPT-2's
+and Llama's launches, their held calls and the G = 1 case's times; the
+int8 product GPT-2's launches by design and held calls), and ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -1731,62 +1806,129 @@ def _not_real(torch, model, prompts, runs_a, runs_b, what):
     return out
 
 
+def _quant_controls(torch, args, ref) -> dict:
+    """A held bf16 int8 product (``args`` of ``quant_linear``) beside
+    four controls on the same inputs, each in bf16 ulps of the largest
+    reference output: two sound results (the reference from exact fp64
+    sums; the tile design), another rounding (the fp32 sum times the
+    scale, plus the bias, rounded once) and a fault (the rule's design
+    with the last 64 columns of x zeroed, one K step dropped)."""
+    from byteps_tpu_torch.ops import quant_dot as qd
+
+    x, w, scale, bias, odt = args
+    unit = 2.0 ** -7 * ref.float().abs().max().item()
+
+    def ulps(y):
+        return (y.float() - ref.float()).abs().max().item() / unit
+
+    def epilogue(acc):
+        y = acc.to(x.dtype).to(odt) * scale.to(odt)
+        return y if bias is None else y + bias.to(odt)
+
+    once = (x.float() @ w.float().t()) * scale
+    once = (once if bias is None else once + bias.float()).to(odt)
+    cut = x.clone()
+    cut[..., -64:] = 0
+    return {"path": ulps(qd.quant_linear(*args)),
+            "exact_sums": ulps(epilogue(
+                (x.double() @ w.double().t()).float())),
+            "tile": ulps(qd.quant_linear_design(*args, design=qd.TILE)),
+            "one_rounding": ulps(once),
+            "last_k_step_dropped": ulps(qd.quant_linear(cut, w, scale,
+                                                        bias, odt))}
+
+
 class _PathCalls:
     """The first call of each shape a main path makes to the kernels the
-    model calls (row 7's ``decode_attention``, row 1's
-    ``flash_attention``, through ``models.transformer``'s names), its
-    inputs and output copied; :meth:`hold` then holds those outputs, and
-    the wrapper called again on the same inputs, to the plain versions.
-    Recording launches nothing, so the counts stay the main path's."""
+    model calls (row 7's ``decode_attention``, row 1's ``flash_attention``
+    and row 9's ``quant_linear``, through ``models.transformer``'s names,
+    and rows 4-6's ``fused_linear_cross_entropy`` in its module, which the
+    LM loss binds when it is built), its inputs and output
+    copied; under autograd, the gradients that reach the call's output
+    and inputs are copied too (the path's own dO, and the dq / dk / dv, or
+    dx / dW, its backward kernels computed).  :meth:`hold` then holds
+    those outputs and gradients, and the wrapper called again on the same
+    inputs, to the plain versions.  Recording launches nothing, so the
+    counts stay the main path's."""
 
-    NAMES = ("decode_attention", "flash_attention")
+    def __init__(self):
+        from byteps_tpu_torch.models import transformer as tm
+        from byteps_tpu_torch.ops import fused_cross_entropy as fce_mod
+
+        self.targets = [(tm, "decode_attention"), (tm, "flash_attention"),
+                        (tm, "quant_linear"),
+                        (fce_mod, "fused_linear_cross_entropy")]
 
     def __enter__(self):
-        from byteps_tpu_torch.models import transformer as tm
-
-        self.tm, self.calls = tm, {}
-        self.orig = {n: getattr(tm, n) for n in self.NAMES}
-        for n, fn in self.orig.items():
-            setattr(tm, n, self._recording(n, fn))
+        self.calls = {}
+        self.orig = [(m, n, getattr(m, n)) for m, n in self.targets]
+        for m, n, fn in self.orig:
+            setattr(m, n, self._recording(n, fn))
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.orig.items():
-            setattr(self.tm, n, fn)
+        for m, n, fn in self.orig:
+            setattr(m, n, fn)
 
     def _recording(self, name, fn):
+        import torch
+
         def sig(x):   # a shape, an int position's type, or the value
             return ((tuple(x.shape), str(x.dtype)) if hasattr(x, "shape")
                     else "int" if type(x) is int else x)
 
         def copy(x):
-            return x.clone() if hasattr(x, "clone") else x
+            return x.detach().clone() if hasattr(x, "clone") else x
+
+        def keep(grads, n):
+            def hook(g):
+                grads[n] = g.detach().clone()
+            return hook
 
         def call(*args, **kw):
             out = fn(*args, **kw)
             key = (name, tuple(map(sig, args)),
                    tuple(sorted((k, sig(v)) for k, v in kw.items())))
             if key not in self.calls:
+                grads = {}
                 self.calls[key] = (name, [copy(a) for a in args],
                                    {k: copy(v) for k, v in kw.items()},
-                                   out.clone())
+                                   out.detach().clone(), grads)
+                if out.requires_grad:
+                    names = (("dq", "dk", "dv") if name == "flash_attention"
+                             else ("dx", "dw"))
+                    out.register_hook(keep(grads, "dout"))
+                    for n, a in zip(names, args):
+                        if isinstance(a, torch.Tensor) and a.requires_grad:
+                            a.register_hook(keep(grads, n))
             return out
         return call
 
     def hold(self, torch) -> list:
         """Each recorded call: its output against the plain version at
         phase 16's limits for row 7 (bf16 q: ulps of each row's largest;
-        fp32: absolute) and phase 9's for row 1 (relative to the largest
-        |o|), a call of the wrapper on the same inputs bit-identical to
-        it, and at a position vector each slot's bits unchanged when the
-        other slots' positions move, and within the limit of a one-slot
-        launch at its int position.  Raises on a miss; one line a call."""
+        fp32: absolute), phase 9's for row 1 (relative to the largest
+        |o|, and for a backward the largest |dq|, |dk|, |dv|), for row 9
+        two bf16 ulps of the largest |out| (fp32 1e-5 of it)
+        and phase 13's for rows 4-6 (loss 1e-5 relative, dx / dW 2e-2 of
+        the largest in bf16), a call of the wrapper on the same inputs
+        (and its backward on the path's dO) bit-identical to it, and at a
+        position vector each slot's bits unchanged when the other slots'
+        positions move, and within the limit of a one-slot launch at its
+        int position.  Raises on a miss; one line a call."""
         from byteps_tpu_torch.ops import decode_attention as da
         from byteps_tpu_torch.ops import flash_attention as fa
+        from byteps_tpu_torch.ops import fused_cross_entropy as fce
+        from byteps_tpu_torch.ops import quant_dot as qd
+
+        def rel(out, ref, floor):
+            e = (out.float() - ref.float()).abs().max().item()
+            return e, e / max(ref.float().abs().max().item(), floor)
 
         lines = []
-        for name, args, kw, got in self.calls.values():
+        for name, args, kw, got, grads in self.calls.values():
             bf16 = args[0].dtype == torch.bfloat16
+            extra = {}
             if name == "decode_attention":
                 def call(*a):
                     return da.decode_attention(*a, **kw)
@@ -1795,25 +1937,96 @@ class _PathCalls:
                             if bf16 else
                             ((got.float() - ref.float()).abs().max()
                              .item(), 1e-4))
+            elif name == "quant_linear":
+                def call(*a):
+                    return qd.quant_linear(*a, **kw)
+                ref = qd.quant_linear_reference(*args, **kw)
+                err = rel(got, ref, 1e-30)[1]
+                # bf16: two ulps of the largest output (phase 17 holds its
+                # random inputs to one).  Both sides round the fp32 sum to
+                # bf16, then its product with the bf16 scale; a sum in
+                # another order may round one ulp of the sum the other
+                # way, which the scale's mantissa (in [1, 2)) makes up to
+                # two ulps of the product.  The controls show where the
+                # limit sits between sound results and a fault.
+                tol = 2.0 ** -6 if got.dtype == torch.bfloat16 else 1e-5
+                if got.dtype == torch.bfloat16:
+                    extra["ulps_of_max"] = _quant_controls(torch, args, ref)
+            elif name == "fused_linear_cross_entropy":
+                def call(*a):
+                    return fce.fused_linear_cross_entropy(*a, **kw)
+                x, w, t = args[:3]
+                lse, tl = fce.fce_forward_reference(x, w, t)
+                valid = (t >= 0) & (t < w.shape[1])
+                ref = torch.where(valid, lse - tl, 0.0)
+                err, tol = rel(got, ref, 1e-30)[1], 1e-5
+                if grads:
+                    dl = grads["dout"].float() * valid
+                    gtol = 2e-2 if bf16 else 1e-4
+                    for n, r in (("dx", fce.fce_backward_dx_reference(
+                                     x, w, t, lse, dl)),
+                                 ("dw", fce.fce_backward_dw_reference(
+                                     x, w, t, lse, dl))):
+                        extra[f"{n}_err"] = rel(grads[n], r, 1e-30)[1]
+                        if not (torch.isfinite(grads[n].float()).all()
+                                and extra[f"{n}_err"] <= gtol):
+                            raise AssertionError(
+                                f"{name} {n} at {tuple(x.shape)}: error "
+                                f"{extra[f'{n}_err']} > {gtol}")
+                    extra["grad_tolerance"] = gtol
             else:
                 def call(*a):
                     return fa.flash_attention(*a, **kw)
-                ref = fa.flash_forward_reference(*args, **kw)[0]
-                top = ref.float().abs().max().item()
-                err = ((got.float() - ref.float()).abs().max().item()
-                       / (max(top, 1e-6) if bf16 else max(top, 1.0)))
+                ref, lse = fa.flash_forward_reference(*args, **kw)
+                floor = 1e-6 if bf16 else 1.0
+                err = rel(got, ref, floor)[1]
                 tol = 2e-2 if bf16 else 1e-4
+                if grads:
+                    q, k, v = args[:3]
+                    opts = dict(causal=kw.get("causal", False),
+                                segment_ids=kw.get("segment_ids"),
+                                window=kw.get("window"))
+                    do = grads["dout"]
+                    delta = (do.float() * ref.float()).sum(-1).permute(
+                        0, 2, 1).contiguous()
+                    bwd = (q, k, v, do.to(q.dtype), lse, delta)
+                    dk, dv = fa.flash_backward_dkv_reference(*bwd, **opts)
+                    for n, r in (("dq", fa.flash_backward_dq_reference(
+                                     *bwd, **opts)), ("dk", dk), ("dv", dv)):
+                        extra[f"{n}_err"] = rel(grads[n], r, floor)[1]
+                        if not (torch.isfinite(grads[n].float()).all()
+                                and extra[f"{n}_err"] <= tol):
+                            raise AssertionError(
+                                f"{name} {n} at {tuple(q.shape)}: error "
+                                f"{extra[f'{n}_err']} > {tol}")
             what = f"{name} at {[tuple(a.shape) for a in args[:3]]}"
             if not (torch.isfinite(got.float()).all() and err <= tol):
                 raise AssertionError(f"{what}: error {err} > {tol}")
-            if not torch.equal(call(*args), got):
+            if grads:
+                # the kernels again on the path's inputs and dO: the same
+                # bits, forward and backward
+                leaves = [a.detach().clone().requires_grad_()
+                          if isinstance(a, torch.Tensor)
+                          and a.is_floating_point() else a for a in args]
+                out = call(*leaves)
+                torch.autograd.backward(out, grads["dout"])
+                names = (("dq", "dk", "dv") if name == "flash_attention"
+                         else ("dx", "dw"))
+                same = torch.equal(out.detach(), got) and all(
+                    torch.equal(a.grad, grads[n])
+                    for n, a in zip(names, leaves) if n in grads)
+                extra["backward_held"] = sorted(n for n in names
+                                                if n in grads)
+            else:
+                same = torch.equal(call(*args), got)
+            if not same:
                 raise AssertionError(f"{what}: a call on the same inputs "
                                      f"differs from the path's")
             line = {"kernel": name, "shapes": [list(a.shape)
                                                for a in args[:3]],
                     "dtype": str(args[1].dtype).split(".")[-1],
                     "max_abs_err": (got.float() - ref.float()).abs().max()
-                    .item(), "err": err, "tolerance": tol}
+                    .item(), "err": err, "tolerance": tol, **extra}
             pos = args[3] if name == "decode_attention" else None
             if hasattr(pos, "shape"):
                 q, ck, cv = args[:3]
@@ -2288,6 +2501,610 @@ def eval_phase(torch, seed: int, trainer, model) -> dict:
             "launches": counts}
 
 
+# ------------------------------------------- BERT and the HF integrations
+
+BERT_B, BERT_T = 32, 128   # the fine-tune batch (bench.py, train_bert.py)
+BERT_STEPS = 5             # 4 padded batches, then one with no mask
+BERT_MLM = (8, 512)        # BERT's max_seq_len
+BERT_LR, BERT_WD = 2e-5, 1e-4
+# bf16 flash vs the same weights in fp32 with local attention: logits
+# within 5e-2 of max(|logit|, 1) — every product of the bf16 model takes
+# operands rounded to bf16 (2^-8 relative) through 12 blocks
+BERT_BF16_TOL = 5e-2
+# fp32 on the card against fp32 (flash vs local, port vs HF): 1e-4 of the
+# largest magnitude (or absolute below 1) — the same sums in other orders
+FP32_TOL = 1e-4
+# GPT-2 small (``transformers`` ``GPT2Config()`` defaults, the dimensions
+# of the published gpt2 checkpoint)
+GPT2_SMALL = dict(vocab_size=50257, num_layers=12, num_heads=12, d_model=768,
+                  d_ff=3072, max_seq_len=1024, norm="layernorm",
+                  norm_eps=1e-5, use_bias=True, tie_embeddings=True,
+                  pos_emb="learned", mlp="gelu")
+GPT2_GEN = (4, 256, 64)      # prompts, prompt tokens, new tokens
+GPT2_TRAIN = (8, 1024, 3)    # batch, tokens a row, fused-head steps
+LLAMA_GEN = (4, 256, 32)
+HF_NOT_RUN = {"phase": "hf", "run": False,
+              "why": "transformers not installed"}
+
+
+def _transformers():
+    """``transformers`` if this host has it, else None: only its
+    ImportError says so."""
+    try:
+        import transformers
+    except ImportError:
+        return None
+    return transformers
+
+
+def _rel_err(torch, got, want, floor=1.0) -> float:
+    """max |got - want| over max(max |want|, floor)."""
+    e = (got.float() - want.float()).abs().max().item()
+    return e / max(want.float().abs().max().item(), floor)
+
+
+def _device_events(torch, fn) -> tuple:
+    """One call of ``fn`` under torch.profiler: the CUDA kernels it ran as
+    ``(name, us)``, and the host wall ms (profiler on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    if not evs:
+        raise AssertionError("the profiler saw no device time")
+    return evs, wall_ms
+
+
+def _step_profile(torch, fn, groups) -> dict:
+    """One call of ``fn`` under torch.profiler: device busy ms, host wall
+    ms (profiler on), the device's idle share, and each group's share of
+    the busy time (kernels whose names hold the group's string)."""
+    evs, wall_ms = _device_events(torch, fn)
+    busy = sum(us for _, us in evs)
+    by_group = {g: sum(us for n, us in evs if part in n)
+                for g, part in groups.items()}
+    return {"kernels": len(evs), "device_ms": busy / 1e3,
+            "host_ms_profiled": wall_ms,
+            "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
+            **{f"{g}_share_of_device": t / busy for g, t in by_group.items()},
+            **{f"{g}_device_ms": t / 1e3 for g, t in by_group.items()}}
+
+
+def _bert_batch(torch, np, seed, B, T, vocab, masked=True):
+    rng = np.random.RandomState(seed)
+    batch = {"tokens": torch.from_numpy(rng.randint(
+        0, vocab, size=(B, T))).cuda(),
+             "label": torch.from_numpy(rng.randint(0, 2, size=B)).cuda()}
+    if masked:
+        batch["attention_mask"] = _padding_mask(torch, seed, B, T)
+    return batch
+
+
+def _bert_loss(model, model_state, batch):
+    """``examples/train_bert.py``'s loss: softmax cross-entropy of the
+    classifier's logits on the labels."""
+    import torch.nn.functional as F
+
+    logits = model(batch["tokens"], batch.get("attention_mask"))
+    return F.cross_entropy(logits, batch["label"]), model_state
+
+
+def bert_reference_phase(torch, seed: int) -> dict:
+    """BERT-base at full width in fp32: ``attn_impl="flash"`` (the fp32
+    kernels, the mask on their segment ids) against ``"local"`` on the
+    same weights and a padded batch: logits and every gradient."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from byteps_tpu_torch.models.bert import BertClassifier, bert_config
+    from byteps_tpu_torch.models.transformer import init_weights
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    models = {}
+    for impl in ("local", "flash"):
+        m = BertClassifier(bert_config(dtype=torch.float32, attn_impl=impl),
+                           2, device="cuda")
+        if impl == "local":
+            init_weights(m, seed)
+        else:
+            m.load_state_dict(models["local"].state_dict())
+        models[impl] = m
+    batch = _bert_batch(torch, np, seed, BERT_B, BERT_T, 30522)
+    out, grads = {}, {}
+    _zero_counts()
+    for impl, m in models.items():
+        logits = m(batch["tokens"], batch["attention_mask"])
+        F.cross_entropy(logits, batch["label"]).backward()
+        out[impl] = logits.detach()
+        grads[impl] = {n: p.grad for n, p in m.named_parameters()}
+    counts = _flash_counts()
+    L = models["flash"].encoder.cfg.num_layers
+    if counts != (L, L, L) or fa.plain_calls:
+        raise AssertionError(f"fp32 BERT flash launches {counts}, plain "
+                             f"{fa.plain_calls}; want {L} of each, 0 plain")
+    err = _rel_err(torch, out["flash"], out["local"])
+    gerr = max(_rel_err(torch, grads["flash"][n], g, 1e-30)
+               for n, g in grads["local"].items())
+    if not (err <= FP32_TOL and gerr <= FP32_TOL):
+        raise AssertionError(f"BERT fp32 flash vs local: logits {err}, "
+                             f"grads {gerr} > {FP32_TOL}")
+    del models, grads
+    torch.cuda.empty_cache()
+    return {"phase": "bert_reference", "batch": [BERT_B, BERT_T],
+            "lengths": batch["attention_mask"].sum(1).tolist(),
+            "logits_err": err, "grads_err_of_max": gerr,
+            "tolerance": FP32_TOL, "flash_launches": counts}
+
+
+def bert_phase(torch, seed: int):
+    """The BERT-base fine-tune (the main path of this slice): returns the
+    phase line, the launch counts of the 5 steps and the held calls."""
+    import numpy as np
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.models.bert import BertClassifier, bert_config
+    from byteps_tpu_torch.models.transformer import init_weights
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.training import Trainer
+
+    cfg = bert_config(attn_impl="flash", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = BertClassifier(cfg, 2, device="cuda")      # fp32 weights
+    init_weights(model, seed)
+    batches = [_bert_batch(torch, np, seed + i, BERT_B, BERT_T,
+                           cfg.vocab_size, masked=i < BERT_STEPS - 1)
+               for i in range(BERT_STEPS)]
+    # the reference: the same weights in fp32, local attention
+    ref = BertClassifier(bert_config(dtype=torch.float32), 2, device="cuda")
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        b = batches[0]
+        ref_err = _rel_err(torch, model(b["tokens"], b["attention_mask"]),
+                           ref(b["tokens"], b["attention_mask"]))
+    del ref
+    if ref_err > BERT_BF16_TOL:
+        raise AssertionError(f"BERT bf16 flash vs fp32 local logits: "
+                             f"{ref_err} > {BERT_BF16_TOL}")
+    opt = torch.optim.AdamW(model.parameters(), lr=BERT_LR,
+                            weight_decay=BERT_WD)
+    trainer = Trainer(_bert_loss, opt, log_every=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    trainer.fit(model, {}, [batches[0]])                # warm-up
+    losses = [trainer.metrics["loss"].item()]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    step_ms = []
+    with _PathCalls() as path:
+        for b in batches:
+            before = _flash_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.fit(model, {}, [b])
+            losses.append(trainer.metrics["loss"].item())   # synchronizes
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            per = tuple(a - c for a, c in zip(_flash_counts(), before))
+            if per != (cfg.num_layers,) * 3:
+                raise AssertionError(f"BERT step flash launches {per}, "
+                                     f"want {cfg.num_layers} of each")
+    launches = _flash_counts()
+    if fa.plain_calls:
+        raise AssertionError(f"{fa.plain_calls} flash calls ran the plain "
+                             f"version")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"BERT losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held = path.hold(torch)
+    if sorted(len(h.get("backward_held", ())) for h in held) != [3, 3]:
+        raise AssertionError(f"BERT held calls: {held}")
+    prof = _step_profile(torch, lambda: trainer.fit(model, {}, [batches[0]]),
+                         {"flash": "flash_"})
+    p50 = float(np.median(step_ms))
+    valid = sum(int(b["attention_mask"].sum()) if "attention_mask" in b
+                else BERT_B * BERT_T for b in batches)
+    info = {"phase": "bert_finetune",
+            "model": "BERT-base classifier (random weights)",
+            "source": "transformers BertConfig() defaults (bert-base-"
+                      "uncased): 12 x 768, 12 heads, 3072, vocab 30522",
+            "dtype": "bfloat16 compute, float32 weights",
+            "attn_impl": "flash", "batch": [BERT_B, BERT_T],
+            "steps": BERT_STEPS, "optimizer": "AdamW lr 2e-5 wd 1e-4",
+            "setup_s": setup_s, "losses": losses,
+            "ref_logits_err": ref_err, "ref_tolerance": BERT_BF16_TOL,
+            "step_ms": step_ms, "step_ms_p50": p50,
+            "tokens_per_s": BERT_B * BERT_T / (p50 / 1e3),
+            "valid_tokens_per_s": valid / (sum(step_ms) / 1e3),
+            "max_memory_allocated_gb": peak_gb,
+            "flash_launches": launches, "plain_calls": fa.plain_calls,
+            "profile_one_step": prof, "held": held, "nvidia_smi": _smi()}
+    api.shutdown()
+    del model, opt, trainer
+    torch.cuda.empty_cache()
+    return info, launches, held
+
+
+def bert_mlm_phase(torch, seed: int) -> dict:
+    """One BertMLM forward and backward at B=8, T=512 (BERT's max_seq_len,
+    vocab 30522), padded rows: 12 launches of each flash kernel."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from byteps_tpu_torch.models.bert import BertMLM, bert_config
+    from byteps_tpu_torch.models.transformer import init_weights
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    B, T = BERT_MLM
+    cfg = bert_config(attn_impl="flash", dtype=torch.bfloat16)
+    model = BertMLM(cfg, device="cuda")
+    init_weights(model, seed)
+    batch = _bert_batch(torch, np, seed, B, T, cfg.vocab_size)
+    mask = batch["attention_mask"]
+
+    def step():
+        logits = model(batch["tokens"], mask)
+        ce = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                             batch["tokens"].reshape(-1), reduction="none")
+        loss = (ce * mask.reshape(-1)).sum() / mask.sum()
+        loss.backward()
+        return loss
+
+    step()                                              # warm-up
+    model.zero_grad(set_to_none=True)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = step().item()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _flash_counts()
+    if counts != (cfg.num_layers,) * 3 or fa.plain_calls \
+            or not np.isfinite(loss):
+        raise AssertionError(f"BertMLM: launches {counts}, plain "
+                             f"{fa.plain_calls}, loss {loss}")
+    grads_finite = all(torch.isfinite(p.grad).all().item()
+                       for p in model.parameters() if p.grad is not None)
+    if not grads_finite:
+        raise AssertionError("BertMLM: a non-finite gradient")
+    del model
+    torch.cuda.empty_cache()
+    return {"phase": "bert_mlm", "batch": [B, T], "vocab": cfg.vocab_size,
+            "loss": loss, "step_ms": ms, "flash_launches": counts}
+
+
+def hf_bert_phase(torch, seed: int, hf) -> dict:
+    """A stock HF ``BertForSequenceClassification`` (random weights, fp32,
+    dropout off) through ``flash_attention_for_hf_bert``: padded batches at
+    B=32, T=128; inside the context the CLS logits and the valid
+    positions' hidden states equal the stock model's outside it, also on
+    a fresh context's unpadded first call; two train steps inside it (the
+    second counted and timed), all on the kernels."""
+    import numpy as np
+
+    from byteps_tpu_torch.integrations import flash_attention_for_hf_bert
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    torch.manual_seed(seed)
+    model = hf.BertForSequenceClassification(hf.BertConfig(
+        attention_probs_dropout_prob=0.0, hidden_dropout_prob=0.0)).cuda()
+    model.eval()
+    impl = model.config._attn_implementation
+    batch = _bert_batch(torch, np, seed, BERT_B, BERT_T,
+                        model.config.vocab_size)
+    tok, mask = batch["tokens"], batch["attention_mask"]
+    with torch.no_grad():
+        stock = model(tok, attention_mask=mask, output_hidden_states=True)
+        _zero_counts()
+        with flash_attention_for_hf_bert() as counts:
+            got = model(tok, attention_mask=mask, output_hidden_states=True)
+    L = model.config.num_hidden_layers
+    fwd = _flash_counts()
+    if fwd != (L, 0, 0) or counts.covered != L or counts.uncovered_total:
+        raise AssertionError(f"HF BERT forward: launches {fwd}, covered "
+                             f"{counts.covered}, uncovered "
+                             f"{dict(counts.uncovered)}")
+    keep = mask.bool()
+    logits_err = _rel_err(torch, got.logits, stock.logits)
+    hidden_err = max(_rel_err(torch, h[keep], w[keep]) for h, w in zip(
+        got.hidden_states, stock.hidden_states))
+    if not (logits_err <= FP32_TOL and hidden_err <= FP32_TOL):
+        raise AssertionError(f"HF BERT in the context vs stock: logits "
+                             f"{logits_err}, hidden {hidden_err}")
+    # a fresh context whose first call has nothing padded (SDPA BERT hands
+    # the attention no mask then)
+    with torch.no_grad():
+        stock_full = model(tok).logits
+        _zero_counts()
+        with flash_attention_for_hf_bert() as full_counts:
+            got_full = model(tok).logits
+    full_err = _rel_err(torch, got_full, stock_full)
+    if (_flash_counts() != (L, 0, 0) or full_counts.covered != L
+            or full_counts.uncovered_total or not full_err <= FP32_TOL):
+        raise AssertionError(f"HF BERT unpadded first call: launches "
+                             f"{_flash_counts()}, covered "
+                             f"{full_counts.covered}, logits {full_err}")
+    model.train()
+    opt = torch.optim.AdamW(model.parameters(), lr=BERT_LR,
+                            weight_decay=BERT_WD)
+    ms = []
+    for _ in range(2):     # a first step, then the counted one
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with flash_attention_for_hf_bert() as train_counts:
+            loss = model(tok, attention_mask=mask,
+                         labels=batch["label"]).loss
+            loss.backward()
+            opt.step()
+            opt.zero_grad()
+        loss = loss.item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _flash_counts()
+    if (launches != (L, L, L) or fa.plain_calls
+            or train_counts.uncovered_total or not np.isfinite(loss)):
+        raise AssertionError(f"HF BERT train step: launches {launches}, "
+                             f"plain {fa.plain_calls}, uncovered "
+                             f"{dict(train_counts.uncovered)}, loss {loss}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"phase": "hf_bert", "transformers": hf.__version__,
+            "attn_implementation": impl,
+            "batch": [BERT_B, BERT_T], "dtype": "float32",
+            "logits_err": logits_err, "valid_hidden_err": hidden_err,
+            "unpadded_first_call_logits_err": full_err,
+            "tolerance": FP32_TOL, "covered": counts.covered,
+            "uncovered": dict(counts.uncovered),
+            "first_train_step_ms": ms[0], "train_step_ms": ms[1],
+            "train_loss": loss,
+            "train_launches": launches,
+            "train_uncovered": dict(train_counts.uncovered)}
+
+
+def _gen_run(torch, np, model, prompt, new, want, name, path=None, **kw):
+    """One greedy ``make_generate_fn`` run (``kw``: its cache options) at
+    the counts set to 0 just before it: the launches held to ``want``, the
+    tokens on the GPU and in the vocabulary; with a :class:`_PathCalls`
+    ``path``, the first call of each shape to the kernels held to its
+    plain version after the run.  Returns the tokens and the run's line."""
+    from byteps_tpu_torch.inference import make_generate_fn
+
+    fn = make_generate_fn(model, new, temperature=0, **kw)
+    events = []
+
+    def on_step(i):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with path or contextlib.nullcontext():
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out = fn(prompt, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _gen_counts()
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, want {want}")
+    if not out["tokens"].is_cuda:
+        raise AssertionError(f"{name}: tokens are not on the GPU")
+    B = prompt.shape[0]
+    toks = out["tokens"].cpu().numpy()
+    if toks.shape != (B, new) or toks.min() < 0 \
+            or toks.max() >= model.cfg.vocab_size:
+        raise AssertionError(f"{name}: bad tokens {toks.shape}")
+    dec = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    p50 = float(np.median(dec))
+    line = {"run": name, "prompt": list(prompt.shape), "new": new,
+            "layout": kw.get("cache_layout", "auto"),
+            "kv_quant": kw.get("kv_quant", False),
+            "prefill_ms": start.elapsed_time(events[0]),
+            "decode_ms_p50": p50, "decode_ms_max": float(np.max(dec)),
+            "wall_s": wall, "tokens_per_s": B * new / wall,
+            "decode_tokens_per_s": B / (p50 / 1e3),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts}
+    if path is not None:
+        line["held"] = path.hold(torch)
+    return toks, line
+
+
+def _gen_want(L, new, q_rows=0):
+    """A greedy run's counts: one flash prefill a layer, a decode launch a
+    layer a step, and ``q_rows`` int8 products a forward (the prefill's
+    on tma, every step's on swap)."""
+    steps = new - 1
+    return {"flash_fwd": L, "decode": steps * L,
+            "quant_dot": new * q_rows,
+            "quant_dot_by_design": {"tile": 0, "swap": steps * q_rows,
+                                    "tma": q_rows},
+            "plain": 0}
+
+
+def gpt2_phase(torch, seed: int, hf):
+    """GPT-2 small through ``load_gpt2`` (or, without ``transformers``, the
+    port's own model at its dimensions): the fp32 prompt logits against
+    HF's forward; greedy generation in bf16 (flash prefill, the decode
+    kernel at one query head a KV head), again under ``quantize_params``
+    (the int8 product on q, k, v, o and the MLP; the tied head stays);
+    3 fused-head training steps at V = 50257.  Returns the line and the
+    counts."""
+    import numpy as np
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.inference import quantize_params
+    from byteps_tpu_torch.integrations.gpt2 import load_gpt2
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    B, T, new = GPT2_GEN
+    rng = np.random.RandomState(seed)
+    prompt = torch.from_numpy(rng.randint(0, 50257, size=(B, T))).cuda()
+    info = {"phase": "gpt2", "source": "transformers GPT2Config() defaults "
+            "(gpt2, 124M): 12 x 768, 12 heads, 3072, vocab 50257, 1024 "
+            "positions, tied head"}
+    if hf is not None:
+        torch.manual_seed(seed)
+        hf_model = hf.GPT2LMHeadModel(hf.GPT2Config()).cuda().eval()
+
+        def model_of(dtype):
+            return load_gpt2(hf_model, dtype=dtype, attn_impl="flash")
+
+        m32 = load_gpt2(hf_model)                        # fp32, local
+        with torch.no_grad():
+            want = hf_model(prompt).logits
+            got = m32(prompt)
+        info["hf_logits_err"] = _rel_err(torch, got, want)
+        info["hf_tolerance"] = FP32_TOL
+        if info["hf_logits_err"] > FP32_TOL:
+            raise AssertionError(f"GPT-2 vs HF: {info['hf_logits_err']}")
+        del m32, want, got
+        info["weights"] = "random GPT2LMHeadModel(GPT2Config()) via " \
+                          "load_gpt2"
+    else:
+        def model_of(dtype):
+            m = Transformer(TransformerConfig(**GPT2_SMALL, dtype=dtype,
+                                              attn_impl="flash"),
+                            device="cuda")
+            init_weights(m, seed)
+            return m
+        info["weights"] = "the port's Transformer at GPT-2 small's " \
+                          "dimensions, init_weights(seed)"
+    model = model_of(torch.bfloat16)
+    L = model.cfg.num_layers
+    runs = {}
+    toks, runs["bf16"] = _gen_run(torch, np, model, prompt, new,
+                                  _gen_want(L, new), "bf16", _PathCalls())
+    toks2, runs["bf16_rerun"] = _gen_run(torch, np, model, prompt, new,
+                                         _gen_want(L, new), "bf16_rerun",
+                                         _PathCalls())
+    if not (toks == toks2).all():
+        raise AssertionError("GPT-2 greedy reruns differ")
+    quantize_params(model)
+    q_toks, runs["int8_weights"] = _gen_run(
+        torch, np, model, prompt, new, _gen_want(L, new, 6 * L),
+        "int8_weights", _PathCalls())
+    info["runs"] = runs
+    del model
+    # the fused LM head at V = 50257 (a vocab tail no tile divides)
+    Bt, Tt, steps = GPT2_TRAIN
+    model = model_of(torch.bfloat16)
+    batch = {"tokens": torch.from_numpy(rng.randint(
+        0, 50257, size=(Bt, Tt))).cuda()}
+    nc = fce.vocab_chunks(model.cfg.vocab_size)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    losses, step_ms = [], []
+    _zero_counts()
+    with _PathCalls() as path:
+        trainer = Trainer(lm_loss_fn(model, fused_head=True), opt,
+                          log_every=0)
+        for _ in range(steps):
+            tma0 = fce.tma_launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit(model, {}, [batch])
+            losses.append(trainer.metrics["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if fce.tma_launches - tma0 != 1 + 3 * nc:
+                raise AssertionError(f"GPT-2 fused step: "
+                                     f"{fce.tma_launches - tma0} TMA "
+                                     f"launches, want {1 + 3 * nc}")
+    launches = _flash_counts() + _fce_counts()
+    tma = fce.tma_launches
+    if launches != (steps * L,) * 3 + (steps, steps * nc, steps * nc) \
+            or fce.plain_calls or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"GPT-2 fused training: launches {launches}, "
+                             f"plain {fce.plain_calls}, losses {losses}")
+    held = path.hold(torch)
+    if sum(h["kernel"] == "fused_linear_cross_entropy" for h in held) != 1:
+        raise AssertionError(f"GPT-2 fused training held {held}")
+    info["train"] = {"batch": [Bt, Tt], "losses": losses,
+                     "step_ms": step_ms, "launches": launches,
+                     "tma_launches": tma, "held": held}
+    api.shutdown()
+    del model, opt, trainer
+    if hf is not None:
+        del hf_model
+    torch.cuda.empty_cache()
+    return info, runs, launches
+
+
+def llama_phase(torch, seed: int, hf):
+    """Llama-3.2-1B through ``load_llama`` from a random
+    ``LlamaForCausalLM`` at its published dimensions (llama3 rope scaling,
+    head_dim 64, tied head; or, without ``transformers``, the port's own
+    model): the fp32 prompt logits against HF's forward, then greedy
+    generation in bf16.  Returns the line and the run."""
+    import numpy as np
+
+    from byteps_tpu_torch.integrations.llama import load_llama
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+
+    B, T, new = LLAMA_GEN
+    prompt = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, LLAMA_3_2_1B["vocab_size"], size=(B, T))).cuda()
+    info = {"phase": "llama", "source": "meta-llama/Llama-3.2-1B "
+            "config.json", "reduced": {"max_seq": [131072, MAX_SEQ]}}
+    if hf is not None:
+        c = LLAMA_3_2_1B
+        torch.manual_seed(seed)
+        cfg = hf.LlamaConfig(
+            vocab_size=c["vocab_size"], hidden_size=c["d_model"],
+            intermediate_size=c["d_ff"], num_hidden_layers=c["num_layers"],
+            num_attention_heads=c["num_heads"],
+            num_key_value_heads=c["num_kv_heads"], head_dim=c["head_dim"],
+            max_position_embeddings=131072, rms_norm_eps=c["norm_eps"],
+            rope_theta=c["rope_theta"], rope_scaling=dict(c["rope_scaling"]),
+            tie_word_embeddings=True, hidden_act="silu")
+        with torch.device("cuda"):
+            hf_model = hf.LlamaForCausalLM(cfg).eval()
+        m32 = load_llama(hf_model, max_seq_len=MAX_SEQ)   # fp32, local
+        got_cfg = {k: getattr(m32.cfg, k) for k in LLAMA_3_2_1B
+                   if k != "head_dim"}
+        got_cfg["head_dim"] = m32.cfg.d_head    # None when implied
+        if got_cfg != LLAMA_3_2_1B:
+            raise AssertionError(f"llama_config of the HF config: {got_cfg}")
+        with torch.no_grad():
+            want = hf_model(prompt[:2]).logits
+            got = m32(prompt[:2])
+        info["hf_logits_err"] = _rel_err(torch, got, want)
+        info["hf_tolerance"] = FP32_TOL
+        if info["hf_logits_err"] > FP32_TOL:
+            raise AssertionError(f"Llama vs HF: {info['hf_logits_err']}")
+        del m32, want, got
+        model = load_llama(hf_model, dtype=torch.bfloat16, attn_impl="flash",
+                           max_seq_len=MAX_SEQ)
+        del hf_model
+        info["weights"] = "random LlamaForCausalLM via load_llama"
+    else:
+        model = Transformer(TransformerConfig(
+            **LLAMA_3_2_1B, max_seq_len=MAX_SEQ, dtype=torch.bfloat16,
+            attn_impl="flash"), device="cuda")
+        init_weights(model, seed)
+        info["weights"] = "the port's Transformer, init_weights(seed)"
+    torch.cuda.empty_cache()
+    toks, run = _gen_run(torch, np, model, prompt, new,
+                         _gen_want(model.cfg.num_layers, new), "bf16",
+                         _PathCalls())
+    info["run"] = run
+    del model
+    torch.cuda.empty_cache()
+    return info, run
+
+
 # --------------------------------------------------------- flash kernels
 
 FLASH_MAIN = dict(B=TRAIN_B, T=MAX_SEQ, H=32, KV=8, D=64, causal=True,
@@ -2297,6 +3114,12 @@ FLASH_CASES = (("training_shape", {}), ("noncausal", {"causal": False}),
                ("alibi", {"alibi": True}), ("mqa", {"KV": 1}),
                ("head_dim32", {"D": 32}), ("head_dim128", {"D": 128}),
                ("t2000", {"T": 2000}))
+# BERT-base's fine-tune shape (phase 13c): non-causal, padding segment ids
+# 1...1 0...0 of seeded lengths in [1, T] (row 0 unpadded, row 1 one valid
+# token), H = KV = 12, two 64-row tiles; timed beside SDPA under the key
+# mask
+FLASH_BERT = ("bert_padding", {"B": 32, "T": 128, "H": 12, "KV": 12,
+                               "causal": False, "seg": "padding"})
 
 
 def _flash_inputs(torch, seed, c, dtype):
@@ -2309,13 +3132,28 @@ def _flash_inputs(torch, seed, c, dtype):
     B, T, H, KV, D = c["B"], c["T"], c["H"], c["KV"], c["D"]
     q, k, v, do = t(B, T, H, D), t(B, T, KV, D), t(B, T, KV, D), t(B, T, H, D)
     seg = None
-    if c["seg"]:
+    if c["seg"] == "padding":
+        seg = _padding_mask(torch, seed, B, T).to(torch.int32)
+    elif c["seg"]:
         cut = torch.tensor([T // 3 + 97 * b for b in range(B)], device="cuda")
         seg = (torch.arange(T, device="cuda")[None] >= cut[:, None]).to(
             torch.int32)
     slopes = (2.0 ** -torch.arange(1, H + 1, device="cuda").float()
               if c["alibi"] else None)
     return q, k, v, do, seg, slopes
+
+
+def _padding_mask(torch, seed, B, T):
+    """A ``[B, T]`` int64 padding mask on the card: 1 on the first
+    ``length`` positions of a row, lengths seeded in [1, T], row 0
+    unpadded and row 1 one valid token (phase 13c's batches, phase 9's
+    BERT case)."""
+    import numpy as np
+
+    lengths = np.random.RandomState(seed).randint(1, T + 1, size=B)
+    lengths[:2] = (T, 1)
+    return torch.from_numpy((np.arange(T)[None] < lengths[:, None]).astype(
+        np.int64)).cuda()
 
 
 def _bounds(flops, nbytes, elt):
@@ -2331,10 +3169,16 @@ def _bounds(flops, nbytes, elt):
     return out
 
 
-def _flash_bounds(fa, c, elt):
-    """Least time (ms) for each kernel: max(FLOPs / peak, bytes / HBM)."""
+def _flash_bounds(fa, c, elt, seg=None):
+    """Least time (ms) for each kernel: max(FLOPs / peak, bytes / HBM).
+    With padding segment ids (non-causal), only the attended pairs count:
+    ``len^2 + (T - len)^2`` a row, what these inputs need."""
     B, T, H, KV, D = c["B"], c["T"], c["H"], c["KV"], c["D"]
     flops = fa.attention_flops(B, T, H, D, c["causal"], c["window"])
+    if c["seg"] == "padding":
+        n = seg.sum(1).double()
+        pairs = float((n * n + (T - n) * (T - n)).sum())
+        flops = {k: v * pairs / (B * T * T) for k, v in flops.items()}
     q_bytes, kv_bytes, row_bytes = B * T * H * D * elt, B * T * KV * D * elt, \
         B * H * T * 4
     nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,       # q k v o lse
@@ -2482,27 +3326,33 @@ def flash_case(torch, name, over, dtype, seed, flush, timed):
     plain = {"fwd": lambda: fa.flash_forward_reference(q, k, v, *opts),
              "dq": lambda: fa.flash_backward_dq_reference(*bwd, *opts),
              "dkv": lambda: fa.flash_backward_dkv_reference(*bwd, *opts)}
-    bounds = _flash_bounds(fa, c, q.element_size())
+    bounds = _flash_bounds(fa, c, q.element_size(), seg)
     for kname in kern:
         res[f"{kname}_ms"] = _time_ms(torch, kern[kname], flush, iters=10)
         res[f"{kname}_plain_ms"] = _time_ms(torch, plain[kname], flush,
                                             iters=5)
         res[f"{kname}_bound_ms"], res[f"{kname}_bound_by"] = bounds[kname]
-    # the yardstick: one PyTorch call for the same function
+    # the yardstick: one PyTorch call for the same function (with a
+    # padding mask, under the same key mask: its pad rows attend the valid
+    # keys, so its error is read at the valid rows)
     qd, kd, vd = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dod = do.transpose(1, 2).contiguous()
+    mask = (None if c["seg"] != "padding"
+            else seg.bool()[:, None, None, :])
 
     def sdpa():
-        return F.scaled_dot_product_attention(qd, kd, vd, is_causal=True,
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                              is_causal=c["causal"],
                                               enable_gqa=True)
 
     out = sdpa()
     res["library_fwd_ms"] = _time_ms(torch, sdpa, flush, iters=10)
     res["library_bwd_ms"] = _time_ms(torch, lambda: torch.autograd.grad(
         out, (qd, kd, vd), dod, retain_graph=True), flush, iters=10)
-    res["library_fwd_err"] = (out.detach().transpose(1, 2).float()
-                              - o_ref.float()).abs().max().item()
+    rows = (slice(None) if mask is None else seg.bool())
+    res["library_fwd_err"] = (out.detach().transpose(1, 2)[rows].float()
+                              - o_ref[rows].float()).abs().max().item()
     res["library_fwd_kernels"] = _sdpa_kernels(torch, sdpa)
     res["library_bwd_kernels"] = _sdpa_kernels(torch, lambda: torch.autograd
                                                .grad(out, (qd, kd, vd), dod,
@@ -2511,16 +3361,21 @@ def flash_case(torch, name, over, dtype, seed, flush, timed):
 
 
 def flash_kernel_phase(torch, seed: int):
+    """Phase 9: returns the training shape's bf16 line, with the BERT
+    case's lines (bf16 and fp32, both timed) under ``"bert"``."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    main = None
+    main, bert = None, {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, over in FLASH_CASES:
+        for name, over in FLASH_CASES + (FLASH_BERT,):
             r = flash_case(torch, name, over, dtype, seed, flush,
-                           timed=not over)
+                           timed=not over or name == FLASH_BERT[0])
             _line(r)
             if not over and dtype == torch.bfloat16:
                 main = r
+            if name == FLASH_BERT[0]:
+                bert[r["dtype"]] = r
             torch.cuda.empty_cache()
+    main["bert"] = bert
     return main
 
 
@@ -2534,6 +3389,9 @@ FCE_CASES = (("training_shape", {}, True),
              ("ragged_8188_50257", {"N": 8188, "V": 50257}, True),
              ("first_design_8188_2044_50257",
               {"N": 8188, "H": 2044, "V": 50257}, False))
+# GPT-2 small's fused head (phase 13f): 8 x 1024 rows, H = 768, V = 50257
+# (7 chunks, a vocab tail no tile divides); timed in bf16
+FCE_GPT2 = ("gpt2_8192_768_50257", {"N": 8192, "H": 768, "V": 50257}, True)
 # name prefixes of the backward's kernels: both designs (fce_dx_kernel,
 # fce_dx_tma_kernel, ...)
 FCE_KERNELS = ("fce_dlogits", "fce_dx_", "fce_dw_")
@@ -2732,17 +3590,23 @@ def fce_case(torch, name, over, takes_tma, dtype, seed, flush, timed):
 
 
 def fce_kernel_phase(torch, seed: int):
+    """Phase 13: returns the training shape's bf16 line, with GPT-2's
+    shape's bf16 line under ``"gpt2"``."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    main = None
+    main = gpt2 = None
     for dtype in (torch.bfloat16, torch.float32):
-        for name, over, takes_tma in FCE_CASES:
-            timed = not over and dtype == torch.bfloat16
+        for name, over, takes_tma in FCE_CASES + (FCE_GPT2,):
+            bf16 = dtype == torch.bfloat16
+            timed = bf16 and (not over or name == FCE_GPT2[0])
             r = fce_case(torch, name, over, takes_tma, dtype, seed, flush,
                          timed)
             _line(r)
-            if timed:
+            if timed and not over:
                 main = r
+            elif timed:
+                gpt2 = r
             torch.cuda.empty_cache()
+    main["gpt2"] = gpt2
     return main
 
 # ------------------------------------------------------------ generation
@@ -2855,35 +3719,25 @@ def _decode_profile(torch, model, prompt, steps=8, **cache_kw) -> dict:
     kernels and device busy ms per step, host wall per step (with the
     profiler on), the device's idle share, and the kernels taking the
     most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from byteps_tpu_torch.models.transformer import init_cache
 
     B, T = prompt.shape
     caches = init_cache(model.cfg, B, T + steps, device="cuda", **cache_kw)
     logits, _ = model.decode(prompt, caches, 0, last_only=True)
-    tok = logits[:, -1].argmax(-1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    tok = [logits[:, -1].argmax(-1)]
+
+    def decode():
         for i in range(steps):
-            logits, _ = model.decode(tok[:, None], caches, T + i)
-            tok = logits[:, -1].argmax(-1)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, n, busy_us = {}, 0, 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            n += 1
-            busy_us += us
-            by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + us
-    if not n:
-        raise AssertionError("the profiler saw no device time")
+            logits, _ = model.decode(tok[0][:, None], caches, T + i)
+            tok[0] = logits[:, -1].argmax(-1)
+
+    evs, wall_ms = _device_events(torch, decode)
+    by_name, busy_us = {}, 0.0
+    for name, us in evs:
+        busy_us += us
+        by_name[name[:70]] = by_name.get(name[:70], 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"steps": steps, "kernels_per_step": n / steps,
+    return {"steps": steps, "kernels_per_step": len(evs) / steps,
             "device_ms_per_step": busy_us / 1e3 / steps,
             "host_ms_per_step_profiled": wall_ms / steps,
             "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
@@ -2898,7 +3752,7 @@ def generate_phase(torch, seed: int):
     import numpy as np
 
     from byteps_tpu_torch.inference import (classify_divergence,
-                                            make_generate_fn, quantize_params)
+                                            quantize_params)
     from byteps_tpu_torch.models.transformer import (Transformer,
                                                      TransformerConfig,
                                                      init_weights)
@@ -2918,42 +3772,9 @@ def generate_phase(torch, seed: int):
                "plain": 0}
 
     def run(name, want, **kw):
-        fn = make_generate_fn(model, GEN_NEW, temperature=0, **kw)
-        events = []
-
-        def on_step(i):
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t1 = time.perf_counter()
-        out = fn(prompt, on_step=on_step)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        counts = _gen_counts()
-        if counts != want:
-            raise AssertionError(f"{name}: launches {counts}, want {want}")
-        if not out["tokens"].is_cuda:
-            raise AssertionError(f"{name}: tokens are not on the GPU")
-        toks = out["tokens"].cpu().numpy()
-        if toks.shape != (GEN_B, GEN_NEW) or toks.min() < 0 \
-                or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"{name}: bad tokens {toks.shape}")
-        dec = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        line = {"phase": "generate_run", "run": name, "layout":
-                kw.get("cache_layout", "auto"),
-                "kv_quant": kw.get("kv_quant", False),
-                "prefill_ms": start.elapsed_time(events[0]),
-                "decode_ms_p50": float(np.median(dec)),
-                "decode_ms_max": float(np.max(dec)), "wall_s": wall,
-                "tokens_per_s": GEN_B * GEN_NEW / wall,
-                "decode_tokens_per_s": GEN_B / (float(np.median(dec)) / 1e3),
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "launches": counts, "nvidia_smi": _smi()}
+        toks, line = _gen_run(torch, np, model, prompt, GEN_NEW, want, name,
+                              **kw)
+        line = {"phase": "generate_run", **line, "nvidia_smi": _smi()}
         _line(line)
         return toks, line
 
@@ -3148,7 +3969,12 @@ DECODE_CASES = (("pos_2047", {}, "long"), ("pos_0", {"pos": 0}, None),
                 ("s2000_ragged", {"S": 2000, "pos": 1999}, None),
                 ("one_slot_ragged_split", {"B": 1, "pos": 1300}, "ragged"),
                 ("mha_head_dim32", {"KV": 32, "D": 32}, None),
-                ("head_dim128", {"D": 128}, None), ("mqa", {"KV": 1}, None))
+                ("head_dim128", {"D": 128}, None), ("mqa", {"KV": 1}, None),
+                ("gpt2_g1", {"B": 4, "S": 1024, "H": 12, "KV": 12,
+                             "pos": 1023}, None))
+# GPT-2 small's decode (phase 13f): one query head a KV head, 12 heads;
+# timed in bf16 beside SDPA
+DECODE_G1 = "gpt2_g1"
 DECODE_BF16_ULPS = 2  # ring design: ulps of each output row's largest
 
 
@@ -3471,13 +4297,17 @@ def decode_kernel_phase(torch, seed: int) -> dict:
         check=True, timeout=600).stdout.strip().splitlines()[-1])
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     main = {}
+    g1 = None
     for mode in ("bfloat16", "int8", "float32"):
         for name, over, plan in DECODE_CASES:
-            timed = not over and mode != "float32"
+            timed = ((not over and mode != "float32")
+                     or (name == DECODE_G1 and mode == "bfloat16"))
             r = decode_case(torch, name, over, plan, mode, seed, flush,
                             timed, names[f"{name}/{mode}"])
             _line(r)
-            if timed:
+            if name == DECODE_G1 and timed:
+                g1 = r
+            elif timed:
                 main[mode] = r
         torch.cuda.empty_cache()
     cases = []
@@ -3494,6 +4324,7 @@ def decode_kernel_phase(torch, seed: int) -> dict:
         r["device_cases"] = sum(c["mode"] == r["mode"] for c in cases)
         r["device_max_abs_err"] = max(c["max_abs_err"] for c in cases
                                       if c["mode"] == r["mode"])
+    main["bfloat16"]["gpt2_g1"] = g1
     return main
 
 
@@ -3508,6 +4339,13 @@ QUANT_SHAPES = (("q_o_2048x2048", 2048, 2048, 2),
                 ("probe_768x3072", 768, 3072, 0),
                 ("ragged_208x1000", 208, 1000, 0))
 QUANT_ROWS = (1, GEN_B, 16, 40, 64, 65, 4096, GEN_B * GEN_PROMPT)
+# GPT-2 small's layer under quantize_params (phase 13f): q, k, v, o at
+# 768 -> 768, the MLP's 768 -> 3072 and 3072 -> 768; timed at that
+# phase's decode rows (4 prompts) and prefill rows (4 x 256)
+GPT2_QUANT_SHAPES = (("gpt2_768x768", 768, 768, 4),
+                     ("probe_768x3072", 768, 3072, 1),
+                     ("gpt2_3072x768", 3072, 768, 1))
+GPT2_QUANT_ROWS = (4, 1024)
 QUANT_TIMED = (GEN_B, GEN_B * GEN_PROMPT)   # decode, prefill
 # (name, x dtype, output dtype, bias): bf16 x takes swap (<= 64 rows) or
 # tma; fp32 output from bf16 x is the untied quantized head's mode; fp32 x
@@ -3644,30 +4482,36 @@ def quant_kernel_phase(torch, seed: int) -> dict:
         check=True, timeout=600).stdout.strip().splitlines()[-1])
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     layers = {}
-    for M in QUANT_ROWS:
-        layer = {"rows": M, "design_ms": 0.0, "tile_ms": 0.0,
-                 "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                 "max_abs_err": 0.0, "bytes_bound": True}
-        for name, K, N, count in QUANT_SHAPES:
-            for mode in _quant_modes(M):
-                timed = M in QUANT_TIMED and mode[0] == "bf16"
-                r = quant_case(torch, name, M, K, N, mode, seed, flush, timed,
-                               names.get(f"{name}/{M}/{mode[0]}"))
-                _line(r)
-                if timed and count:
-                    for k in ("design_ms", "tile_ms", "plain_ms",
-                              "library_ms", "bound_ms"):
-                        layer[k] += count * r[k]
-                    layer["max_abs_err"] = max(layer["max_abs_err"],
-                                               r["max_abs_err"])
-                    layer["bytes_bound"] &= r["bound_by"] == "bytes"
-            torch.cuda.empty_cache()
-        if M in QUANT_TIMED:
-            layer["bound_by"] = ("bytes" if layer.pop("bytes_bound")
-                                 else "operations")
-            key = "decode" if M == GEN_B else "prefill"
-            layers[key] = layer
-            _line({"phase": f"quant_dot_{key}_layer", **layer})
+    # (shapes, rows, the timed rows' layer keys, a row's modes): Llama's
+    # layer in every mode, GPT-2's in bf16 without bias
+    for shapes, rows, keys, modes in (
+            (QUANT_SHAPES, QUANT_ROWS, dict(zip(QUANT_TIMED, (
+                "decode", "prefill"))), _quant_modes),
+            (GPT2_QUANT_SHAPES, GPT2_QUANT_ROWS, dict(zip(GPT2_QUANT_ROWS, (
+                "gpt2_decode", "gpt2_prefill"))), lambda M: QUANT_MODES[:1])):
+        for M in rows:
+            layer = {"rows": M, "design_ms": 0.0, "tile_ms": 0.0,
+                     "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                     "max_abs_err": 0.0, "bytes_bound": True}
+            for name, K, N, count in shapes:
+                for mode in modes(M):
+                    timed = M in keys and mode[0] == "bf16"
+                    r = quant_case(torch, name, M, K, N, mode, seed, flush,
+                                   timed, names.get(f"{name}/{M}/{mode[0]}"))
+                    _line(r)
+                    if timed and count:
+                        for k in ("design_ms", "tile_ms", "plain_ms",
+                                  "library_ms", "bound_ms"):
+                            layer[k] += count * r[k]
+                        layer["max_abs_err"] = max(layer["max_abs_err"],
+                                                   r["max_abs_err"])
+                        layer["bytes_bound"] &= r["bound_by"] == "bytes"
+                torch.cuda.empty_cache()
+            if M in keys:
+                layer["bound_by"] = ("bytes" if layer.pop("bytes_bound")
+                                     else "operations")
+                layers[keys[M]] = layer
+                _line({"phase": f"quant_dot_{keys[M]}_layer", **layer})
     return layers
 
 
@@ -3758,6 +4602,24 @@ def main() -> int:
     _line(fused_info)
     _line(eval_info)
     fce_main = fce_kernel_phase(torch, args.seed)
+    # this slice's phases run after phase 13: their profile takes CPU and
+    # CUDA activities, after which phase 13's CUDA-only profiles saw no
+    # kernel (seen on the H100)
+    hf = _transformers()
+    if hf is None:
+        _line(HF_NOT_RUN)
+    _line(bert_reference_phase(torch, args.seed))
+    bert_info, bert_launches, bert_held = bert_phase(torch, args.seed)
+    _line(bert_info)
+    _line(bert_mlm_phase(torch, args.seed))
+    if hf is not None:
+        _line(hf_bert_phase(torch, args.seed, hf))
+    gpt2_info, gpt2_runs, gpt2_train = gpt2_phase(torch, args.seed, hf)
+    gpt2_info["nvidia_smi"] = _smi()
+    _line(gpt2_info)
+    llama_info, llama_run = llama_phase(torch, args.seed, hf)
+    llama_info["nvidia_smi"] = _smi()
+    _line(llama_info)
     _line(generate_reference_phase(torch, args.seed))
     gen_info, gen_launches = generate_phase(torch, args.seed)
     _line(gen_info)
@@ -3772,14 +4634,36 @@ def main() -> int:
                    for h in gather_info[name]["held"]]
 
     def held(lines, kernel):
-        """This slice's calls of a kernel held on the main path's inputs
-        (phases 6h and 15b): how many, at which cache rows, the worst."""
+        """A slice's calls of a kernel held on the main path's inputs
+        (phases 6h and 15b; 13c, 13f and 13g): how many, at which second
+        operands (cache rows, K/V, weights), the worst; with backward
+        calls held, the worst of each gradient."""
         hs = [h for h in lines if h["kernel"] == kernel]
-        return {"calls": len(hs),
-                "shapes": sorted({tuple(h["shapes"][1]) for h in hs}),
-                "max_abs_err": max(h["max_abs_err"] for h in hs),
-                "err": max(h["err"] for h in hs),
-                "tolerance": hs[0]["tolerance"]}
+        out = {"calls": len(hs),
+               "shapes": sorted({tuple(h["shapes"][1]) for h in hs}),
+               "max_abs_err": max(h["max_abs_err"] for h in hs),
+               "err": max(h["err"] for h in hs),
+               "tolerance": hs[0]["tolerance"]}
+        for g in ("dq", "dk", "dv", "dx", "dw"):
+            errs = [h[f"{g}_err"] for h in hs if f"{g}_err" in h]
+            if errs:
+                out[f"{g}_err"] = max(errs)
+        return out
+
+    # this slice's paths: GPT-2's and Llama's generation, GPT-2's fused
+    # training, the BERT fine-tune
+    gen_held = (gpt2_runs["bf16"]["held"] + gpt2_runs["int8_weights"]["held"]
+                + llama_run["held"])
+    gpt2_train_held = gpt2_info["train"]["held"]
+
+    def case(r):
+        return {k: r[k] for k in (
+            "B_T_H_KV_D", "causal", "segments", "fwd_max_abs_err",
+            "dq_max_abs_err", "dkv_max_abs_err", "fwd_ms", "dq_ms",
+            "dkv_ms", "fwd_plain_ms", "dq_plain_ms", "dkv_plain_ms",
+            "fwd_bound_ms", "dq_bound_ms", "dkv_bound_ms", "fwd_bound_by",
+            "dq_bound_by", "dkv_bound_by", "library_fwd_ms",
+            "library_bwd_ms")}
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -3813,6 +4697,21 @@ def main() -> int:
                   search_launches["speculative"]["flash_fwd"],
                   "held_on_path": held(search_held, "flash_attention")}
                  if kname == "fwd" else {})
+        i = ("fwd", "dq", "dkv").index(kname)
+        extra.update({
+            "bert_finetune_launches": bert_launches[i],
+            "bert_held_on_path": held(bert_held, "flash_attention"),
+            "bert_case": {d: case(r) for d, r in flash_main["bert"].items()},
+            "gpt2_train_launches": gpt2_train[i],
+            "gpt2_train_held_on_path": held(gpt2_train_held,
+                                            "flash_attention")})
+        if kname == "fwd":
+            extra.update({
+                "gpt2_prefill_launches":
+                    gpt2_runs["bf16"]["launches"]["flash_fwd"],
+                "llama_prefill_launches": llama_run["launches"]["flash_fwd"],
+                "generation_held_on_path": held(gen_held,
+                                                "flash_attention")})
         kernels.append({**extra,
             "name": f"flash_attention_{kname}", "route": "cuda",
             "source": "byteps_tpu_torch/csrc/flash_attention.cu",
@@ -3829,7 +4728,17 @@ def main() -> int:
     for kname, line, n in (("fwd", 77, fce_launches[3]),
                            ("dx", 115, fce_launches[4]),
                            ("dw", 144, fce_launches[5])):
+        g = fce_main["gpt2"]
         kernels.append({
+            "gpt2_case": {"N_H_V": g["N_H_V"],
+                          "max_abs_err": g[f"{kname}_max_abs_err"],
+                          **{k: g[f"{kname}_{k}"] for k in (
+                              "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "tflops")}},
+            "gpt2_train_launches": gpt2_train[3 + ("fwd", "dx", "dw").index(
+                kname)],
+            "gpt2_train_held_on_path": held(gpt2_train_held,
+                                            "fused_linear_cross_entropy"),
             "name": f"fused_cross_entropy_{kname}", "route": "cuda",
             "source": "byteps_tpu_torch/csrc/fused_cross_entropy.cu",
             "replaces": f"byteps_tpu/ops/fused_cross_entropy.py:{line}",
@@ -3859,7 +4768,15 @@ def main() -> int:
             **({"beam_search_launches": search_launches["beam"]["decode"],
                 "speculative_draft_launches":
                     search_launches["speculative"]["decode"],
-                "held_on_path": held(search_held, "decode_attention")}
+                "held_on_path": held(search_held, "decode_attention"),
+                "gpt2_launches": gpt2_runs["bf16"]["launches"]["decode"],
+                "llama_launches": llama_run["launches"]["decode"],
+                "generation_held_on_path": held(gen_held,
+                                                "decode_attention"),
+                "gpt2_g1_case": {k: r["gpt2_g1"][k] for k in (
+                    "B_S_H_KV_D", "pos", "max_abs_err", "err", "kernel_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "kernel_ms_clean_l2", "library_ms_clean_l2")}}
                if mode == "bfloat16" else
                {"gather_int8_launches": gather_launches["decode"],
                 "held_on_path": held(gather_held, "decode_attention")}),
@@ -3884,6 +4801,12 @@ def main() -> int:
         "launches": gen_launches["int8_weights_rerun"]["quant_dot"],
         "launches_by_design":
             gen_launches["int8_weights_rerun"]["quant_dot_by_design"],
+        "gpt2_launches": gpt2_runs["int8_weights"]["launches"]["quant_dot"],
+        "gpt2_launches_by_design":
+            gpt2_runs["int8_weights"]["launches"]["quant_dot_by_design"],
+        "gpt2_held_on_path": held(gen_held, "quant_linear"),
+        "gpt2_layer": {k: quant_layers[f"gpt2_{k}"]
+                       for k in ("decode", "prefill")},
         "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
         "ms": dec["design_ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],

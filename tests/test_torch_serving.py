@@ -18,6 +18,7 @@ Weights come from the JAX model's init with a fixed seed, carried
 across with ``from_jax_params``; prompts from numpy with a fixed seed.
 """
 
+import os
 import subprocess
 import sys
 
@@ -210,9 +211,21 @@ def test_frame_codec_is_byte_compatible(frame):
     assert _encode(*frame) == jax_encode(*frame)
 
 
+def _no_jax_child(code: str, env=None) -> subprocess.CompletedProcess:
+    """Run ``code`` in a fresh interpreter, then fail it if a ``jax`` or
+    ``byteps_tpu`` module was loaded."""
+    code = ("import sys\n" + code +
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'byteps_tpu' or m.startswith('byteps_tpu.')]\n"
+            "assert not bad, bad\n")
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=60, env=env)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    code = (
-        "import sys\n"
+    """Every port module, the BERT models and the HF integrations
+    included; none of them imports ``transformers``."""
+    proc = _no_jax_child(
         "import byteps_tpu_torch, byteps_tpu_torch.serving\n"
         "import byteps_tpu_torch.models.convert, byteps_tpu_torch.launcher\n"
         "import byteps_tpu_torch.inference, byteps_tpu_torch.engine.wire\n"
@@ -221,12 +234,38 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import byteps_tpu_torch.ops.fused_cross_entropy\n"
         "import byteps_tpu_torch.ops.decode_attention\n"
         "import byteps_tpu_torch.ops.quant_dot\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'byteps_tpu' or m.startswith('byteps_tpu.')]\n"
-        "assert not bad, bad\n")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=60)
+        "import byteps_tpu_torch.models, byteps_tpu_torch.models.bert\n"
+        "import byteps_tpu_torch.integrations\n"
+        "import byteps_tpu_torch.integrations._common\n"
+        "import byteps_tpu_torch.integrations.gpt2\n"
+        "import byteps_tpu_torch.integrations.llama\n"
+        "import byteps_tpu_torch.integrations.hf_flash\n"
+        "assert 'transformers' not in sys.modules\n")
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.fixture(scope="module")
+def hf_flash_child():
+    """The ``hf_flash`` context entered in a fresh interpreter (it imports
+    HF's torch BERT, which takes 10-20 s on a loaded host: a module
+    fixture, as this suite builds its other heavy set-ups)."""
+    pytest.importorskip("transformers")
+    return _no_jax_child(
+        "import byteps_tpu_torch.integrations.hf_flash as hf_flash\n"
+        "with hf_flash.flash_attention_for_hf_bert():\n"
+        "    pass\n"
+        "assert 'transformers.models.bert.modeling_bert' in sys.modules\n",
+        env={**os.environ, "USE_FLAX": "0", "USE_TF": "0"})
+
+
+def test_hf_flash_context_imports_no_jax(hf_flash_child):
+    """Entering the ``hf_flash`` context loads no jax module.
+    ``transformers`` 4.x itself imports jax (and TensorFlow, which imports
+    jax) through its Flax and TensorFlow backends when those packages are
+    installed, as on this test host, so the child runs with
+    ``transformers``' documented switches ``USE_FLAX=0`` and ``USE_TF=0``:
+    what is checked is the port's own imports."""
+    assert hf_flash_child.returncode == 0, hf_flash_child.stderr
 
 
 def test_serve_from_env_on_cpu_answers_a_jax_client(monkeypatch):

@@ -5,11 +5,12 @@ Only the knobs the ported slices read are carried over, under the same
 ``BYTEPS_*`` / ``DMLC_*`` environment names so one environment drives
 either package: the logging pair ``common/logging.py`` needs, the
 ``BYTEPS_SERVE_*`` knobs ``serving/frontend.py:serve_from_env`` reads,
-and the worker knobs ``api.init``, ``training.Trainer`` and
+the ``BYTEPS_DISAGG_*`` knobs of the disaggregated KV ship, and the
+worker knobs ``api.init``, ``training.Trainer`` and
 ``make_data_parallel_step`` read.  Knobs naming features the port does
-not have yet (checkpoints, a multi-worker world, async PS) are still
-parsed, so that a non-default value is refused loudly instead of
-ignored.
+not have yet (checkpoints, a multi-worker world, async PS, the Unix
+socket and shared-memory transports) are still parsed, so that a
+non-default value is refused loudly instead of ignored.
 """
 
 from __future__ import annotations
@@ -98,6 +99,17 @@ class Config:
     serve_tp: int = 1             # BYTEPS_TP: KV-head shards of the pool
     serve_client_timeout_ms: float = 300_000.0
 
+    # --- disaggregated prefill/decode (serving/disagg) -----------------
+    disagg_ship_timeout_ms: float = 10_000.0  # per-block ack deadline
+    disagg_ship_retries: int = 2   # digest-refusal resends per block
+    disagg_parked_cap: int = 32    # parked unshipped KV entries kept
+
+    # --- endpoint transport --------------------------------------------
+    # "auto" and "tcp" are served over TCP (no Unix-socket / shm
+    # rendezvous is advertised, so a JAX client's "auto" finds TCP);
+    # "unix", "shm" and explicit "unix:/..." / "shm:/..." are refused
+    transport: str = "auto"
+
     @staticmethod
     def from_env() -> "Config":
         return Config(
@@ -136,7 +148,24 @@ class Config:
             serve_tp=_env_int("BYTEPS_TP", 1),
             serve_client_timeout_ms=_env_float(
                 "BYTEPS_SERVE_CLIENT_TIMEOUT_MS", 300_000.0),
+            disagg_ship_timeout_ms=_env_float(
+                "BYTEPS_DISAGG_SHIP_TIMEOUT_MS", 10_000.0),
+            disagg_ship_retries=_env_int("BYTEPS_DISAGG_SHIP_RETRIES", 2),
+            disagg_parked_cap=_env_int("BYTEPS_DISAGG_PARKED_CAP", 32),
+            transport=_env_str("BYTEPS_TRANSPORT", "auto"),
         )
+
+
+def check_transport(transport: Optional[str]) -> None:
+    """Refuse a transport this port does not serve: only TCP is
+    (``auto`` resolves to it — the port advertises no local
+    rendezvous)."""
+    t = (transport or "auto").strip()
+    if t not in ("auto", "tcp"):
+        raise NotImplementedError(
+            f"transport {t!r} (BYTEPS_TRANSPORT) selects a Unix-socket or "
+            f"shared-memory endpoint, which this port does not serve; use "
+            f"'auto' or 'tcp'")
 
 
 _config: Optional[Config] = None

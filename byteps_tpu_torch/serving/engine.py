@@ -111,12 +111,29 @@ proposed and accepted tokens, prefix hits, row copies and extracts,
 copy-on-write forks, the gather buckets used, and the launch counts of
 the paged- and decode-attention kernels.
 
-Not ported yet (the serving-over-the-wire slice): disaggregated KV
-shipping and router epochs.
+The replica side of the router tier (JAX ``engine.py:115-130``,
+``:1134-1232``, ``:1316-1490``, ``:1668-1700``):
+
+  * **router epochs** — a dispatch stamped with ``epoch`` is admitted
+    inside :meth:`epoch_fence`, which refuses an epoch below the highest
+    one seen with the typed :class:`EpochFencedError` (a deposed router
+    must never place work the new epoch re-dispatched);
+  * **disaggregated prefill/decode** — a prefill replica's ``keep_kv``
+    request parks its finished blocks (refs taken before the slot frees,
+    capped at ``BYTEPS_DISAGG_PARKED_CAP``) for the frontend to ship
+    (:meth:`extract_kv_payloads`: one gather and one device-to-host copy
+    a ship); a decode replica writes a received ship into staged pool
+    blocks (:meth:`write_kv_payloads`: one host-to-device copy and one
+    indexed copy a cache tensor), both on a stream of their own, and a
+    resume submit carrying ``kv_blocks`` adopts them in place of the
+    prefill.  A tp pool ships the unsharded head-major rows, so a ship
+    does not depend on either side's tp.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import enum
 import hashlib
@@ -142,7 +159,26 @@ from .scheduler import ServeScheduler
 from .slots import SlotPool
 from .spec import NgramProposer
 
-__all__ = ["Request", "RequestState", "ServingEngine", "resolve_device"]
+__all__ = ["EpochFencedError", "Request", "RequestState", "ServingEngine",
+           "resolve_device"]
+
+
+class EpochFencedError(RuntimeError):
+    """A dispatch carried a router epoch LOWER than one this engine has
+    already served: the sender is a deposed active router that does not
+    yet know a standby took over.  The refusal is the split-brain guard
+    — accepting the stale dispatch could double-serve a request the new
+    epoch's router already re-dispatched.  Typed so the stale router can
+    recognize the fence and demote itself instead of treating this
+    replica as dead."""
+
+    def __init__(self, epoch: int, high_water: int):
+        self.epoch = epoch
+        self.high_water = high_water
+        super().__init__(
+            f"dispatch fenced: epoch {epoch} < this engine's epoch "
+            f"high-water {high_water} — a newer router epoch has taken "
+            f"over this tier; the sending router must demote")
 
 
 class RequestState(enum.Enum):
@@ -189,6 +225,12 @@ class Request:
     _spec_ctx: Optional[np.ndarray] = dataclasses.field(default=None,
                                                         repr=False)
     _spec_n: int = dataclasses.field(default=0, repr=False)
+    # disaggregated serving: park the finished request's blocks for a
+    # ship (prefill replica), or staged block ids to adopt at admission
+    # in place of the prefill (decode replica)
+    _keep_kv: bool = dataclasses.field(default=False, repr=False)
+    _kv_blocks: Optional[List[int]] = dataclasses.field(default=None,
+                                                        repr=False)
     _task: Optional[object] = dataclasses.field(default=None, repr=False)
     t_submit: float = 0.0
     t_admit: float = 0.0
@@ -231,6 +273,16 @@ class Request:
 # defaults, so chunk buckets — and with them the numerics — agree)
 _PAD_ID = 0
 _MIN_PREFILL_BUCKET = 8
+
+
+def _bytes_as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A ``uint8`` tensor's bytes reinterpreted as ``dtype`` (its last
+    dimension scaled): a view where the offset and strides allow one,
+    else a view of a contiguous copy."""
+    try:
+        return t.view(dtype)
+    except RuntimeError:
+        return t.contiguous().view(dtype)
 
 
 def _next_bucket(n: int, lo: int, hi: int) -> int:
@@ -439,6 +491,20 @@ class ServingEngine:
         self.prefix_extracts = 0    # dense rows extracted for an insert
         self.cow_copies = 0
         self.gather_buckets: set = set()  # high-water buckets gathered
+        # router epochs: the highest dispatch epoch seen (the fence)
+        self._epoch_lock = threading.Lock()
+        self._epoch_hw = 0
+        # parked KV of finished keep_kv requests, req.id -> {"ids": [block
+        # ids, incref'd], "pos": T}, oldest evicted past the cap
+        from ..common.config import get_config
+
+        self._parked_kv: "collections.OrderedDict[int, dict]" = \
+            collections.OrderedDict()
+        self._parked_cap = max(1, get_config().disagg_parked_cap)
+        self._parked_lock = threading.Lock()
+        # the ship's copies run on a stream of their own (see the seam)
+        self._ship_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
 
     def _check_options(self, cfg, kv_quant, cache_layout, prefix_cache,
                        kv_dtype, paged_kernel, spec_k) -> None:
@@ -534,14 +600,61 @@ class ServingEngine:
 
     # ------------------------------------------------------------- submit
 
+    @contextlib.contextmanager
+    def epoch_fence(self, epoch: int):
+        """Check-and-record a router dispatch's epoch atomically with the
+        admission or cancel inside the ``with`` block: an epoch LOWER
+        than the high-water already seen raises the typed
+        :class:`EpochFencedError`; an equal one passes (the active router
+        stamps every dispatch with its epoch).  The lock is held across
+        the body, so a deposed router's dispatch cannot pass the check,
+        lose the race to the takeover epoch's first dispatch, and still
+        act afterwards."""
+        epoch = int(epoch)
+        with self._epoch_lock:
+            if epoch < self._epoch_hw:
+                raise EpochFencedError(epoch, self._epoch_hw)
+            self._epoch_hw = epoch
+            yield
+
+    def fence_epoch(self, epoch: int) -> None:
+        """Point-in-time epoch check (paths that admit or cancel work use
+        the :meth:`epoch_fence` form)."""
+        with self.epoch_fence(epoch):
+            pass
+
+    @property
+    def epoch_high_water(self) -> int:
+        with self._epoch_lock:
+            return self._epoch_hw
+
     def submit(self, prompt, max_new_tokens: int, *, seed: int = 0,
-               priority: int = 0, resume_tokens=None) -> Request:
+               priority: int = 0, resume_tokens=None,
+               epoch: Optional[int] = None, keep_kv: bool = False,
+               kv_blocks=None) -> Request:
         """Enqueue a generation request.  Raises ``ValueError`` on an
         infeasible request and ``QueueFullError`` when the bounded
         admission queue is full.  ``resume_tokens`` continues a request
         another engine already emitted ``k`` tokens for: prompt +
         emitted tokens are re-prefilled and decoding resumes from the
-        last one (only new tokens are streamed)."""
+        last one (only new tokens are streamed).
+
+        ``epoch`` (router dispatches) runs the admission inside
+        :meth:`epoch_fence`.  ``keep_kv`` (a disagg prefill replica)
+        parks the finished request's blocks for a ship; ``kv_blocks`` (a
+        decode replica) carries staged, written block ids whose adoption
+        replaces the prefill.  The engine owns ``kv_blocks`` once this
+        returns (adopted, or released on every other path); on a raise
+        they stay the caller's."""
+        if epoch is not None:
+            with self.epoch_fence(epoch):
+                return self._submit(prompt, max_new_tokens, seed, priority,
+                                    resume_tokens, keep_kv, kv_blocks)
+        return self._submit(prompt, max_new_tokens, seed, priority,
+                            resume_tokens, keep_kv, kv_blocks)
+
+    def _submit(self, prompt, max_new_tokens: int, seed: int, priority: int,
+                resume_tokens, keep_kv: bool, kv_blocks) -> Request:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         T = int(prompt.shape[0])
         if T < 1:
@@ -558,6 +671,26 @@ class ServingEngine:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
         resumed = ([int(t) for t in resume_tokens]
                    if resume_tokens is not None else [])
+        if (resumed and self.eos_id is not None
+                and resumed[-1] == self.eos_id):
+            # the stream already ended at EOS where it was emitted:
+            # answer a finished request (no slot, no prefill — so even an
+            # engine that refuses resume answers it), and release staged
+            # blocks nothing will adopt
+            with self._lock:
+                self._req_seq += 1
+                req = Request(id=self._req_seq, prompt=prompt,
+                              max_new_tokens=max_new_tokens, seed=seed,
+                              priority=priority, t_submit=time.monotonic())
+                req.tokens = resumed
+                req.state = RequestState.DONE
+                req._out.put(_END)
+                req._done.set()
+                if self.paged:
+                    self.release_kv_ids(kv_blocks)
+            self.metrics.bump(sm.SUBMITTED)
+            self.metrics.bump(sm.COMPLETED)  # 0 tokens generated here
+            return req
         if resumed and self._resume_unsafe:
             raise ValueError(
                 f"this engine cannot resume a partially-emitted request "
@@ -586,10 +719,15 @@ class ServingEngine:
                 req.tokens = resumed
                 req._resumed_n = len(resumed)
                 req._resume_tok = resumed[-1]
+            req._keep_kv = bool(keep_kv and self.paged)
+            if kv_blocks is not None and self.paged:
+                req._kv_blocks = [int(b) for b in kv_blocks]
             self._outstanding += 1
             try:
                 req._task = self.scheduler.submit(req, bucket)
             except Exception:
+                # the caller keeps the staged blocks of a refused submit
+                req._kv_blocks = None
                 self._outstanding -= 1
                 self._drain_cv.notify_all()
                 self.metrics.bump(sm.REJECTED)
@@ -707,6 +845,27 @@ class ServingEngine:
             req.t_admit = time.monotonic()
             self.metrics.bump(sm.ADMITTED)
         self._slot_req[slot] = req
+        if req._kv_blocks is not None:
+            # disagg adoption: a shipped prefill's staged blocks replace
+            # the prefill (ownership moves to the table; the cursor is at
+            # T from assign) and the resume token is the next decode
+            # input.  Any other shape re-prefills — never a wrong answer
+            ids, req._kv_blocks = req._kv_blocks, None
+            T = int(seq.shape[0])
+            want = -(-T // self.pool.block)
+            if (req._resume_tok is not None and len(ids) == want
+                    and len(ids) <= self.pool.tables[slot].max_blocks
+                    and not self.pool.tables[slot].blocks):
+                self.pool.adopt_blocks(slot, ids)
+                req.state = RequestState.ACTIVE
+                self._tok[slot] = req._resume_tok
+                req._resume_tok = None
+                return 0
+            bps_log.warning(
+                "disagg: refusing adoption of %d staged block(s) for "
+                "request %d (want %d for T=%d) — re-prefilling",
+                len(ids), req.id, want, T)
+            self.release_kv_ids(ids)
         p0 = 0
         if self.prefix is not None:
             req._prefix_digs = self.prefix.digests_for(
@@ -1220,10 +1379,19 @@ class ServingEngine:
     def _finish(self, req: Request, state: RequestState) -> None:
         req.state = state
         if req.slot is not None:
+            if req._keep_kv and state is RequestState.DONE:
+                # disagg prefill replica: park the blocks (refs taken
+                # before the free below drops the table's own)
+                self._park_kv_locked(req)
             self._prefilling.pop(req.slot, None)
             self._slot_req[req.slot] = None
             self.pool.free(req.slot)
             req.slot = None
+        if req._kv_blocks is not None:
+            # staged blocks never adopted (cancel or failure before
+            # admission): released, never leaked
+            self.release_kv_ids(req._kv_blocks)
+            req._kv_blocks = None
         req._out.put(_END)
         req._done.set()
         if state is RequestState.DONE:
@@ -1320,6 +1488,154 @@ class ServingEngine:
                     remaining = (None if deadline is None
                                  else deadline - time.monotonic())
                     self._drain_cv.wait(remaining)
+
+    # ------------------------------------------- disagg KV ship seam
+    #
+    # The prefill side reads parked blocks out of the pool
+    # (extract_kv_payloads), the decode side writes received blocks in
+    # (write_kv_payloads).  JAX runs both under the engine lock because
+    # its tick donates the pool's buffers; here the pools are updated in
+    # place and never replaced, and the tick thread holds the engine lock
+    # for a whole tick, so the seam takes no engine lock (under load a
+    # call would wait for ticks): the allocator and the parked map have
+    # locks of their own, and the copies run on the engine's ship stream,
+    # ending in its synchronize.  On the host every block they touch is
+    # the ship's alone — parked blocks hold the entry's refs; staged ones
+    # sit in no table until an admission adopts them, and that
+    # admission's decode passes are issued after the copy has landed.  On
+    # the device they are not: a block freed by a cancel or a preemption
+    # (and then staged) may still have a prefill chunk's K/V write queued
+    # on the tick's stream, so the ship stream first waits for the work
+    # queued there.  The wait is the device's; the host does not wait.
+
+    def _ship_copies(self):
+        if self._ship_stream is None:
+            return contextlib.nullcontext()
+        self._ship_stream.wait_stream(torch.cuda.default_stream(self.device))
+        return torch.cuda.stream(self._ship_stream)
+
+    def take_parked_kv(self, req_id: int) -> Optional[dict]:
+        """Claim (and remove) the parked KV entry a finished ``keep_kv``
+        request left behind; the caller owns its block refs and must
+        :meth:`release_kv_ids` them."""
+        with self._parked_lock:
+            return self._parked_kv.pop(req_id, None)
+
+    def release_kv_ids(self, ids) -> None:
+        """Drop one reference a block id (parked entries, refused
+        adoptions, aborted stagings)."""
+        for b in ids or ():
+            self.pool.alloc.decref(int(b))
+
+    def stage_alloc(self, n: int) -> List[int]:
+        """Allocate ``n`` pool blocks for an incoming ship; raises
+        ``BlocksExhaustedError`` when the pool cannot cover it (the
+        sender aborts, the router re-prefills)."""
+        return self.pool.alloc.alloc(n)
+
+    def kv_block_schema(self) -> List[list]:
+        """One block's wire schema: per layer, ``(name, shape, dtype)``
+        for each cache tensor in sorted-name order (the payload order),
+        ``shape`` the unsharded row — a tp pool's shards side by side,
+        head-major — so the schema is the same at any tp, and a grouped
+        ``[block, KV, D]`` row is the bytes of a flat ``[block, KV*D]``
+        one."""
+        out = []
+        for layer in self.pool.caches:
+            out.append([(n, ((layer[n].shape[2], self.tp * layer[n].shape[3])
+                             if self.tp > 1 else tuple(layer[n].shape[1:])),
+                         layer[n].dtype) for n in sorted(layer)])
+        return out
+
+    def _split_rows(self, rows: torch.Tensor
+                    ) -> List[Dict[str, torch.Tensor]]:
+        """``[n, block_bytes]`` uint8 payload rows as :meth:`kv_block_schema`
+        tensors: one dict a layer, each value ``[n, *row]`` (views where
+        the byte offsets allow)."""
+        n = rows.shape[0]
+        out, off = [], 0
+        for layer in self.kv_block_schema():
+            d = {}
+            for name, shape, dt in layer:
+                nb = int(np.prod(shape)) * dt.itemsize
+                d[name] = _bytes_as(rows[:, off:off + nb], dt).reshape(
+                    n, *shape)
+                off += nb
+            out.append(d)
+        return out
+
+    def extract_kv_payloads(self, ids) -> torch.Tensor:
+        """The ship payload of the blocks ``ids``: a ``[len(ids),
+        block_bytes]`` uint8 host tensor (pinned, on CUDA), row ``i``
+        block ``ids[i]``'s bytes in :meth:`kv_block_schema` order.  One
+        gather a cache tensor and ONE device-to-host copy for the whole
+        ship, on the ship stream."""
+        n = len(ids)
+        with self._ship_copies():
+            idx = torch.tensor([int(b) for b in ids], dtype=torch.long,
+                               device=self.device)
+            parts = []
+            for layer in self.pool.caches:
+                for name in sorted(layer):
+                    c = layer[name]
+                    g = (c.index_select(0, idx) if self.tp == 1 else
+                         c.index_select(1, idx).permute(1, 2, 0, 3))
+                    parts.append(g.reshape(n, -1).view(torch.uint8))
+            dev = torch.cat(parts, dim=1)
+            if self._ship_stream is None:
+                return dev
+            host = torch.empty(dev.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(dev, non_blocking=True)
+            self._ship_stream.synchronize()
+        return host
+
+    def write_kv_payloads(self, ids, rows) -> None:
+        """Write received blocks into the pool at physical ids ``ids``:
+        ``rows`` holds their payloads back to back (bytes-like, or a
+        ``[len(ids), block_bytes]`` uint8 tensor), as
+        :meth:`extract_kv_payloads` gives them — one host-to-device copy,
+        split on the device, one indexed copy a cache tensor (a tp pool's
+        rows back into its shards).  On the ship stream, ending in its
+        synchronize while ``rows`` is still referenced, so every copy
+        has landed when this returns."""
+        n = len(ids)
+        if not isinstance(rows, torch.Tensor):
+            if memoryview(rows).readonly:
+                rows = bytearray(rows)
+            rows = torch.frombuffer(rows, dtype=torch.uint8)
+        with self._ship_copies():
+            idx = torch.tensor([int(b) for b in ids], dtype=torch.long,
+                               device=self.device)
+            raw = rows.reshape(n, -1).to(self.device, non_blocking=True)
+            blk = self._split_rows(raw)
+            for cache, src in zip(self.pool.caches, blk):
+                for name, c in cache.items():
+                    if self.tp == 1:
+                        c.index_copy_(0, idx, src[name].reshape(
+                            n, *c.shape[1:]))
+                    else:                       # [tp, n_blocks, block, X]
+                        c.index_copy_(1, idx, src[name].reshape(
+                            n, c.shape[2], self.tp, -1).permute(2, 0, 1, 3))
+            if self._ship_stream is not None:
+                self._ship_stream.synchronize()
+
+    def _park_kv_locked(self, req: Request) -> None:
+        """Park a finished ``keep_kv`` request's blocks (incref BEFORE the
+        slot free drops the table's refs) for the frontend's ship; the
+        oldest entry past the cap is evicted and released."""
+        ids = list(self.pool.tables[req.slot].blocks)
+        if not ids:
+            return
+        for b in ids:
+            self.pool.alloc.incref(b)
+        seq = req._seq if req._seq is not None else req.prompt
+        with self._parked_lock:
+            self._parked_kv[req.id] = {"ids": ids, "pos": int(len(seq))}
+            evicted = []
+            while len(self._parked_kv) > self._parked_cap:
+                evicted.append(self._parked_kv.popitem(last=False)[1])
+        for old in evicted:
+            self.release_kv_ids(old["ids"])
 
     # --------------------------------------------------------- inspection
 

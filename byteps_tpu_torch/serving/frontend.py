@@ -4,28 +4,53 @@ the in-process :class:`ServeClient`, a TCP :class:`ServeFrontend` and
 ``serve`` role (:func:`serve_from_env`).
 
 The wire is the JAX package's, byte for byte (``engine/wire.py``), so a
-JAX ``RemoteServeClient`` talks to this frontend and vice versa.  Ops
-ported (one request frame per round trip; STREAM replies a sequence):
+JAX ``RemoteServeClient`` — and a JAX ``ServeRouter`` — talks to this
+frontend and vice versa.  Ops (one request frame per round trip; STREAM
+replies a sequence):
 
     0 = SUBMIT  name = JSON {"max_new_tokens", "seed", "priority",
-                             "resume"}; arr = int32 prompt tokens, the
-                trailing ``resume`` entries being tokens already emitted
-                elsewhere.  reply: status=0, name = request id, arr =
+                             "resume", ...}; arr = int32 prompt tokens,
+                the trailing ``resume`` entries being tokens already
+                emitted elsewhere.  reply: status=0, name = request id
+                (a disagg prefill leg: the ship report's JSON), arr =
                 int32 tokens; typed rejections come back as status=1
                 with "ErrorName: message".
     1 = STATS   reply payload = JSON engine metrics summary
     2 = PING    liveness
     3 = STREAM  as SUBMIT; one frame per token (name "t", arr [tok]),
                 then a terminal frame (name "end", arr = all tokens).
+    4 = CANCEL  name = JSON {"rid"[, "epoch"]}: cancel the in-flight
+                request submitted with that ``rid`` (from a second
+                connection); a rid that has not arrived yet is
+                tombstoned, one that finished lately is too late.
+                reply payload = JSON {"cancelled": bool}.
+    5 = JOURNAL router-HA journal pushes are taken by routers only: a
+                serve frontend answers "bad op 5", as JAX's does.
+    6 = KV_BLOCKS one shipped KV block of a disaggregated prefill
+                (``serving/disagg/ship.py``): name = JSON {"key", "i",
+                "n", "pos", "geom", "digest"}, payload = the block's
+                bytes.  reply: status=0 JSON ack, or status=1 with a
+                typed ``KVShip*`` error.
 
-Not ported in this slice: OP_CANCEL, the router journal, disaggregated
-KV ship frames, router epochs, and the Unix-socket / shared-memory
-transports (a JAX client's "auto" transport finds no rendezvous here
-and stays on TCP).  Requests carrying those params are refused typed.
+SUBMIT/STREAM params may also carry ``epoch`` (the dispatching router's
+fencing token: below the engine's high-water the typed
+``EpochFencedError``), ``rid`` (for OP_CANCEL), ``tenant`` and ``slo``
+(router-tier accounting; a replica ignores them), ``timeout`` (SUBMIT's
+wait, seconds), and for a disaggregated tier ``ship_to`` + ``kv_ship``
+(a prefill leg: park the finished KV and ship it to ``ship_to`` under
+``kv_ship`` before replying) or ``kv_ship`` alone (a decode leg: adopt
+the staged blocks instead of prefilling).
+
+Not ported in this slice: the router itself, its HA journal and
+autoscaling, and the multi-address failover of the client (the next
+slice); the Unix-socket and shared-memory transports (``BYTEPS_TRANSPORT``
+other than ``auto`` / ``tcp`` is refused; a JAX client's ``auto`` finds
+no rendezvous here and stays on TCP).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import socket
 import socketserver
@@ -35,18 +60,24 @@ from typing import Optional
 import numpy as np
 
 from ..common import logging as bps_log
-from ..engine.wire import _decode, _encode
+from ..engine.wire import _decode, _encode, hard_reset
 from .engine import Request, ServingEngine
 
-OP_SUBMIT, OP_STATS, OP_PING, OP_STREAM = range(4)
+OP_SUBMIT, OP_STATS, OP_PING, OP_STREAM, OP_CANCEL, OP_JOURNAL = range(6)
+OP_KV_BLOCKS = 6
 
 __all__ = ["ServeClient", "ServeFrontend", "RemoteServeClient",
            "ServeConnectionError", "ServeReplyError", "serve",
            "serve_from_env", "OP_SUBMIT", "OP_STATS", "OP_PING",
-           "OP_STREAM"]
+           "OP_STREAM", "OP_CANCEL", "OP_JOURNAL", "OP_KV_BLOCKS"]
 
-# submit params that belong to tiers this slice does not port
-_UNPORTED_PARAMS = ("epoch", "ship_to", "kv_ship")
+# the rid registry's bounds: tombstoned early cancels, finished rids
+_RID_MEMORY = 1024
+
+# status=1 names another router could serve (a standby's refusal), and
+# the overload sheds a caller may retry later (JAX's two sets)
+_RETRYABLE_REPLY_NAMES = frozenset({"RouterStandbyError"})
+_SHED_REPLY_NAMES = frozenset({"OverloadShedError"})
 
 
 class ServeConnectionError(ConnectionError):
@@ -56,10 +87,14 @@ class ServeConnectionError(ConnectionError):
 
 class ServeReplyError(RuntimeError):
     """A status=1 reply: the endpoint answered with a typed error;
-    ``name`` is the server-side error class name."""
+    ``name`` is the server-side error class name, ``retryable`` whether
+    another router could serve the request (a standby's refusal), and
+    ``shed`` whether it was an overload shed (retry later)."""
 
     def __init__(self, msg: str, name: str = ""):
         self.name = name
+        self.retryable = name in _RETRYABLE_REPLY_NAMES
+        self.shed = name in _SHED_REPLY_NAMES
         super().__init__(msg)
 
 
@@ -102,22 +137,81 @@ class ServeClient:
 # ------------------------------------------------------------------ TCP tier
 
 
-def _parse_submit(engine: ServingEngine, name: str, arr):
-    """Decode a SUBMIT/STREAM frame into an engine submit; ``resume`` =
-    k > 0 marks the trailing k tokens as already emitted."""
-    params = json.loads(name) if name else {}
-    unported = [p for p in _UNPORTED_PARAMS if p in params]
-    if unported:
-        raise ValueError(f"submit params {unported} belong to serving "
-                         f"tiers this engine does not implement")
+def _split_resume(params: dict, arr):
+    """The SUBMIT/STREAM array contract: ``resume`` = k > 0 marks the
+    trailing k entries as already-emitted tokens; the rest is the
+    prompt."""
     toks = np.asarray(arr, np.int32).reshape(-1)
     k = int(params.get("resume", 0))
-    prompt, resumed = (toks[:-k], toks[-k:]) if k > 0 else (toks, None)
-    req = engine.submit(
-        prompt, int(params.get("max_new_tokens", 16)),
-        seed=int(params.get("seed", 0)),
-        priority=int(params.get("priority", 0)),
-        resume_tokens=resumed)
+    return (toks[:-k], toks[-k:]) if k > 0 else (toks, None)
+
+
+def _connect(addr: str, timeout: Optional[float]) -> socket.socket:
+    host, _, port = str(addr).strip().rpartition(":")
+    s = socket.create_connection((host, int(port)), timeout=timeout)
+    s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    return s
+
+
+def _reply_error(payload) -> "ServeReplyError":
+    msg = bytes(payload).decode()
+    return ServeReplyError(f"serve error: {msg!r}",
+                           name=msg.split(":", 1)[0].strip())
+
+
+def _wire_cancel(addr: str, params: dict, timeout: Optional[float]) -> bool:
+    """One OP_CANCEL round trip on a fresh short-lived connection (the
+    streaming one is busy relaying the stream being cancelled)."""
+    try:
+        s = _connect(addr, timeout)
+    except OSError as e:
+        raise ServeConnectionError(
+            f"serve frontend {addr} unreachable for cancel: {e}") from e
+    try:
+        s.sendall(_encode(OP_CANCEL, json.dumps(params), None))
+        status, _, _, payload = _decode(s)
+    except (ConnectionError, OSError, ValueError) as e:
+        raise ServeConnectionError(
+            f"serve frontend {addr} died mid-cancel: {e}") from e
+    finally:
+        try:
+            s.close()
+        except OSError:
+            pass
+    if status != 0:
+        raise _reply_error(payload)
+    return bool(json.loads(bytes(payload).decode()).get("cancelled"))
+
+
+def _parse_submit(engine: ServingEngine, name: str, arr, stager=None):
+    """Decode a SUBMIT/STREAM frame into an engine submit.  A disagg
+    DECODE leg (``kv_ship`` without ``ship_to``) claims its staged
+    blocks from the stager, adopted at admission when the staging is
+    whole and its position is the prompt's length (else released, and
+    the request prefills).  The epoch fence rides into the submit, so
+    check and admission are one step."""
+    params = json.loads(name) if name else {}
+    prompt, resumed = _split_resume(params, arr)
+    kv = None
+    if (stager is not None and params.get("kv_ship")
+            and not params.get("ship_to")):
+        staged = stager.take(str(params["kv_ship"]))
+        if staged is not None:
+            if staged["pos"] == int(prompt.shape[0]):
+                kv = staged["ids"]
+            else:
+                engine.release_kv_ids(staged["ids"])
+    try:
+        req = engine.submit(
+            prompt, int(params.get("max_new_tokens", 16)),
+            seed=int(params.get("seed", 0)),
+            priority=int(params.get("priority", 0)),
+            resume_tokens=resumed, epoch=params.get("epoch"),
+            keep_kv=bool(params.get("ship_to")), kv_blocks=kv)
+    except Exception:
+        # the engine owns the blocks only once submit returned
+        engine.release_kv_ids(kv)
+        raise
     return req, params
 
 
@@ -126,6 +220,9 @@ def _error_frame(e: BaseException) -> bytes:
 
 
 class _ServeHandler(socketserver.BaseRequestHandler):
+    def setup(self):
+        self.server._track_conn(self.request)  # type: ignore
+
     def _stream(self, engine: ServingEngine, sock, req: Request) -> bool:
         """Relay ``req``'s tokens one frame each, then the terminal
         frame.  False when the client went away (the request is then
@@ -162,31 +259,72 @@ class _ServeHandler(socketserver.BaseRequestHandler):
              "metrics": engine.metrics.registry.snapshot()})
         return _encode(0, "", None, payload.encode())
 
+    def _submit(self, engine: ServingEngine, sock, op: int, name: str,
+                arr) -> Optional[bytes]:
+        """A SUBMIT (the reply frame) or STREAM (relayed here; None, or
+        the connection is gone: raises ``ConnectionAbortedError``)."""
+        srv = self.server
+        req, params = _parse_submit(engine, name, arr,
+                                    stager=srv.kv_stager(create=False))
+        rid = params.get("rid")
+        if rid and srv.register_rid(str(rid), req):
+            # an OP_CANCEL for this rid arrived first (tombstoned)
+            engine.cancel(req)
+        try:
+            if op == OP_STREAM:
+                if not self._stream(engine, sock, req):
+                    raise ConnectionAbortedError("stream client left")
+                return None
+            toks = req.result(timeout=float(params.get("timeout", 300.0)))
+            if params.get("ship_to"):
+                # disagg prefill leg: ship the parked KV after the
+                # request finished; the report rides the reply's name
+                return _encode(0, json.dumps(srv.ship_kv(req, params)),
+                               toks)
+            return _encode(0, str(req.id), toks)
+        finally:
+            if rid:
+                srv.unregister_rid(str(rid), req)
+
+    def _cancel(self, engine: ServingEngine, name: str) -> bytes:
+        params = json.loads(name) if name else {}
+        rid = str(params.get("rid", ""))
+        if "epoch" in params:
+            # a deposed router must not cancel what the takeover epoch
+            # re-dispatched: the fence is held across the cancel
+            with engine.epoch_fence(int(params["epoch"])):
+                ok = self.server.cancel_rid(rid)
+        else:
+            ok = self.server.cancel_rid(rid)
+        return _encode(0, "", None, json.dumps({"cancelled": ok}).encode())
+
     def handle(self):  # one connection, many requests
         engine: ServingEngine = self.server.engine  # type: ignore
         sock = self.request
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         while True:
             try:
-                op, name, arr, _ = _decode(sock)
-            except (ConnectionError, OSError):
+                op, name, arr, payload_in = _decode(sock)
+            except (ConnectionError, OSError, ValueError):
                 return
             try:
                 if op in (OP_SUBMIT, OP_STREAM):
-                    req, params = _parse_submit(engine, name, arr)
-                    if op == OP_STREAM:
-                        if not self._stream(engine, sock, req):
-                            return
+                    reply = self._submit(engine, sock, op, name, arr)
+                    if reply is None:
                         continue
-                    toks = req.result(timeout=float(
-                        params.get("timeout", 300.0)))
-                    reply = _encode(0, str(req.id), toks)
+                elif op == OP_CANCEL:
+                    reply = self._cancel(engine, name)
                 elif op == OP_STATS:
                     reply = self._stats(engine)
+                elif op == OP_KV_BLOCKS:
+                    reply = self.server.kv_stager().handle(  # type: ignore
+                        name, payload_in)
                 elif op == OP_PING:
                     reply = _encode(0, "", None)
                 else:
                     reply = _encode(1, "", None, f"bad op {op}".encode())
+            except ConnectionAbortedError:
+                return
             except Exception as e:  # noqa: BLE001 — every error is a reply
                 reply = _error_frame(e)
             try:
@@ -196,15 +334,142 @@ class _ServeHandler(socketserver.BaseRequestHandler):
 
 
 class ServeFrontend(socketserver.ThreadingTCPServer):
-    """TCP frontend over one engine (whose tick thread it starts)."""
+    """TCP frontend over one engine (whose tick thread it starts): the
+    request ops, OP_CANCEL's rid registry, the decode side's KV stager
+    (built on the first OP_KV_BLOCKS frame) and the prefill side's
+    ship, and :meth:`kill`, which dies like a crashed replica."""
 
     allow_reuse_address = True
     daemon_threads = True
 
     def __init__(self, addr, engine: ServingEngine):
+        from ..common.config import check_transport, get_config
+
+        check_transport(get_config().transport)
         super().__init__(addr, _ServeHandler)
         self.engine = engine
+        # live client sockets, so kill() can sever them mid-stream
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        self._killing = False
+        # OP_CANCEL: rid -> in-flight request, cancels that came ahead
+        # of their submit (tombstones) and rids finished lately (a late
+        # cancel is too late, not early), both bounded
+        self._rids: dict = {}
+        self._rid_lock = threading.Lock()
+        self._rid_tombs: "collections.OrderedDict[str, None]" = \
+            collections.OrderedDict()
+        self._rid_done: "collections.OrderedDict[str, None]" = \
+            collections.OrderedDict()
+        self._kv_stager = None
+        self._kv_stager_lock = threading.Lock()
         engine.start()
+
+    # ------------------------------------------------- disagg KV ship
+
+    def kv_stager(self, create: bool = True):
+        """The decode side's KV stager.  ``create=False`` returns None
+        until the first OP_KV_BLOCKS frame built it.  Raises typed on a
+        dense engine: there is no block pool to stage into."""
+        with self._kv_stager_lock:
+            if self._kv_stager is None and create:
+                from .disagg.ship import KVShipGeometryError, KVStager
+
+                if not self.engine.paged:
+                    raise KVShipGeometryError(
+                        "this replica's engine is dense (paged=False) "
+                        "— it cannot stage shipped KV blocks")
+                self._kv_stager = KVStager(self.engine)
+            return self._kv_stager
+
+    def ship_kv(self, req: Request, params: dict) -> dict:
+        """Prefill leg: ship ``req``'s parked KV to the decode replica
+        named by ``ship_to``.  Never raises — a failure is reported as
+        ``{"shipped": False, "error": ...}`` beside the (valid) tokens,
+        and the router re-prefills on the decode side."""
+        from .disagg.ship import KVShipError, ship_parked
+
+        parked = self.engine.take_parked_kv(req.id)
+        if parked is None:
+            return {"shipped": False,
+                    "error": "no parked KV (dense engine, non-DONE "
+                             "finish, or parked-cap eviction)"}
+        try:
+            return ship_parked(
+                self.engine, str(params["ship_to"]),
+                str(params.get("kv_ship", req.id)), parked,
+                metrics=self.engine.metrics)
+        except KVShipError as e:
+            bps_log.warning("disagg ship for request %d failed: %s",
+                            req.id, e)
+            return {"shipped": False,
+                    "error": f"{type(e).__name__}: {e}"}
+        finally:
+            self.engine.release_kv_ids(parked["ids"])
+
+    # ------------------------------------------------ OP_CANCEL registry
+
+    def register_rid(self, rid: str, req: Request) -> bool:
+        """Associate ``rid`` with its in-flight request; True when an
+        OP_CANCEL for it already arrived (the caller cancels now)."""
+        with self._rid_lock:
+            self._rids[rid] = req
+            self._rid_done.pop(rid, None)
+            tombed = rid in self._rid_tombs
+            if tombed:
+                del self._rid_tombs[rid]
+            return tombed
+
+    def unregister_rid(self, rid: str, req: Optional[Request] = None
+                       ) -> None:
+        """Drop the registration while it still names ``req`` (a late
+        old leg must not clobber a re-dispatch's), and remember the rid
+        as finished."""
+        with self._rid_lock:
+            if req is not None and self._rids.get(rid) is not req:
+                return
+            self._rids.pop(rid, None)
+            self._rid_done[rid] = None
+            while len(self._rid_done) > _RID_MEMORY:
+                self._rid_done.popitem(last=False)
+
+    def cancel_rid(self, rid: str) -> bool:
+        """Cancel the in-flight request under ``rid`` (slot and blocks
+        freed now).  An unknown rid is tombstoned, unless it finished
+        lately (then the cancel is too late).  Returns whether a live
+        request was cancelled."""
+        with self._rid_lock:
+            req = self._rids.get(rid)
+            if req is None:
+                if rid not in self._rid_done:
+                    self._rid_tombs[rid] = None
+                    while len(self._rid_tombs) > _RID_MEMORY:
+                        self._rid_tombs.popitem(last=False)
+                return False
+        self.engine.cancel(req)
+        return True
+
+    def _track_conn(self, sock) -> None:
+        with self._conns_lock:
+            # checked inside kill()'s critical section, so no connection
+            # registers after kill() took the set
+            if not self._killing:
+                self._conns = {s for s in self._conns if s.fileno() != -1}
+                self._conns.add(sock)
+                return
+        hard_reset(sock)   # accepted while dying: served by nobody
+
+    def kill(self) -> None:
+        """Die like a crashed replica: hard-reset every live client
+        connection first (in-flight streams see ECONNRESET mid-frame),
+        then stop accepting and stop the engine."""
+        with self._conns_lock:
+            self._killing = True
+            conns, self._conns = set(self._conns), set()
+        for c in conns:
+            hard_reset(c)
+        self.shutdown()
+        self.server_close()
 
     def server_close(self):
         self.engine.stop()
@@ -231,10 +496,16 @@ def serve(engine: ServingEngine, port: int, host: str = "0.0.0.0",
 
 
 def _submit_frame(op: int, prompt, max_new_tokens: int, seed: int,
-                  priority: int, resume) -> bytes:
+                  priority: int, resume, extra: Optional[dict] = None
+                  ) -> bytes:
+    """A SUBMIT/STREAM request; ``extra`` (epoch, rid, tenant, slo, the
+    disagg params) is left out when unused, so a plain client's frame is
+    the pre-router one."""
     resume = [] if resume is None else [int(t) for t in resume]
     p = {"max_new_tokens": max_new_tokens, "seed": seed,
          "priority": priority, "resume": len(resume)}
+    if extra:
+        p.update({k: v for k, v in extra.items() if v is not None})
     toks = np.concatenate([np.asarray(prompt, np.int32).reshape(-1),
                            np.asarray(resume, np.int32)])
     return _encode(op, json.dumps(p), toks)
@@ -245,20 +516,28 @@ class RemoteServeClient:
     package's — same frames).  Every read is bounded by ``timeout``
     (default ``BYTEPS_SERVE_CLIENT_TIMEOUT_MS``); a dead or stalled
     frontend raises :class:`ServeConnectionError`.  One in-flight call
-    per client (it holds the connection)."""
+    per client (it holds the connection); :meth:`cancel` uses a
+    connection of its own.  ``transport`` (default
+    ``BYTEPS_TRANSPORT``) must be ``auto`` or ``tcp``.  One address: the
+    router tier's multi-address failover is not ported yet."""
 
-    def __init__(self, addr: str, timeout: Optional[float] = None):
-        from ..common.config import get_config
+    def __init__(self, addr: str, timeout: Optional[float] = None,
+                 transport: Optional[str] = None):
+        from ..common.config import check_transport, get_config
 
+        cfg = get_config()
+        check_transport(transport or cfg.transport)
         self.addr = str(addr).strip()
-        host, _, port = self.addr.rpartition(":")
+        if "," in self.addr:
+            raise NotImplementedError(
+                f"a multi-address client ({self.addr!r}) fails over "
+                f"between routers, which this port does not have yet; "
+                f"give one address")
         self.timeout = (timeout if timeout is not None
-                        else get_config().serve_client_timeout_ms / 1e3)
+                        else cfg.serve_client_timeout_ms / 1e3)
         self._lock = threading.Lock()
         self._poisoned = False
-        self._sock = socket.create_connection((host, int(port)),
-                                              timeout=self.timeout)
-        self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._sock = _connect(self.addr, self.timeout)
 
     def _send(self, frame: bytes) -> None:
         if self._poisoned:
@@ -280,34 +559,69 @@ class RemoteServeClient:
                 f"({type(e).__name__}: {e}); timeout={self.timeout}s"
             ) from e
         if status != 0:
-            msg = bytes(payload).decode()
-            raise ServeReplyError(f"serve error: {msg!r}",
-                                  name=msg.split(":", 1)[0].strip())
+            raise _reply_error(payload)
         return rname, out, payload
 
-    def _rpc(self, op: int):
+    def _rpc(self, op: int, name: str = ""):
         with self._lock:
-            self._send(_encode(op, "", None))
+            self._send(_encode(op, name, None))
             return self._read_frame()
 
+    @staticmethod
+    def _extra(epoch, rid, tenant, extra=None, slo=None) -> Optional[dict]:
+        out = dict(extra) if extra else {}
+        for k, v in (("epoch", epoch), ("rid", rid), ("tenant", tenant),
+                     ("slo", slo)):
+            if v is not None:
+                out[k] = v
+        return out or None
+
     def generate(self, prompt, max_new_tokens: int, *, seed: int = 0,
-                 priority: int = 0, resume=None) -> np.ndarray:
-        """Blocking submit -> the full token array."""
+                 priority: int = 0, resume=None, epoch=None, rid=None,
+                 tenant=None, slo=None, extra=None) -> np.ndarray:
+        """Blocking submit -> the full token array.  ``epoch``, ``rid``,
+        ``tenant`` and ``slo`` ride the frame as the JAX client sends
+        them; ``extra`` merges more wire params (a disagg decode leg's
+        ``kv_ship``)."""
         with self._lock:
-            self._send(_submit_frame(OP_SUBMIT, prompt, max_new_tokens,
-                                     seed, priority, resume))
+            self._send(_submit_frame(
+                OP_SUBMIT, prompt, max_new_tokens, seed, priority, resume,
+                self._extra(epoch, rid, tenant, extra, slo)))
             _, out, _ = self._read_frame()
         return np.array(out)
 
+    def prefill_ship(self, prompt, *, seed: int = 0, priority: int = 0,
+                     ship_to: str, kv_ship: str, epoch=None, rid=None,
+                     tenant=None):
+        """A disagg prefill leg: submit the prompt for one token with
+        ``ship_to`` and ``kv_ship``; the frontend prefills, parks and
+        ships the KV to ``ship_to`` under ``kv_ship``, and replies with
+        the first token and the ship report.  Returns ``(tokens,
+        info)``; ``info["shipped"]`` False is a downgrade (the tokens
+        are valid, the decode side re-prefills)."""
+        with self._lock:
+            self._send(_submit_frame(
+                OP_SUBMIT, prompt, 1, seed, priority, None,
+                self._extra(epoch, rid, tenant,
+                            {"ship_to": str(ship_to),
+                             "kv_ship": str(kv_ship)})))
+            rname, out, _ = self._read_frame()
+        info = (json.loads(rname) if rname.startswith("{")
+                else {"shipped": False, "error": "no ship report"})
+        return np.array(out), info
+
     def stream(self, prompt, max_new_tokens: int, *, seed: int = 0,
-               priority: int = 0, resume=None):
-        """Token iterator over OP_STREAM.  Abandoning it mid-stream
+               priority: int = 0, resume=None, epoch=None, rid=None,
+               tenant=None, slo=None, extra=None):
+        """Token iterator over OP_STREAM (``resume``: tokens already
+        emitted; only new ones stream back).  Abandoning it mid-stream
         poisons the client (later calls raise)."""
         with self._lock:
             in_flight = False
             try:
-                self._send(_submit_frame(OP_STREAM, prompt, max_new_tokens,
-                                         seed, priority, resume))
+                self._send(_submit_frame(
+                    OP_STREAM, prompt, max_new_tokens, seed, priority,
+                    resume, self._extra(epoch, rid, tenant, extra, slo)))
                 in_flight = True
                 while True:
                     try:
@@ -323,6 +637,21 @@ class RemoteServeClient:
             finally:
                 if in_flight:
                     self._poisoned = True
+
+    def cancel(self, rid: str, epoch=None) -> bool:
+        """OP_CANCEL of the in-flight request submitted with ``rid=``, on
+        a fresh connection (the streaming one is busy).  Returns whether
+        a live request was found."""
+        params = {"rid": str(rid)}
+        if epoch is not None:
+            params["epoch"] = int(epoch)
+        return _wire_cancel(self.addr, params, self.timeout)
+
+    def journal(self, entries: list) -> dict:
+        """A router-HA journal push (OP_JOURNAL), which only a router
+        takes: a serve frontend refuses it ("bad op 5")."""
+        _, _, payload = self._rpc(OP_JOURNAL, json.dumps(entries))
+        return json.loads(bytes(payload).decode()) if payload else {}
 
     def stats(self) -> dict:
         _, _, payload = self._rpc(OP_STATS)

@@ -1,9 +1,10 @@
 """Serving metrics — the port of ``byteps_tpu/serving/metrics.py``
 (the counters the paged engine bumps — requests, tokens, prefill,
-prefix reuse, speculation, preemption — TTFT/TPOT/queue-wait
-histograms, KV block gauges), registry-backed by the port's
-``observability/metrics.py``.  Counter names are the JAX package's, so
-a STATS reply reads the same from either engine.
+prefix reuse, speculation, preemption, disaggregated KV ships —
+TTFT/TPOT/queue-wait/ship histograms, KV block gauges),
+registry-backed by the port's ``observability/metrics.py``.  Counter
+names are the JAX package's, so a STATS reply reads the same from
+either engine.
 """
 
 from __future__ import annotations
@@ -57,6 +58,13 @@ QUEUE_WAIT_S = "serve.queue_wait_s"
 TTFT_S = "serve.ttft_s"
 TPOT_S = "serve.tpot_s"
 PREFILL_CREDITS = "serve.prefill_credits"
+# disaggregated prefill/decode (serving/disagg): KV blocks a prefill
+# replica shipped over OP_KV_BLOCKS, their payload bytes (framing
+# excluded, so the counter divides into block_bytes exactly), and the
+# per-request ship latency (extract -> last ack, seconds)
+KV_BLOCKS_SHIPPED = "serve.kv_blocks_shipped"
+KV_BLOCKS_SHIPPED_BYTES = "serve.kv_blocks_shipped_bytes"
+SHIP_LATENCY_S = "serve.ship_latency_s"
 
 
 class ServeMetrics:
@@ -64,7 +72,8 @@ class ServeMetrics:
     ``registry=None`` builds a private registry (isolated counting);
     :func:`get_serve_metrics` binds the process-global one."""
 
-    _HIST = {"queue_wait": QUEUE_WAIT_S, "ttft": TTFT_S, "tpot": TPOT_S}
+    _HIST = {"queue_wait": QUEUE_WAIT_S, "ttft": TTFT_S, "tpot": TPOT_S,
+             "ship": SHIP_LATENCY_S}
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
         self._registry = (registry if registry is not None
@@ -122,7 +131,7 @@ class ServeMetrics:
     def summary(self) -> Dict[str, object]:
         """Counters plus latency percentiles (seconds)."""
         out: Dict[str, object] = dict(self.snapshot())
-        for label in ("queue_wait", "ttft", "tpot"):
+        for label in ("queue_wait", "ttft", "tpot", "ship"):
             h = self._hist(label)
             out[f"{label}_p50_s"] = h.percentile(50)
             out[f"{label}_p99_s"] = h.percentile(99)

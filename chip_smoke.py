@@ -161,6 +161,31 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    slot's bits independent of the others' positions and within the
    limit of a one-slot launch.  TTFT/TPOT p50/p99, tokens/s, the gather
    buckets used.
+6i. Disagg serve (the main path of the serve replica's wire slice) —
+   first phase 3's fp32 model on a prefill replica and a decode replica
+   (two paged engines, two ``ServeFrontend``s): exactly the greedy
+   tokens of one colocated paged engine.  Then phase 4's model and
+   traffic: each of the 8 requests, all at once, runs
+   ``prefill_ship(prompt, ship_to=decode, kv_ship=key)`` on the prefill
+   replica (the first token; the prompt's KV shipped block by block over
+   OP_KV_BLOCKS) and then ``stream(prompt, 32, resume=[first],
+   kv_ship=key)`` on the decode replica, which adopts the staged blocks
+   in place of a prefill.  Three pairs: bf16 pools of phase 4's 1025
+   blocks, int8 pools at 513 MiB, and a tp=2 prefill replica shipping to
+   a tp=1 decode replica (tokens identical to the tp=1 pair).  Each:
+   every ship whole; sum(ceil(T / 16)) = 130 blocks of the pool's
+   block_bytes shipped by the prefill replica (bf16 68,157,440 bytes,
+   int8 36,208,640) and none by the decode replica; no prefill on the
+   decode replica; paged launches = its decode ticks x 16, no plain
+   call; both pools back at their base; the decode replica's first
+   paged-attention call at each tick that brings a request live for the
+   first time (every adopted ship's first decode, the last to arrive
+   included) held to the plain version after the run at phase 5's
+   limits (a call on the same inputs bit-identical).  bf16 against phase 4's stream and int8 against 6h's
+   colocated int8 kernel run: identical or not "real".  Ship ms p50/p99
+   (STATS "ship"), MB/s, extract ms, TTFT with the ship, the decode
+   replica's TPOT and tokens/s beside phase 4's, and a PING round trip
+   (p50 of 100).
 7. Training reference — a small fp32 Llama-shaped model (2 layers,
    d_model 256, 4 heads over 2 KV heads, head_dim 64, vocab 1024), B=2,
    T=256: 3 ``Trainer.fit`` steps with ``attn_impl="flash"`` (the
@@ -409,7 +434,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    way at M = 4 and 1024, phase 13f's decode and prefill rows.
 
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels":
-[...]}`` JSON object (each decode entry with a ``device_pos`` record of
+[...]}`` JSON object (the paged entry with phase 6i's launches and held
+calls; each decode entry with a ``device_pos`` record of
 its own mode: phase 16's device-form cases and times, and the launches
 of the dense serve phase's flat run on that cache; the bf16 entry also
 the launches of phase 15b's beam search and speculative draft, the int8
@@ -1840,8 +1866,9 @@ def _quant_controls(torch, args, ref) -> dict:
 
 class _PathCalls:
     """The first call of each shape a main path makes to the kernels the
-    model calls (row 7's ``decode_attention``, row 1's ``flash_attention``
-    and row 9's ``quant_linear``, through ``models.transformer``'s names,
+    model calls (row 7's ``decode_attention``, row 1's ``flash_attention``,
+    row 9's ``quant_linear`` and row 8's ``paged_attention``, through
+    ``models.transformer``'s names,
     and rows 4-6's ``fused_linear_cross_entropy`` in its module, which the
     LM loss binds when it is built), its inputs and output
     copied; under autograd, the gradients that reach the call's output
@@ -1849,14 +1876,18 @@ class _PathCalls:
     dx / dW, its backward kernels computed).  :meth:`hold` then holds
     those outputs and gradients, and the wrapper called again on the same
     inputs, to the plain versions.  Recording launches nothing, so the
-    counts stay the main path's."""
+    counts stay the main path's.  ``tag``, when a caller sets it, joins
+    each call's key: the first call of each shape under each tag is
+    recorded."""
+
+    tag = None
 
     def __init__(self):
         from byteps_tpu_torch.models import transformer as tm
         from byteps_tpu_torch.ops import fused_cross_entropy as fce_mod
 
         self.targets = [(tm, "decode_attention"), (tm, "flash_attention"),
-                        (tm, "quant_linear"),
+                        (tm, "quant_linear"), (tm, "paged_attention"),
                         (fce_mod, "fused_linear_cross_entropy")]
 
     def __enter__(self):
@@ -1888,7 +1919,8 @@ class _PathCalls:
         def call(*args, **kw):
             out = fn(*args, **kw)
             key = (name, tuple(map(sig, args)),
-                   tuple(sorted((k, sig(v)) for k, v in kw.items())))
+                   tuple(sorted((k, sig(v)) for k, v in kw.items())),
+                   self.tag)
             if key not in self.calls:
                 grads = {}
                 self.calls[key] = (name, [copy(a) for a in args],
@@ -1907,7 +1939,9 @@ class _PathCalls:
     def hold(self, torch) -> list:
         """Each recorded call: its output against the plain version at
         phase 16's limits for row 7 (bf16 q: ulps of each row's largest;
-        fp32: absolute), phase 9's for row 1 (relative to the largest
+        fp32: absolute), phase 5's for row 8 (fp32 1e-4, bf16 2e-2
+        absolute; the int8 mode with a bf16 q 2 bf16 ulps of each row's
+        largest), phase 9's for row 1 (relative to the largest
         |o|, and for a backward the largest |dq|, |dk|, |dv|), for row 9
         two bf16 ulps of the largest |out| (fp32 1e-5 of it)
         and phase 13's for rows 4-6 (loss 1e-5 relative, dx / dW 2e-2 of
@@ -1919,6 +1953,7 @@ class _PathCalls:
         from byteps_tpu_torch.ops import decode_attention as da
         from byteps_tpu_torch.ops import flash_attention as fa
         from byteps_tpu_torch.ops import fused_cross_entropy as fce
+        from byteps_tpu_torch.ops import paged_attention as pa
         from byteps_tpu_torch.ops import quant_dot as qd
 
         def rel(out, ref, floor):
@@ -1937,6 +1972,16 @@ class _PathCalls:
                             if bf16 else
                             ((got.float() - ref.float()).abs().max()
                              .item(), 1e-4))
+            elif name == "paged_attention":
+                def call(*a):
+                    return pa.paged_attention(*a, **kw)
+                ref = pa.paged_attention_reference(*args, **kw)
+                if bf16 and kw.get("k_scale") is not None:
+                    err, tol = _row_ulps(torch, got, ref), INT8_BF16_ULPS
+                else:
+                    err = (got.float() - ref.float()).abs().max().item()
+                    tol = 2e-2 if bf16 else 1e-4
+                extra["pos"] = args[4].tolist()
             elif name == "quant_linear":
                 def call(*a):
                     return qd.quant_linear(*a, **kw)
@@ -2189,7 +2234,8 @@ def gather_serve_phase(torch, seed: int, paged_results) -> tuple:
         buckets = sorted(eng.gather_buckets)
         # row 7 on this run's gathered rows, one held call a bucket
         held = path.hold(torch)
-        rows = sorted(h["shapes"][1][1] // BLOCK for h in held)
+        rows = sorted(h["shapes"][1][1] // BLOCK for h in held
+                      if h["kernel"] == "decode_attention")
         if rows != (buckets if want_dec else []):
             raise AssertionError(f"gather {name}: held decode calls at "
                                  f"{rows} blocks, buckets {buckets}")
@@ -2218,7 +2264,265 @@ def gather_serve_phase(torch, seed: int, paged_results) -> tuple:
             **{n: r[1] for n, r in runs.items()}}
     del model
     torch.cuda.empty_cache()
-    return info, runs["int8"][1]["launches"]
+    return info, runs["int8"][1]["launches"], runs["int8_kernel"][0]
+
+
+# ---------------------------------------------------------- disagg serve
+
+DISAGG_POOLS = (("bf16", dict(kv_blocks=1025), {}),
+                ("int8", dict(kv_mb=TIERS_KV_MB, kv_dtype="int8"), {}),
+                ("tp2_to_tp1", dict(kv_blocks=1025), dict(tp=2)))
+PING_CALLS = 100
+
+
+def _pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, float), q))
+
+
+def _disagg_run(torch, model, prompts, new, pool, prefill_over, n_slots,
+                max_seq, path=None):
+    """A prefill replica and a decode replica (two paged engines on
+    ``model``, pools ``pool``, the prefill one also ``prefill_over``)
+    behind two ServeFrontends; every prompt at once runs its two client
+    legs: ``prefill_ship`` (first token, KV shipped to the decode
+    replica) then ``stream(resume=[first], kv_ship=key)`` there.  The
+    kernel counts are set to 0 just before and read just after.  Checks:
+    every ship whole, sum(ceil(T / block)) blocks of the pool's
+    block_bytes shipped by the prefill replica and none by the decode
+    replica, no prefill on the decode replica, paged launches = its
+    decode ticks x layers (none on the prefill replica), no plain call,
+    both pools back at their base.  With a recorder ``path``, each
+    decode tick at which a request is live for the first time tags its
+    calls with the count of requests seen live so far, so every adopted
+    ship's first decode is recorded.  Returns the tokens and the line."""
+    from byteps_tpu_torch.ops import paged_attention as pa
+    from byteps_tpu_torch.serving import (RemoteServeClient, ServeMetrics,
+                                          ServingEngine, serve)
+    from byteps_tpu_torch.serving import metrics as sm
+
+    import numpy as np
+
+    engines = [ServingEngine(model, n_slots=n_slots, max_seq=max_seq,
+                             paged=True, block=BLOCK, device="cuda",
+                             metrics=ServeMetrics(), **pool, **over)
+               for over in (prefill_over, {})]
+    pre, dec = engines
+    if path is not None:
+        seen, tick = set(), dec._decode_tick
+
+        def tagged(active):
+            seen.update(dec._slot_req[s].id for s in active
+                        if dec._slot_req[s] is not None)
+            path.tag = len(seen)
+            return tick(active)
+
+        dec._decode_tick = tagged
+    if not all(t.is_cuda for e in engines for layer in e.pool.caches
+               for t in layer.values()):
+        raise AssertionError("KV pool is not on the GPU")
+    base = [e.pool.alloc.used_count for e in engines]
+    srvs = [serve(e, 0, host="127.0.0.1", in_thread=True) for e in engines]
+    addrs = [f"127.0.0.1:{s.server_address[1]}" for s, _ in srvs]
+    results = [None] * len(prompts)
+    legs = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        try:
+            t0 = time.perf_counter()
+            c = RemoteServeClient(addrs[0], timeout=600)
+            try:
+                first, info = c.prefill_ship(prompts[i], ship_to=addrs[1],
+                                             kv_ship=f"ship{i}")
+            finally:
+                c.close()
+            ttft = time.perf_counter() - t0
+            d = RemoteServeClient(addrs[1], timeout=600)
+            try:
+                rest = list(d.stream(prompts[i], new,
+                                     resume=[int(first[0])],
+                                     extra={"kv_ship": f"ship{i}"}))
+            finally:
+                d.close()
+            results[i] = np.asarray([int(first[0])] + rest, np.int32)
+            legs[i] = (ttft, info)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        pa.launches = pa.plain_calls = 0
+        t1 = time.perf_counter()
+        workers = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches, plain = pa.launches, pa.plain_calls
+        if errors:
+            raise errors[0]
+        if any(w.is_alive() for w in workers):
+            raise AssertionError("a disagg request did not finish")
+        c = RemoteServeClient(addrs[0], timeout=60)
+        stats = c.stats()
+        pings = []
+        for _ in range(PING_CALLS):
+            t0 = time.perf_counter()
+            if not c.ping():
+                raise AssertionError("PING failed")
+            pings.append((time.perf_counter() - t0) * 1e3)
+        c.close()
+    finally:
+        for s, t in srvs:
+            s.shutdown()
+            s.server_close()
+            t.join(timeout=30)
+    L = model.cfg.num_layers
+    infos = [info for _, info in legs]
+    if not all(i.get("shipped") for i in infos):
+        raise AssertionError(f"disagg: not every ship was whole: {infos}")
+    want_blocks = sum(-(-len(p) // BLOCK) for p in prompts)
+    shipped = pre.metrics.get(sm.KV_BLOCKS_SHIPPED)
+    nbytes = pre.metrics.get(sm.KV_BLOCKS_SHIPPED_BYTES)
+    counts = [e.step_counts() for e in engines]
+    if (shipped != want_blocks or nbytes != want_blocks * dec.pool.block_bytes
+            or sum(i["blocks"] for i in infos) != want_blocks
+            or dec.metrics.get(sm.KV_BLOCKS_SHIPPED)):
+        raise AssertionError(f"disagg: {shipped} blocks / {nbytes} bytes "
+                             f"shipped, want {want_blocks} blocks of "
+                             f"{dec.pool.block_bytes}")
+    if (dec.metrics.get(sm.PREFILL_TOKENS) or counts[1]["prefill_chunks"]
+            or counts[0]["decode_ticks"]):
+        raise AssertionError(f"disagg: the decode replica prefilled or the "
+                             f"prefill replica decoded: {counts}")
+    if launches != counts[1]["decode_ticks"] * L or plain or not launches:
+        raise AssertionError(f"disagg: {launches} paged launches for "
+                             f"{counts[1]['decode_ticks']} decode ticks, "
+                             f"{plain} plain calls")
+    used = [e.pool.alloc.used_count for e in engines]
+    if used != base:
+        raise AssertionError(f"disagg: pools at {used} blocks, base {base}")
+    for r in results:
+        if r.shape != (new,) or r.min() < 0 or r.max() >= model.cfg.vocab_size:
+            raise AssertionError(f"disagg: bad result {r}")
+    summ = dec.metrics.summary()
+    ttfts = [t * 1e3 for t, _ in legs]
+    line = {"pools": {"prefill": pre.pool.block_stats(),
+                      "decode": dec.pool.block_stats(),
+                      "prefill_tp": pre.tp, "decode_tp": dec.tp},
+            "requests": len(prompts), "shipped": len(infos),
+            "blocks": shipped, "bytes": nbytes, "launches": launches,
+            "decode_ticks": counts[1]["decode_ticks"],
+            "step_counts": {"prefill": counts[0], "decode": counts[1]},
+            "ship_p50_ms": stats["ship_p50_s"] * 1e3,
+            "ship_p99_ms": stats["ship_p99_s"] * 1e3,
+            "ship_n": stats["ship_n"],
+            "ship_mb_per_s_p50": _pct([i["bytes"] / i["ms"] / 1e3
+                                       for i in infos], 50),
+            "extract_ms_p50": _pct([i["extract_ms"] for i in infos], 50),
+            "extract_ms_max": max(i["extract_ms"] for i in infos),
+            "ttft_with_ship_p50_ms": _pct(ttfts, 50),
+            "ttft_with_ship_p99_ms": _pct(ttfts, 99),
+            "decode_tpot_p50_ms": summ["tpot_p50_s"] * 1e3,
+            "decode_tpot_p99_ms": summ["tpot_p99_s"] * 1e3,
+            "wall_s": wall, "tokens_per_s": new * len(prompts) / wall,
+            "ping_p50_ms": _pct(pings, 50)}
+    del engines, pre, dec
+    torch.cuda.empty_cache()
+    return results, line
+
+
+def disagg_reference_phase(torch, seed: int) -> dict:
+    """Phase 3's fp32 model: the disaggregated pair (prefill ships, decode
+    adopts) gives exactly the greedy tokens of one colocated paged
+    engine on the same prompts."""
+    import numpy as np
+
+    from byteps_tpu_torch.serving import ServeMetrics, ServingEngine
+
+    model = _ref_model(torch, seed)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, model.cfg.vocab_size, size=(n,)).astype(
+        np.int32) for n in (20, 37, 64, 90)]
+    n_new = 16
+    eng = ServingEngine(model, n_slots=4, max_seq=256, paged=True,
+                        block=BLOCK, device="cuda", metrics=ServeMetrics())
+    reqs = [eng.submit(p, n_new) for p in prompts]
+    eng.drain(timeout=300)
+    want = [r.result() for r in reqs]
+    got, line = _disagg_run(torch, model, prompts, n_new, {}, {}, 4, 256)
+    if any(not np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"disagg fp32 tokens {got} != colocated "
+                             f"{want}")
+    return {"phase": "disagg_reference", "tokens_identical": True,
+            "blocks": line["blocks"], "launches": line["launches"],
+            "decode_ticks": line["decode_ticks"]}
+
+
+def disagg_serve_phase(torch, seed: int, paged_results, int8_results):
+    """The main path of the serve replica's wire slice: phase 4's model
+    and traffic, disaggregated — bf16 pools of phase 4's 1025 blocks, int8
+    pools at 513 MiB, and a tp=2 prefill replica shipping to a tp=1
+    decode replica (tokens identical to the tp=1 pair).  The decode
+    replica's first paged-attention call of each shape at each tick that
+    brings a request live for the first time (every adopted ship, the
+    512-token one and the tp=2 rows included) is recorded and held to
+    the plain version after each run.  bf16 against phase 4's
+    colocated stream, int8 against the colocated int8 kernel run of 6h:
+    identical or not "real"."""
+    import numpy as np
+
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16)
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
+    init_weights(model, seed)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    runs = {}
+    for name, pool, prefill_over in DISAGG_POOLS:
+        with _PathCalls() as path:
+            results, line = _disagg_run(torch, model, prompts, NEW_TOKENS,
+                                        pool, prefill_over, N_SLOTS,
+                                        MAX_SEQ, path)
+        line["held"] = path.hold(torch)
+        tags = sorted(k[-1] for k in path.calls)
+        if ({h["kernel"] for h in line["held"]} != {"paged_attention"}
+                or tags[-1] != len(prompts)):
+            raise AssertionError(f"disagg {name}: held {line['held']} at "
+                                 f"request counts {tags}")
+        line["held_at_live_requests"] = tags
+        runs[name] = (results, line)
+    for a, b in zip(runs["bf16"][0], runs["tp2_to_tp1"][0]):
+        if not np.array_equal(a, b):
+            raise AssertionError("disagg tp2 -> tp1 != tp1 -> tp1")
+    info = {"phase": "disagg_serve",
+            "model": "Llama-3.2-1B (random weights)",
+            "source": "meta-llama/Llama-3.2-1B config.json",
+            "reduced": {"max_seq": [131072, MAX_SEQ]}, "dtype": "bfloat16",
+            "slots": N_SLOTS, "prompt_lens": list(PROMPT_LENS),
+            "tp2_to_tp1_identical": True,
+            "bf16_vs_colocated": _not_real(torch, model, prompts,
+                                           paged_results, runs["bf16"][0],
+                                           "disagg bf16 vs phase 4"),
+            "int8_vs_colocated": _not_real(torch, model, prompts,
+                                           int8_results, runs["int8"][0],
+                                           "disagg int8 vs 6h's kernel run"),
+            "nvidia_smi": _smi(),
+            **{n: r[1] for n, r in runs.items()}}
+    del model
+    torch.cuda.empty_cache()
+    return info
 
 
 # -------------------------------------------------------------- training
@@ -4579,9 +4883,16 @@ def main() -> int:
     _line(dense_info)
     _line(dense_tiers_reference_phase(torch, args.seed))
     _line(dense_tiers_serve_phase(torch, args.seed))
-    gather_info, gather_launches = gather_serve_phase(torch, args.seed,
-                                                      paged_results)
+    gather_info, gather_launches, int8_results = gather_serve_phase(
+        torch, args.seed, paged_results)
     _line(gather_info)
+    _line(disagg_reference_phase(torch, args.seed))
+    disagg_info = disagg_serve_phase(torch, args.seed, paged_results,
+                                     int8_results)
+    disagg_info["phase4_tpot_p50_ms"] = serve_info["run1"]["tpot_p50_ms"]
+    disagg_info["phase4_tpot_p99_ms"] = serve_info["run1"]["tpot_p99_ms"]
+    disagg_info["phase4_tokens_per_s"] = serve_info["run1"]["tokens_per_s"]
+    _line(disagg_info)
     _line(train_reference_phase(torch, args.seed))
     train_info, flash_launches, _ = train_phase(torch, args.seed)
     train_info["nvidia_smi"] = _smi()
@@ -4673,7 +4984,14 @@ def main() -> int:
         "ms": paged_main["kernel_ms"], "plain_ms": paged_main["plain_ms"],
         "bound_ms": paged_main["bound_ms"],
         "bound_by": paged_main["bound_by"],
-        "library_ms": paged_main["library_ms"]}]
+        "library_ms": paged_main["library_ms"],
+        # this slice's path: the decode replica of phase 6i's pairs
+        "disagg_launches": {name: disagg_info[name]["launches"]
+                            for name, _, _ in DISAGG_POOLS},
+        # per run: the int8 mode's limit is in ulps, the bf16 one's not
+        "disagg_held_on_path": {name: held(disagg_info[name]["held"],
+                                           "paged_attention")
+                                for name, _, _ in DISAGG_POOLS}}]
     for kname, run, ms, err in (
             ("paged_attention_int8", tiers_tp1, "kernel_ms", "max_err"),
             ("paged_attention_int8_tp2", tiers_tp2, "tp2_ms", "tp2_max_err")):

@@ -42,7 +42,11 @@ and the shapes neither takes; the rule's choice held to the launches the
 library counts): bf16 within one bf16 ulp of the largest output (2^-7 of
 it: the same rounding points on both sides, fp32 sums in other orders),
 fp32 within 1e-5 of the largest output; reruns bit-identical (the swap
-design's splits merge in split order), its tickets back at zero.
+design's splits merge in split order), its tickets back at zero.  And
+the disaggregated KV ship between two CUDA engines: the adopted blocks
+give a colocated engine's tokens exactly (fp32), the paged launches are
+the decode replica's ticks x layers, both pools end at their base; and
+the ship's copies ordered after the writes queued on the default stream.
 """
 
 import numpy as np
@@ -1161,3 +1165,108 @@ def test_new_wrappers_raise_on_mixed_devices():
         qd.quant_linear(x, w.cpu(), scale)
     with pytest.raises(ValueError, match="one CUDA device"):
         qd.quant_linear(x.cpu(), w, scale)
+
+
+@pytest.mark.cuda
+def test_disagg_ship_and_adoption_on_the_card():
+    """Two CUDA paged engines (tiny fp32 model) behind two frontends: each
+    prompt's prefill leg ships its KV to the decode replica, whose resume
+    leg adopts the blocks.  Tokens equal a colocated engine's; paged
+    launches = the decode replica's ticks x layers (the prefill replica
+    never decodes); both pools back at their base."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.serving import (RemoteServeClient, ServeMetrics,
+                                          ServingEngine, serve)
+
+    cfg = TransformerConfig(vocab_size=97, num_layers=2, num_heads=4,
+                            num_kv_heads=2, d_model=64, d_ff=128,
+                            max_seq_len=128, dtype=torch.float32)
+    model = Transformer(cfg, device="cuda")
+    init_weights(model, 3)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 97, size=(n,)).astype(np.int32)
+               for n in (16, 23, 40)]
+
+    def engine():
+        return ServingEngine(model, n_slots=4, max_seq=128, paged=True,
+                             block=16, device="cuda", metrics=ServeMetrics())
+
+    solo = engine()
+    reqs = [solo.submit(p, 12) for p in prompts]
+    solo.drain(timeout=120)
+    want = [r.result().tolist() for r in reqs]
+    engines = [engine(), engine()]
+    base = [e.pool.alloc.used_count for e in engines]
+    srvs = [serve(e, 0, host="127.0.0.1", in_thread=True) for e in engines]
+    addrs = [f"127.0.0.1:{s.server_address[1]}" for s, _ in srvs]
+    try:
+        ticks0 = engines[1].decode_ticks
+        before = pa.launches
+        got = []
+        for i, p in enumerate(prompts):
+            c = RemoteServeClient(addrs[0], timeout=120)
+            first, info = c.prefill_ship(p, ship_to=addrs[1],
+                                         kv_ship=f"s{i}")
+            c.close()
+            assert info["shipped"] and info["blocks"] == -(-len(p) // 16)
+            d = RemoteServeClient(addrs[1], timeout=120)
+            got.append([int(first[0])] + list(d.stream(
+                p, 12, resume=[int(first[0])], extra={"kv_ship": f"s{i}"})))
+            d.close()
+        torch.cuda.synchronize()
+        ticks = engines[1].decode_ticks - ticks0
+        assert got == want
+        assert engines[0].decode_ticks == 0
+        assert engines[1].step_counts()["prefill_chunks"] == 0
+        assert ticks > 0 and pa.launches - before == ticks * cfg.num_layers
+        assert [e.pool.alloc.used_count for e in engines] == base
+    finally:
+        for s, t in srvs:
+            s.shutdown()
+            s.server_close()
+            t.join(timeout=30)
+
+
+@pytest.mark.cuda
+def test_ship_copies_wait_for_writes_queued_on_the_tick_stream():
+    """A block freed while a K/V write into it is still queued on the
+    default stream (a prefill chunk's, its request then cancelled) and
+    staged at once for a ship: the ship's write lands after the queued
+    one, never under it; and a parked block's extract reads what the
+    default stream queued before it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig)
+    from byteps_tpu_torch.serving import ServingEngine
+
+    cfg = TransformerConfig(vocab_size=97, num_layers=2, num_heads=4,
+                            num_kv_heads=2, d_model=64, d_ff=128,
+                            max_seq_len=128, dtype=torch.float32)
+    e = ServingEngine(Transformer(cfg, device="cuda"), n_slots=2,
+                      max_seq=128, paged=True, block=16, device="cuda")
+    nbytes = sum(int(np.prod(shape)) * dt.itemsize
+                 for layer in e.kv_block_schema() for _, shape, dt in layer)
+    rows = torch.randn(nbytes // 4).view(torch.uint8).reshape(1, nbytes)
+    [bid] = e.stage_alloc(1)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)         # ~0.1 s of the default stream
+    for layer in e.pool.caches:
+        for c in layer.values():
+            c[bid].fill_(7.0)
+    e.release_kv_ids([bid])
+    assert e.stage_alloc(1) == [bid]
+    e.write_kv_payloads([bid], rows)
+    torch.cuda.synchronize()
+    assert torch.equal(e.extract_kv_payloads([bid]), rows)
+    torch.cuda._sleep(200_000_000)
+    for layer in e.pool.caches:
+        for c in layer.values():
+            c[bid].fill_(3.0)
+    got = e._split_rows(e.extract_kv_payloads([bid]))
+    assert all(bool((t == 3.0).all()) for layer in got for t in layer.values())
+    e.release_kv_ids([bid])

@@ -223,10 +223,13 @@ def _no_jax_child(code: str, env=None) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module, the BERT models and the HF integrations
-    included; none of them imports ``transformers``."""
+    """Every port module, the BERT models, the HF integrations and the
+    disaggregated KV ship included; none of them imports
+    ``transformers``."""
     proc = _no_jax_child(
         "import byteps_tpu_torch, byteps_tpu_torch.serving\n"
+        "import byteps_tpu_torch.serving.disagg\n"
+        "import byteps_tpu_torch.serving.disagg.ship\n"
         "import byteps_tpu_torch.models.convert, byteps_tpu_torch.launcher\n"
         "import byteps_tpu_torch.inference, byteps_tpu_torch.engine.wire\n"
         "import byteps_tpu_torch.training, byteps_tpu_torch.api\n"

@@ -5,9 +5,11 @@ Only the knobs the ported slices read are carried over, under the same
 ``BYTEPS_*`` / ``DMLC_*`` environment names so one environment drives
 either package: the logging pair ``common/logging.py`` needs, the
 ``BYTEPS_SERVE_*`` knobs ``serving/frontend.py:serve_from_env`` reads,
-the ``BYTEPS_DISAGG_*`` knobs of the disaggregated KV ship, and the
-worker knobs ``api.init``, ``training.Trainer`` and
-``make_data_parallel_step`` read.  Knobs naming features the port does
+the ``BYTEPS_DISAGG_*`` knobs of the disaggregated KV ship, the router
+tier's ``BYTEPS_ROUTER_*``, ``BYTEPS_DISAGG``, ``BYTEPS_SLO_*`` and
+``BYTEPS_AUTOSCALE_*`` knobs with ``BYTEPS_HEARTBEAT_TIMEOUT_MS`` (the
+router's ping bound), and the worker knobs ``api.init``,
+``training.Trainer`` and ``make_data_parallel_step`` read.  Knobs naming features the port does
 not have yet (checkpoints, a multi-worker world, async PS, the Unix
 socket and shared-memory transports) are still parsed, so that a
 non-default value is refused loudly instead of ignored.
@@ -99,6 +101,58 @@ class Config:
     serve_tp: int = 1             # BYTEPS_TP: KV-head shards of the pool
     serve_client_timeout_ms: float = 300_000.0
 
+    # --- the router's ping / STATS bound (resilience heartbeat) -------
+    heartbeat_timeout_ms: float = 1_000.0  # per-ping connect/read bound
+
+    # --- serving router (serving/router.py) ----------------------------
+    router_port: int = 9100
+    router_replicas: str = ""     # "host:port,host:port" serve replicas
+    router_credits: int = 16      # max in-flight requests per replica
+    router_affinity: bool = True  # prefix-affinity placement (False = RR)
+    router_affinity_block: int = 16  # leading tokens hashed for affinity
+    # a request that cannot complete on any replica within this fails
+    # typed (ReplicaLostError)
+    router_deadline_ms: float = 60_000.0
+    # no token from a replica leg within this => the leg is dead
+    router_stream_timeout_ms: float = 30_000.0
+    router_heartbeat_ms: float = 500.0   # replica health-check cadence
+    router_miss_threshold: int = 3       # consecutive misses => DEAD
+    # pinned weights fingerprint (hex); "" = first verified replica wins
+    router_weights_fp: str = ""
+    # router HA: priority-ordered router list (index 0 initially active)
+    # and this router's own entry in it; "" = a single router
+    router_peers: str = ""
+    router_self: str = ""
+    # takeover grace: re-ping the dead active this much later first
+    router_epoch_timeout_ms: float = 500.0
+    # per-tenant fair share "tenant=w,tenant=w"; "" = off
+    router_tenant_weights: str = ""
+    # per-replica roles "prefill,decode,both,...", positional with
+    # router_replicas; "" = every replica colocated ("both")
+    router_roles: str = ""
+    # disaggregated placement when a prefill replica exists; off = the
+    # prefill replicas are skipped (colocated decode-side prefill)
+    disagg: bool = True
+
+    # --- elastic capacity and SLO classes (serving/autoscale) ----------
+    autoscale: bool = False        # run the controller beside the router
+    autoscale_min: int = 1
+    autoscale_max: int = 4
+    autoscale_up: float = 0.8      # scale up above this normalized load
+    autoscale_down: float = 0.3    # scale down below it
+    autoscale_up_cooldown_ms: float = 5_000.0
+    autoscale_down_cooldown_ms: float = 15_000.0
+    autoscale_interval_ms: float = 1_000.0   # control-loop tick
+    autoscale_window_ms: float = 5_000.0     # signal window
+    autoscale_dry_run: bool = False  # log decisions without acting
+    slo_default: str = "standard"   # class of a request without slo=
+    # max estimated queue wait per class before the door sheds typed
+    # (guaranteed never sheds)
+    slo_standard_deadline_ms: float = 10_000.0
+    slo_best_effort_deadline_ms: float = 1_000.0
+    slo_service_estimate_ms: float = 500.0  # EWMA seed of service time
+    slo_borrow: bool = True   # lend idle tenant credits (clawed back)
+
     # --- disaggregated prefill/decode (serving/disagg) -----------------
     disagg_ship_timeout_ms: float = 10_000.0  # per-block ack deadline
     disagg_ship_retries: int = 2   # digest-refusal resends per block
@@ -148,6 +202,53 @@ class Config:
             serve_tp=_env_int("BYTEPS_TP", 1),
             serve_client_timeout_ms=_env_float(
                 "BYTEPS_SERVE_CLIENT_TIMEOUT_MS", 300_000.0),
+            heartbeat_timeout_ms=_env_float("BYTEPS_HEARTBEAT_TIMEOUT_MS",
+                                            1_000.0),
+            router_port=_env_int("BYTEPS_ROUTER_PORT", 9100),
+            router_replicas=_env_str("BYTEPS_ROUTER_REPLICAS", ""),
+            router_credits=_env_int("BYTEPS_ROUTER_CREDITS", 16),
+            router_affinity=_env_bool("BYTEPS_ROUTER_AFFINITY", True),
+            router_affinity_block=_env_int(
+                "BYTEPS_ROUTER_AFFINITY_BLOCK", 16),
+            router_deadline_ms=_env_float(
+                "BYTEPS_ROUTER_DEADLINE_MS", 60_000.0),
+            router_stream_timeout_ms=_env_float(
+                "BYTEPS_ROUTER_STREAM_TIMEOUT_MS", 30_000.0),
+            router_heartbeat_ms=_env_float(
+                "BYTEPS_ROUTER_HEARTBEAT_MS", 500.0),
+            router_miss_threshold=_env_int(
+                "BYTEPS_ROUTER_MISS_THRESHOLD", 3),
+            router_weights_fp=_env_str("BYTEPS_ROUTER_WEIGHTS_FP", ""),
+            router_peers=_env_str("BYTEPS_ROUTER_PEERS", ""),
+            router_self=_env_str("BYTEPS_ROUTER_SELF", ""),
+            router_epoch_timeout_ms=_env_float(
+                "BYTEPS_ROUTER_EPOCH_TIMEOUT_MS", 500.0),
+            router_tenant_weights=_env_str(
+                "BYTEPS_ROUTER_TENANT_WEIGHTS", ""),
+            router_roles=_env_str("BYTEPS_ROUTER_ROLES", ""),
+            disagg=_env_bool("BYTEPS_DISAGG", True),
+            autoscale=_env_bool("BYTEPS_AUTOSCALE"),
+            autoscale_min=_env_int("BYTEPS_AUTOSCALE_MIN", 1),
+            autoscale_max=_env_int("BYTEPS_AUTOSCALE_MAX", 4),
+            autoscale_up=_env_float("BYTEPS_AUTOSCALE_UP", 0.8),
+            autoscale_down=_env_float("BYTEPS_AUTOSCALE_DOWN", 0.3),
+            autoscale_up_cooldown_ms=_env_float(
+                "BYTEPS_AUTOSCALE_UP_COOLDOWN_MS", 5_000.0),
+            autoscale_down_cooldown_ms=_env_float(
+                "BYTEPS_AUTOSCALE_DOWN_COOLDOWN_MS", 15_000.0),
+            autoscale_interval_ms=_env_float(
+                "BYTEPS_AUTOSCALE_INTERVAL_MS", 1_000.0),
+            autoscale_window_ms=_env_float(
+                "BYTEPS_AUTOSCALE_WINDOW_MS", 5_000.0),
+            autoscale_dry_run=_env_bool("BYTEPS_AUTOSCALE_DRY_RUN"),
+            slo_default=_env_str("BYTEPS_SLO_DEFAULT", "standard"),
+            slo_standard_deadline_ms=_env_float(
+                "BYTEPS_SLO_STANDARD_DEADLINE_MS", 10_000.0),
+            slo_best_effort_deadline_ms=_env_float(
+                "BYTEPS_SLO_BEST_EFFORT_DEADLINE_MS", 1_000.0),
+            slo_service_estimate_ms=_env_float(
+                "BYTEPS_SLO_SERVICE_ESTIMATE_MS", 500.0),
+            slo_borrow=_env_bool("BYTEPS_SLO_BORROW", True),
             disagg_ship_timeout_ms=_env_float(
                 "BYTEPS_DISAGG_SHIP_TIMEOUT_MS", 10_000.0),
             disagg_ship_retries=_env_int("BYTEPS_DISAGG_SHIP_RETRIES", 2),

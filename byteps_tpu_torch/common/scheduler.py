@@ -1,6 +1,6 @@
 """Priority + credit scheduled queue — the port's copy of
 ``ScheduledQueue`` (``byteps_tpu/common/scheduler.py``), the subset the
-serving scheduler builds on.
+serving scheduler and the router's tenant credit pools build on.
 
 Semantics of reference ``scheduled_queue.{h,cc}``:
   * tasks kept sorted by (priority desc, key asc);
@@ -16,6 +16,7 @@ A task is any object with ``.priority``, ``.key``, ``.length`` and
 from __future__ import annotations
 
 import threading
+import time
 from typing import List, Optional
 
 from . import logging as bps_log
@@ -30,7 +31,8 @@ class ScheduledQueue:
         self._credits = (credit_bytes if scheduled and credit_bytes > 0
                          else UNLIMITED_CREDIT)
         self._queue: List = []
-        self._lock = threading.Lock()
+        # a condition, so debit_wait sleeps until credit()/report_finish
+        self._lock = threading.Condition()
         self.name = name
 
     def add_task(self, task) -> None:
@@ -76,6 +78,7 @@ class ScheduledQueue:
         with self._lock:
             if self._is_scheduled:
                 self._credits += task.length
+                self._lock.notify_all()
 
     def try_debit(self, n: int) -> bool:
         """Consume ``n`` credits for work granted outside the queue (a
@@ -94,6 +97,23 @@ class ScheduledQueue:
         with self._lock:
             if self._is_scheduled:
                 self._credits += n
+                self._lock.notify_all()
+
+    def debit_wait(self, n: int, timeout: float) -> bool:
+        """:meth:`try_debit`'s blocking form: wait up to ``timeout``
+        seconds for ``n`` credits and consume them (woken by
+        :meth:`credit` / :meth:`report_finish`).  False on timeout."""
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            if not self._is_scheduled:
+                return True
+            while n > self._credits:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._lock.wait(left)
+            self._credits -= n
+            return True
 
     def remove(self, task) -> bool:
         """Remove a still-pending task without granting it; False when

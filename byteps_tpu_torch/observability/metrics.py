@@ -1,14 +1,17 @@
 """Typed, thread-safe metrics registry — the port's subset of
-``byteps_tpu/observability/metrics.py`` that ``serving/metrics.py``
-needs: :class:`Counter`, :class:`Gauge`, :class:`Histogram` (fixed
-buckets plus a bounded reservoir for percentiles) and a get-or-create
-:class:`MetricsRegistry` with ``snapshot()``.
+``byteps_tpu/observability/metrics.py`` that ``serving/metrics.py``, the
+router tier and the resilience counters need: :class:`Counter`,
+:class:`Gauge`, :class:`Histogram` (fixed buckets plus a bounded
+reservoir for percentiles) and a get-or-create :class:`MetricsRegistry`
+keyed by name and static labels, with ``get``, ``remove`` and
+``snapshot()``.
 
 The JAX package mirrors every bump onto its chrome-trace ``Tracer`` and
-serves a Prometheus scrape; neither is ported in this slice, so the
-registry here stores values only.  ``snapshot()`` keeps the JAX layout
-(``{"counters", "gauges", "histograms"}`` keyed by name), which the
-serve frontend's STATS reply carries unchanged.
+serves a Prometheus scrape; neither is ported, so the registry here
+stores values only (a counter's or gauge's ``track``, its trace row in
+JAX, is accepted and ignored).  ``snapshot()`` keeps the JAX
+layout (``{"counters", "gauges", "histograms"}`` keyed by
+``name{label=value,...}``), which the STATS replies carry unchanged.
 """
 
 from __future__ import annotations
@@ -20,15 +23,31 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "get_registry"]
 
 
-class Counter:
-    """Monotonic counter."""
+class _Metric:
+    """Identity: the name and its static labels (``label_key`` is the
+    snapshot key, JAX's ``name{k=v,...}``)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None):
         self.name = name
+        self.labels = dict(labels or {})
+        if self.labels:
+            inner = ",".join(f"{k}={v}"
+                             for k, v in sorted(self.labels.items()))
+            self.label_key = f"{name}{{{inner}}}"
+        else:
+            self.label_key = name
         self._lock = threading.Lock()
+
+
+class Counter(_Metric):
+    """Monotonic counter (``inc``'s keyword arguments are the JAX
+    tracer's instant-event args, dropped here)."""
+
+    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None):
+        super().__init__(name, labels)
         self._value = 0
 
-    def inc(self, n: int = 1) -> int:
+    def inc(self, n: int = 1, **_args) -> int:
         with self._lock:
             self._value += n
             return self._value
@@ -39,12 +58,11 @@ class Counter:
             return self._value
 
 
-class Gauge:
+class Gauge(_Metric):
     """Last-written value."""
 
-    def __init__(self, name: str):
-        self.name = name
-        self._lock = threading.Lock()
+    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None):
+        super().__init__(name, labels)
         self._value = 0.0
 
     def set(self, value: float) -> None:
@@ -71,15 +89,14 @@ def _nearest_rank(vals: List[float], q: float) -> float:
     return vals[k]
 
 
-class Histogram:
+class Histogram(_Metric):
     """Cumulative-bucket histogram + ring reservoir of the most recent
     ``max_samples`` observations (percentiles come from the ring)."""
 
-    def __init__(self, name: str,
+    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None,
                  buckets: Optional[Tuple[float, ...]] = None,
                  max_samples: int = 4096):
-        self.name = name
-        self._lock = threading.Lock()
+        super().__init__(name, labels)
         self.buckets = tuple(sorted(buckets or _DEFAULT_BUCKETS))
         self._counts = [0] * (len(self.buckets) + 1)  # +inf bucket
         self._count = 0
@@ -131,38 +148,52 @@ class Histogram:
                 "buckets": {str(b): c for b, c in zip(self.buckets, cum)}}
 
 
+def _key(name: str, labels: Dict[str, object]):
+    return name, frozenset((k, str(v)) for k, v in labels.items())
+
+
 class MetricsRegistry:
-    """Get-or-create metric store; re-requesting a name as another type
-    raises."""
+    """Get-or-create metric store: a name + labels pair maps to exactly
+    one metric; re-requesting it as another type raises."""
 
     def __init__(self):
-        self._metrics: Dict[str, object] = {}
+        self._metrics: Dict[tuple, _Metric] = {}
         self._lock = threading.Lock()
 
-    def _get_or_create(self, cls, name: str, **kw):
+    def _get_or_create(self, cls, name: str, labels: Dict[str, object],
+                       **kw):
+        key = _key(name, labels)
         with self._lock:
-            m = self._metrics.get(name)
+            m = self._metrics.get(key)
             if m is None:
-                m = cls(name, **kw)
-                self._metrics[name] = m
+                m = cls(name, {k: str(v) for k, v in labels.items()}, **kw)
+                self._metrics[key] = m
             elif not isinstance(m, cls):
                 raise TypeError(
                     f"metric {name!r} already registered as "
                     f"{type(m).__name__}, requested {cls.__name__}")
             return m
 
-    def counter(self, name: str) -> Counter:
-        return self._get_or_create(Counter, name)
+    def counter(self, name: str, track: Optional[str] = None,
+                **labels) -> Counter:
+        return self._get_or_create(Counter, name, labels)
 
-    def gauge(self, name: str) -> Gauge:
-        return self._get_or_create(Gauge, name)
+    def gauge(self, name: str, track: Optional[str] = None,
+              **labels) -> Gauge:
+        return self._get_or_create(Gauge, name, labels)
 
     def histogram(self, name: str) -> Histogram:
-        return self._get_or_create(Histogram, name)
+        return self._get_or_create(Histogram, name, {})
 
-    def get(self, name: str):
+    def get(self, name: str, **labels) -> Optional[_Metric]:
         with self._lock:
-            return self._metrics.get(name)
+            return self._metrics.get(_key(name, labels))
+
+    def remove(self, name: str, **labels) -> bool:
+        """Drop one metric; the next get-or-create of the same name and
+        labels starts from zero."""
+        with self._lock:
+            return self._metrics.pop(_key(name, labels), None) is not None
 
     def snapshot(self) -> Dict[str, Dict[str, object]]:
         with self._lock:
@@ -171,11 +202,11 @@ class MetricsRegistry:
             "counters": {}, "gauges": {}, "histograms": {}}
         for m in metrics:
             if isinstance(m, Counter):
-                out["counters"][m.name] = m.value
+                out["counters"][m.label_key] = m.value
             elif isinstance(m, Gauge):
-                out["gauges"][m.name] = m.value
+                out["gauges"][m.label_key] = m.value
             else:
-                out["histograms"][m.name] = m.state()
+                out["histograms"][m.label_key] = m.state()
         return out
 
 

@@ -41,11 +41,11 @@ wait, seconds), and for a disaggregated tier ``ship_to`` + ``kv_ship``
 ``kv_ship`` before replying) or ``kv_ship`` alone (a decode leg: adopt
 the staged blocks instead of prefilling).
 
-Not ported in this slice: the router itself, its HA journal and
-autoscaling, and the multi-address failover of the client (the next
-slice); the Unix-socket and shared-memory transports (``BYTEPS_TRANSPORT``
-other than ``auto`` / ``tcp`` is refused; a JAX client's ``auto`` finds
-no rendezvous here and stays on TCP).
+The router tier over these frontends is ``router.py``; the client below
+fails over between routers when given several addresses.  Not ported:
+the Unix-socket and shared-memory transports (``BYTEPS_TRANSPORT`` other
+than ``auto`` / ``tcp`` is refused; a JAX client's ``auto`` finds no
+rendezvous here and stays on TCP).
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ import json
 import socket
 import socketserver
 import threading
-from typing import Optional
+import time
+from typing import List, Optional
 
 import numpy as np
 
@@ -512,14 +513,24 @@ def _submit_frame(op: int, prompt, max_new_tokens: int, seed: int,
 
 
 class RemoteServeClient:
-    """TCP client of one serve frontend (this package's or the JAX
-    package's — same frames).  Every read is bounded by ``timeout``
+    """TCP client of a serve frontend or a router (this package's or the
+    JAX package's — same frames).  Every read is bounded by ``timeout``
     (default ``BYTEPS_SERVE_CLIENT_TIMEOUT_MS``); a dead or stalled
-    frontend raises :class:`ServeConnectionError`.  One in-flight call
+    endpoint raises :class:`ServeConnectionError`.  One in-flight call
     per client (it holds the connection); :meth:`cancel` uses a
-    connection of its own.  ``transport`` (default
-    ``BYTEPS_TRANSPORT``) must be ``auto`` or ``tcp``.  One address: the
-    router tier's multi-address failover is not ported yet."""
+    connection of its own.  ``transport`` (default ``BYTEPS_TRANSPORT``)
+    must be ``auto`` or ``tcp``.
+
+    **Multi-router failover**: ``addr`` may be a comma-separated router
+    list.  A ``ServeConnectionError`` mid-call (a dead router) or a
+    *retryable* typed refusal (a standby answering before its takeover)
+    rotates to the next address and re-issues the request — mid-stream
+    with ``resume=`` the tokens already received, which the engine's
+    resume argument makes token-identical.  Non-retryable typed errors
+    (``ServeReplyError.retryable`` False, e.g. a
+    ``WeightsMismatchError`` surfaced through a router) propagate at
+    once.  The failover loop is bounded by ``timeout`` without
+    progress."""
 
     def __init__(self, addr: str, timeout: Optional[float] = None,
                  transport: Optional[str] = None):
@@ -527,23 +538,80 @@ class RemoteServeClient:
 
         cfg = get_config()
         check_transport(transport or cfg.transport)
-        self.addr = str(addr).strip()
-        if "," in self.addr:
-            raise NotImplementedError(
-                f"a multi-address client ({self.addr!r}) fails over "
-                f"between routers, which this port does not have yet; "
-                f"give one address")
+        self._addrs = [a.strip() for a in str(addr).split(",")
+                       if a.strip()]
+        if not self._addrs:
+            raise ValueError("RemoteServeClient needs at least one "
+                             "address")
         self.timeout = (timeout if timeout is not None
                         else cfg.serve_client_timeout_ms / 1e3)
         self._lock = threading.Lock()
+        self._cur = 0
+        self._sock = None
+        # set when a stream() was abandoned mid-flight: the server keeps
+        # sending that stream's frames, so the connection can no longer
+        # pair requests with replies.  A single-address client stays
+        # poisoned; a multi-router client clears it by reconnecting.
         self._poisoned = False
-        self._sock = _connect(self.addr, self.timeout)
+        if len(self._addrs) == 1:
+            self._connect(0)  # eager: the single-endpoint contract
+        else:
+            self._connect_any()
 
-    def _send(self, frame: bytes) -> None:
+    # ------------------------------------------------------- connections
+
+    def _connect(self, idx: int) -> None:
+        self.addr = self._addrs[idx]
+        self._sock = _connect(self.addr, self.timeout)
+        self._poisoned = False
+        self._cur = idx
+
+    def _connect_any(self) -> None:
+        """Connect to the first reachable address from the cursor on
+        (lock held, or single-threaded init)."""
+        errs = []
+        for j in range(len(self._addrs)):
+            idx = (self._cur + j) % len(self._addrs)
+            try:
+                self._connect(idx)
+                return
+            except OSError as e:
+                errs.append(f"{self._addrs[idx]}: {e}")
+        raise ServeConnectionError(
+            f"no serve endpoint reachable: {'; '.join(errs)}")
+
+    def _rotate_locked(self) -> None:
+        """Drop the connection and point the cursor at the next address
+        (lock held); the next call reconnects."""
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+        self._sock = None
+        self._poisoned = False
+        self._cur = (self._cur + 1) % len(self._addrs)
+
+    def _check_usable(self) -> None:
+        """Lock held (the poison flag is written under it).  A
+        multi-router client reconnects out of a poisoned or dropped
+        connection; a single-address one raises."""
+        if (self._poisoned or self._sock is None) \
+                and len(self._addrs) > 1:
+            if self._sock is not None:
+                try:
+                    self._sock.close()
+                except OSError:
+                    pass
+                self._sock = None
+            self._connect_any()
+            return
         if self._poisoned:
             raise ServeConnectionError(
                 f"client for {self.addr} abandoned an in-flight stream(); "
                 f"the connection is desynced — open a new client")
+
+    def _send(self, frame: bytes) -> None:
         try:
             self._sock.sendall(frame)
         except OSError as e:
@@ -562,9 +630,10 @@ class RemoteServeClient:
             raise _reply_error(payload)
         return rname, out, payload
 
-    def _rpc(self, op: int, name: str = ""):
+    def _rpc(self, op: int, name: str = "", arr=None):
         with self._lock:
-            self._send(_encode(op, name, None))
+            self._check_usable()
+            self._send(_encode(op, name, arr))
             return self._read_frame()
 
     @staticmethod
@@ -582,8 +651,25 @@ class RemoteServeClient:
         """Blocking submit -> the full token array.  ``epoch``, ``rid``,
         ``tenant`` and ``slo`` ride the frame as the JAX client sends
         them; ``extra`` merges more wire params (a disagg decode leg's
-        ``kv_ship``)."""
+        ``kv_ship``).  On a multi-router client the call fails over
+        within ``timeout``."""
+        kw = dict(seed=seed, priority=priority, resume=resume,
+                  epoch=epoch, rid=rid, tenant=tenant, slo=slo,
+                  extra=extra)
+        if len(self._addrs) == 1:
+            return self._generate_once(prompt, max_new_tokens, **kw)
+        deadline = time.monotonic() + self.timeout
+        while True:
+            try:
+                return self._generate_once(prompt, max_new_tokens, **kw)
+            except (ServeConnectionError, ServeReplyError) as e:
+                self._note_failover(e, deadline)
+
+    def _generate_once(self, prompt, max_new_tokens: int, *, seed,
+                       priority, resume, epoch, rid, tenant, slo,
+                       extra) -> np.ndarray:
         with self._lock:
+            self._check_usable()
             self._send(_submit_frame(
                 OP_SUBMIT, prompt, max_new_tokens, seed, priority, resume,
                 self._extra(epoch, rid, tenant, extra, slo)))
@@ -600,6 +686,7 @@ class RemoteServeClient:
         info)``; ``info["shipped"]`` False is a downgrade (the tokens
         are valid, the decode side re-prefills)."""
         with self._lock:
+            self._check_usable()
             self._send(_submit_frame(
                 OP_SUBMIT, prompt, 1, seed, priority, None,
                 self._extra(epoch, rid, tenant,
@@ -610,13 +697,67 @@ class RemoteServeClient:
                 else {"shipped": False, "error": "no ship report"})
         return np.array(out), info
 
+    def _note_failover(self, e: BaseException, deadline: float) -> None:
+        """One failover step: a non-retryable typed refusal propagates,
+        a spent deadline raises, else rotate to the next router after a
+        short pause (a standby needs its takeover window)."""
+        if isinstance(e, ServeReplyError) and not e.retryable:
+            raise e
+        with self._lock:
+            self._rotate_locked()
+        if time.monotonic() + 0.05 > deadline:
+            raise ServeConnectionError(
+                f"no serve endpoint of {self._addrs} could complete "
+                f"the request within timeout={self.timeout}s "
+                f"(last: {type(e).__name__}: {e})") from e
+        time.sleep(0.05)
+
     def stream(self, prompt, max_new_tokens: int, *, seed: int = 0,
                priority: int = 0, resume=None, epoch=None, rid=None,
                tenant=None, slo=None, extra=None):
         """Token iterator over OP_STREAM (``resume``: tokens already
         emitted; only new ones stream back).  Abandoning it mid-stream
-        poisons the client (later calls raise)."""
+        poisons a single-address client (later calls raise).  With
+        several router addresses the stream is failover-wrapped: a dead
+        router, or a standby's typed refusal, re-issues the request to
+        the next address with ``resume=`` the tokens received so far,
+        and the consumer sees one uninterrupted sequence."""
+        kw = dict(seed=seed, priority=priority, epoch=epoch, rid=rid,
+                  tenant=tenant, slo=slo, extra=extra)
+        if len(self._addrs) == 1:
+            return self._stream_once(prompt, max_new_tokens,
+                                     resume=resume, **kw)
+        return self._stream_failover(prompt, max_new_tokens,
+                                     resume=resume, **kw)
+
+    def _stream_failover(self, prompt, max_new_tokens: int, *, resume,
+                         **kw):
+        emitted: List[int] = ([int(t) for t in resume]
+                              if resume is not None else [])
+        deadline = time.monotonic() + self.timeout
+        while True:
+            try:
+                for tok in self._stream_once(
+                        prompt, max_new_tokens, resume=emitted or None,
+                        **kw):
+                    emitted.append(int(tok))
+                    # the budget is timeout WITHOUT PROGRESS: every
+                    # token re-arms it, so a healthy stream longer than
+                    # the timeout keeps its failover protection
+                    deadline = time.monotonic() + self.timeout
+                    yield int(tok)
+                return
+            except (ServeConnectionError, ServeReplyError) as e:
+                if len(emitted) >= max_new_tokens:
+                    # the endpoint died between the last token and the
+                    # terminal frame: the stream was fully delivered
+                    return
+                self._note_failover(e, deadline)
+
+    def _stream_once(self, prompt, max_new_tokens: int, *, seed, priority,
+                     resume, epoch, rid, tenant, slo, extra):
         with self._lock:
+            self._check_usable()
             in_flight = False
             try:
                 self._send(_submit_frame(
@@ -639,17 +780,53 @@ class RemoteServeClient:
                     self._poisoned = True
 
     def cancel(self, rid: str, epoch=None) -> bool:
-        """OP_CANCEL of the in-flight request submitted with ``rid=``, on
-        a fresh connection (the streaming one is busy).  Returns whether
-        a live request was found."""
+        """OP_CANCEL of the in-flight request submitted with ``rid=``,
+        on a fresh connection (the streaming one is busy).  Returns
+        whether a live request was found.  With several router
+        addresses every sweep tries them all (one router's False is not
+        authoritative while another is the active); a sweep that met
+        only dead routers and standby refusals retries until
+        ``timeout``, so a cancel issued during a takeover lands once the
+        standby promotes.  Non-retryable typed errors propagate."""
         params = {"rid": str(rid)}
         if epoch is not None:
             params["epoch"] = int(epoch)
-        return _wire_cancel(self.addr, params, self.timeout)
+        # no client lock: a stream() holds it for its whole life, and
+        # this cancel must not wait behind the stream it cancels
+        cur = self._cur
+        addrs = [self._addrs[(cur + j) % len(self._addrs)]
+                 for j in range(len(self._addrs))]
+        if len(addrs) == 1:
+            return _wire_cancel(addrs[0], params, self.timeout)
+        deadline = time.monotonic() + self.timeout
+        while True:
+            answered = False
+            errs = []
+            for a in addrs:
+                try:
+                    if _wire_cancel(a, params, self.timeout):
+                        return True
+                    answered = True
+                except ServeConnectionError as e:
+                    errs.append(str(e))
+                except ServeReplyError as e:
+                    if not e.retryable:
+                        raise
+                    errs.append(f"{a}: {e.name}")
+            if answered:
+                # an active router answered and none held the rid
+                return False
+            if time.monotonic() + 0.05 > deadline:
+                raise ServeConnectionError(
+                    f"no serve endpoint of {addrs} accepted cancel"
+                    f"({rid!r}) within timeout={self.timeout}s: "
+                    f"{'; '.join(errs)}")
+            time.sleep(0.05)
 
     def journal(self, entries: list) -> dict:
-        """A router-HA journal push (OP_JOURNAL), which only a router
-        takes: a serve frontend refuses it ("bad op 5")."""
+        """A router-HA journal push (OP_JOURNAL; routers only — a serve
+        frontend refuses it, "bad op 5").  The ack ``{"epoch": N}`` is
+        how a deposed active learns that a standby took over."""
         _, _, payload = self._rpc(OP_JOURNAL, json.dumps(entries))
         return json.loads(bytes(payload).decode()) if payload else {}
 
@@ -665,6 +842,8 @@ class RemoteServeClient:
             return False
 
     def close(self) -> None:
+        if self._sock is None:
+            return
         try:
             self._sock.close()
         except OSError:

@@ -186,6 +186,42 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (STATS "ship"), MB/s, extract ms, TTFT with the ship, the decode
    replica's TPOT and tokens/s beside phase 4's, and a PING round trip
    (p50 of 100).
+6j. Router tier (the main path of the router slice) — phase 4's model
+   (bf16, its paged pools) on two replicas behind two port routers, an
+   active and a standby fed by the journal, in this process:
+   (a) phase 4's traffic, 8 concurrent streams from ``RemoteServeClient``s
+   given both router addresses: every request on the kernel (each
+   replica's paged calls = its decode ticks x 16, no plain call), tokens
+   against phase 4's one-replica stream identical or not "real", and two
+   prompts one at a time through the router identical to the same
+   requests sent straight to a replica; client-side TTFT and TPOT p50 /
+   p99 beside phase 4's and the replicas' own.  (c) the active killed
+   mid-stream (after 4 tokens): the client fails over to the standby,
+   which takes over at epoch 2; the spliced stream equals its own
+   control (the tokens received before the kill, then the replica's own
+   resumed continuation of prompt + received, alone); its agreement with
+   the unkilled stream, any divergence classified; both replicas then
+   fence epoch 1.  (b) the replica that holds a stream killed after 4
+   tokens: the router re-dispatches with ``resume`` (redispatches >= 1)
+   and the splice is held the same way.  (d) a prefill and a decode
+   replica behind one port router (roles prefill, decode): phase 4's
+   traffic through ``prefill_ship`` -> ``kv_ship``: every ship whole,
+   no fallback, no prefill on the decode side, its paged calls = its
+   ticks x 16, pools at base, tokens against phase 4 identical or not
+   "real".  Each leg's first paged call of each shape at each decode
+   tick that brings a request live on a replica for the first time (each
+   replica's first decode, each resumed request's, each adopted ship's)
+   held to the plain version at phase 5's limits.  (e) three processes
+   of the port's launcher: two ``DMLC_ROLE=serve BYTEPS_SERVE_PAGED=1``
+   replicas (the serve role's model, fp32, rows of 1024) and a
+   ``DMLC_ROLE=router`` with ``BYTEPS_ROUTER_ROLES=prefill,decode``,
+   spawned after the kernels were built: 8 requests of phase 4's prompt
+   lengths equal an in-process replica of the same model; ship p50 and
+   the decode replica's TPOT with one process a replica; every child
+   alive until stopped.  (f) an ``AutoscaleController`` with the port's
+   ``ReplicaLauncher`` over a one-replica tier (max 2): a load spike
+   spawns a ``byteps_tpu_torch.launcher`` serve process on the card,
+   which serves requests; idle load drains and stops it; the spawn time.
 7. Training reference — a small fp32 Llama-shaped model (2 layers,
    d_model 256, 4 heads over 2 KV heads, head_dim 64, vocab 1024), B=2,
    T=256: 3 ``Trainer.fit`` steps with ``attn_impl="flash"`` (the
@@ -434,8 +470,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    way at M = 4 and 1024, phase 13f's decode and prefill rows.
 
 The last lines are the card's ``nvidia-smi`` line, one ``{"kernels":
-[...]}`` JSON object (the paged entry with phase 6i's launches and held
-calls; each decode entry with a ``device_pos`` record of
+[...]}`` JSON object (the paged entry with phase 6i's and 6j's launches
+and held calls; each decode entry with a ``device_pos`` record of
 its own mode: phase 16's device-form cases and times, and the launches
 of the dense serve phase's flat run on that cache; the bf16 entry also
 the launches of phase 15b's beam search and speculative draft, the int8
@@ -2523,6 +2559,717 @@ def disagg_serve_phase(torch, seed: int, paged_results, int8_results):
     del model
     torch.cuda.empty_cache()
     return info
+
+
+# ----------------------------------------------------------- router tier
+
+ROUTER_KILL_AT = 4     # tokens a stream delivers before its kill
+PROC_MODEL = "max_seq_len=1024"   # the serve role's model, rows for 512 + 32
+PROC_ENV = {"BYTEPS_SERVE_PAGED": "1", "BYTEPS_SERVE_MODEL": PROC_MODEL}
+PROC_START_S = 300.0   # a child's CUDA context, model init and first ping
+AUTOSCALE_SPIKE_NEW = 512   # new tokens of each stream of the load spike
+
+
+class _ReplicaPath(_PathCalls):
+    """:class:`_PathCalls` over several replicas in one process: each
+    replica's decode tick names the replica and, as 6i does, how many
+    requests it has seen live so far (thread-local: every engine ticks
+    on a thread of its own), so the first call of each shape at each
+    tick that brings a request live on a replica is recorded; every
+    paged-attention call is also counted for its replica."""
+
+    def __init__(self):
+        super().__init__()
+        self._local = threading.local()
+        self.paged_calls = {}
+
+    @property
+    def tag(self):
+        return getattr(self._local, "tag", None)
+
+    def watch(self, name, engine) -> None:
+        seen, tick = set(), engine._decode_tick
+
+        def tagged(active):
+            seen.update(engine._slot_req[s].id for s in active
+                        if engine._slot_req[s] is not None)
+            self._local.replica = name
+            self._local.tag = (name, len(seen))
+            return tick(active)
+
+        engine._decode_tick = tagged
+
+    def _recording(self, name, fn):
+        rec = super()._recording(name, fn)
+        if name != "paged_attention":
+            return rec
+
+        def call(*a, **kw):
+            r = getattr(self._local, "replica", None)
+            self.paged_calls[r] = self.paged_calls.get(r, 0) + 1
+            return rec(*a, **kw)
+        return call
+
+
+def _resumes(engine) -> list:
+    """Record each submit's resume length on ``engine`` (the splice
+    point of a re-dispatched stream)."""
+    seen, submit = [], engine.submit
+
+    def recording(prompt, max_new_tokens, **kw):
+        r = kw.get("resume_tokens")
+        seen.append((len(prompt), 0 if r is None else len(r)))
+        return submit(prompt, max_new_tokens, **kw)
+
+    engine.submit = recording
+    return seen
+
+
+def _router_kw(**kw):
+    from byteps_tpu_torch.observability.metrics import MetricsRegistry
+    from byteps_tpu_torch.resilience.policy import RetryPolicy
+
+    out = dict(credits=N_SLOTS, affinity=True, deadline=300.0,
+               stream_timeout=120.0, heartbeat_interval=0.2,
+               miss_threshold=2, ping_timeout=10.0,
+               registry=MetricsRegistry(),
+               retry=RetryPolicy(max_attempts=8, backoff_base=0.02,
+                                 backoff_mult=2.0, backoff_cap=0.5,
+                                 jitter=0.0, deadline=0.0))
+    out.update(kw)
+    return out
+
+
+def _timed_streams(torch, call, prompts, new):
+    """Every prompt at once, each on a thread of its own through
+    ``call(i, prompt)`` (a token iterator): the tokens, and each
+    request's client-side TTFT and TPOT (ms)."""
+    import numpy as np
+
+    out = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        try:
+            t0 = time.perf_counter()
+            toks, times = [], []
+            for tok in call(i, prompts[i]):
+                times.append(time.perf_counter())
+                toks.append(int(tok))
+            out[i] = (np.asarray(toks, np.int32), (times[0] - t0) * 1e3,
+                      (times[-1] - times[0]) * 1e3 / max(1, len(times) - 1))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    workers = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    t1 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    if errors:
+        raise errors[0]
+    if any(w.is_alive() for w in workers):
+        raise AssertionError("a routed request did not finish")
+    for toks, _, _ in out:
+        if toks.shape != (new,):
+            raise AssertionError(f"bad routed result {toks}")
+    return ([o[0] for o in out], [o[1] for o in out], [o[2] for o in out],
+            wall)
+
+
+def _client_stream(addr, prompt, new, **kw):
+    """Tokens of one stream from a fresh client of ``addr`` (a router
+    list fails over), the client closed at the end."""
+    from byteps_tpu_torch.serving import RemoteServeClient
+
+    c = RemoteServeClient(addr, timeout=600)
+    try:
+        yield from c.stream(prompt, new, **kw)
+    finally:
+        c.close()
+
+
+def _stream_to(addr, prompt, new, **kw):
+    return [int(t) for t in _client_stream(addr, prompt, new, **kw)]
+
+
+def _splice(torch, model, prompt, got, resumes, survivor_addr, unkilled,
+            what):
+    """Hold a spliced stream to its own control: the tokens received
+    before the kill (the survivor's resume length) and then the
+    survivor's own resumed continuation of prompt + received, alone; its
+    agreement with the unkilled stream, any divergence classified."""
+    import numpy as np
+
+    ks = [k for n, k in resumes if n == len(prompt) and k > 0]
+    if not ks:
+        raise AssertionError(f"{what}: no resumed submit on the survivor")
+    k = ks[-1]
+    control = list(got[:k]) + _stream_to(survivor_addr, prompt, NEW_TOKENS,
+                                         resume=list(got[:k]))
+    if list(got) != control:
+        raise AssertionError(f"{what}: spliced {list(got)} != its control "
+                             f"{control} (resumed after {k})")
+    g, u = np.asarray(got, np.int32), np.asarray(unkilled, np.int32)
+    return {"resumed_after": k, "splice_equals_control": True,
+            "tokens_agreeing_with_unkilled": int((g == u).sum()),
+            "vs_unkilled": _not_real(torch, model, [prompt], [u], [g],
+                                     f"{what} vs the unkilled stream")}
+
+
+def _kill_after(stream, n, kill):
+    toks = []
+    for tok in stream:
+        toks.append(int(tok))
+        if len(toks) == n:
+            kill()
+    return toks
+
+
+def router_serve_phase(torch, seed: int, serve_info, paged_results):
+    """Legs (a)-(d) of phase 6j on phase 4's model (module docstring)."""
+    import numpy as np
+
+    from byteps_tpu_torch.engine.transport import free_port
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.ops import paged_attention as pa
+    from byteps_tpu_torch.serving import (RemoteServeClient, RouterFrontend,
+                                          ServeMetrics, ServeReplyError,
+                                          ServeRouter, ServingEngine, serve)
+    from byteps_tpu_torch.serving import metrics as sm
+    from byteps_tpu_torch.serving import router as rt
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16)
+    model = Transformer(cfg, device="cuda", param_dtype=torch.bfloat16)
+    init_weights(model, seed)
+    L = cfg.num_layers
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+
+    def engines(n):
+        return [ServingEngine(model, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                              paged=True, block=BLOCK, device="cuda",
+                              metrics=ServeMetrics()) for _ in range(n)]
+
+    def check_path(path, names, ticks, what):
+        calls = {n: path.paged_calls.get(n, 0) for n in names}
+        want = {n: ticks[n] * L for n in names}
+        if (calls != want or not all(ticks.values())
+                or pa.launches != sum(calls.values()) or pa.plain_calls):
+            raise AssertionError(
+                f"{what}: paged calls {calls} for decode ticks {ticks} x "
+                f"{L}, {pa.launches} launches, {pa.plain_calls} plain")
+        return {"paged_calls": calls, "decode_ticks": ticks,
+                "launches": pa.launches}
+
+    info = {"phase": "router_serve",
+            "model": "Llama-3.2-1B (random weights)",
+            "source": "meta-llama/Llama-3.2-1B config.json",
+            "reduced": {"max_seq": [131072, MAX_SEQ]}, "dtype": "bfloat16",
+            "slots": N_SLOTS, "prompt_lens": list(PROMPT_LENS)}
+    reps = engines(2)
+    names = ("r0", "r1")
+    resumes = [_resumes(e) for e in reps]
+    base = [e.pool.alloc.used_count for e in reps]
+    srvs = [serve(e, 0, host="127.0.0.1", in_thread=True) for e in reps]
+    addrs = [f"127.0.0.1:{s.server_address[1]}" for s, _ in srvs]
+    pa_, pb_ = free_port(), free_port()
+    peers = [f"127.0.0.1:{pa_}", f"127.0.0.1:{pb_}"]
+    ra = ServeRouter(addrs, **_router_kw(peers=peers, self_addr=peers[0],
+                                         epoch_timeout=0.2))
+    rb = ServeRouter(addrs, **_router_kw(peers=peers, self_addr=peers[1],
+                                         epoch_timeout=0.2))
+    fronts = []
+    try:
+        with _ReplicaPath() as path:
+            for n, e in zip(names, reps):
+                path.watch(n, e)
+            for port, r in ((pa_, ra), (pb_, rb)):
+                f = RouterFrontend(("127.0.0.1", port), r)
+                threading.Thread(target=f.serve_forever, daemon=True).start()
+                fronts.append(f)
+            both = ",".join(peers)
+            # (a) placement: phase 4's traffic through the routers
+            torch.cuda.synchronize()
+            ticks0 = [e.decode_ticks for e in reps]
+            _zero_counts()
+            pa.launches = pa.plain_calls = 0
+            path.paged_calls.clear()
+            results, ttft, tpot, wall = _timed_streams(
+                torch, lambda i, p: _client_stream(both, p, NEW_TOKENS),
+                prompts, NEW_TOKENS)
+            ticks = {n: e.decode_ticks - t for n, e, t in
+                     zip(names, reps, ticks0)}
+            placement = check_path(path, names, ticks, "router (a)")
+            st = ra.stats()
+            if (st[rt.COMPLETED] != len(prompts) or st[rt.FAILED]
+                    or st[rt.FAILOVERS]):
+                raise AssertionError(f"router (a): {st}")
+            summ = [e.metrics.summary() for e in reps]
+            same = sum(np.array_equal(a, b)
+                       for a, b in zip(results, paged_results))
+            placement.update({
+                "requests": len(prompts), "wall_s": wall,
+                "tokens_per_s": NEW_TOKENS * len(prompts) / wall,
+                "per_replica_submitted": [e.metrics.get(sm.SUBMITTED)
+                                          for e in reps],
+                "client_ttft_p50_ms": _pct(ttft, 50),
+                "client_ttft_p99_ms": _pct(ttft, 99),
+                "client_tpot_p50_ms": _pct(tpot, 50),
+                "client_tpot_p99_ms": _pct(tpot, 99),
+                "replica_tpot_p50_ms": [m["tpot_p50_s"] * 1e3 for m in summ],
+                "replica_ttft_p50_ms": [m["ttft_p50_s"] * 1e3 for m in summ],
+                "phase4_ttft_p50_ms": serve_info["run1"]["ttft_p50_ms"],
+                "phase4_ttft_p99_ms": serve_info["run1"]["ttft_p99_ms"],
+                "phase4_tpot_p50_ms": serve_info["run1"]["tpot_p50_ms"],
+                "phase4_tpot_p99_ms": serve_info["run1"]["tpot_p99_ms"],
+                "identical_to_phase4": int(same),
+                "vs_phase4": _not_real(torch, model, prompts, paged_results,
+                                       results, "router (a) vs phase 4")})
+            # one at a time: the router's placement changes no bit
+            alone = []
+            for p in prompts[:2]:
+                via = _stream_to(both, p, NEW_TOKENS)
+                direct = _stream_to(addrs[0], p, NEW_TOKENS)
+                if via != direct:
+                    raise AssertionError(f"router (a): one request through "
+                                         f"the router {via} != straight to "
+                                         f"a replica {direct}")
+                alone.append(len(p))
+            placement["alone_identical_prompt_lens"] = alone
+            info["placement"] = placement
+            # (c) the active router killed mid-stream
+            deadline = time.monotonic() + 30.0
+            while (rb._journal_epoch < 1 or not all(
+                    r.verified for r in rb._replicas)):
+                if time.monotonic() > deadline:
+                    raise AssertionError("router (c): the standby never "
+                                         "folded the journal")
+                time.sleep(0.05)
+            p = prompts[2]
+            unkilled = _stream_to(addrs[0], p, NEW_TOKENS)
+            cli = RemoteServeClient(both, timeout=600)
+            t0 = time.perf_counter()
+            got = _kill_after(cli.stream(p, NEW_TOKENS, rid="ha"),
+                              ROUTER_KILL_AT, fronts[0].kill)
+            failover_s = time.perf_counter() - t0
+            cli.close()
+            if not (rb.active and rb.epoch == 2):
+                raise AssertionError(f"router (c): standby active="
+                                     f"{rb.active} epoch={rb.epoch}")
+            holder = [i for i, rs in enumerate(resumes)
+                      if any(n == len(p) and k for n, k in rs)]
+            ha = _splice(torch, model, p, got, resumes[holder[-1]],
+                         addrs[holder[-1]], unkilled, "router (c)")
+            # phase 4's prompts again through the new active (the
+            # journaled affinity places them on both replicas as in (a)):
+            # both learn epoch 2, then refuse epoch 1
+            for q in prompts:
+                _stream_to(peers[1], q, 2)
+            fenced = []
+            for i, a in enumerate(addrs):
+                if reps[i].epoch_high_water != 2:
+                    raise AssertionError(f"router (c): replica {i} at "
+                                         f"epoch {reps[i].epoch_high_water}")
+                c = RemoteServeClient(a, timeout=60)
+                try:
+                    c.generate(prompts[0], 2, epoch=1)
+                    raise AssertionError(f"router (c): replica {i} "
+                                         f"accepted epoch 1")
+                except ServeReplyError as e:
+                    if e.name != "EpochFencedError":
+                        raise
+                    fenced.append(i)
+                finally:
+                    c.close()
+            stb = rb.stats()
+            ha.update({"takeover_epoch": rb.epoch,
+                       "takeovers": stb[rt.TAKEOVERS],
+                       "fenced_replicas": fenced,
+                       "stream_wall_s_with_failover": failover_s})
+            info["router_ha"] = ha
+            # (b) the replica holding a stream killed mid-stream
+            p = prompts[1]
+            unkilled = _stream_to(addrs[0], p, NEW_TOKENS)
+            red0 = stb[rt.REDISPATCHES]
+            state = {}
+
+            def kill_holder():
+                idx = rb._inflight["kill"]["r"]
+                state["killed"] = idx
+                srvs[idx][0].kill()
+
+            got = _kill_after(rb.stream(p, NEW_TOKENS, rid="kill"),
+                              ROUTER_KILL_AT, kill_holder)
+            surv = 1 - state["killed"]
+            kill = _splice(torch, model, p, got, resumes[surv], addrs[surv],
+                           unkilled, "router (b)")
+            stb = rb.stats()
+            kill.update({"killed_replica": state["killed"],
+                         "redispatches": stb[rt.REDISPATCHES] - red0,
+                         "failovers": stb[rt.FAILOVERS]})
+            if kill["redispatches"] < 1:
+                raise AssertionError(f"router (b): {stb}")
+            info["replica_kill"] = kill
+            if pa.plain_calls or pa.launches != sum(
+                    path.paged_calls.values()):
+                raise AssertionError(
+                    f"router (a)-(c): {pa.launches} launches for "
+                    f"{path.paged_calls} paged calls, {pa.plain_calls} plain")
+        held = path.hold(torch)
+        replicas_held = {t[0] for t in (k[-1] for k in path.calls) if t}
+        if ({h["kernel"] for h in held} != {"paged_attention"}
+                or replicas_held != set(names)):
+            raise AssertionError(f"router (a)-(c): held {held}")
+        info["held"] = held
+        info["held_at"] = sorted(k[-1] for k in path.calls)
+        info["pools_at_base_before_kill"] = base
+    finally:
+        for f in fronts:
+            try:
+                f.kill()
+            except OSError:
+                pass
+        for s, t in srvs:
+            s.shutdown()
+            s.server_close()
+            t.join(timeout=30)
+    # (d) the disaggregated legs behind one port router
+    pre, dec = engines(2)
+    base = [e.pool.alloc.used_count for e in (pre, dec)]
+    srvs = [serve(e, 0, host="127.0.0.1", in_thread=True) for e in (pre, dec)]
+    addrs = [f"127.0.0.1:{s.server_address[1]}" for s, _ in srvs]
+    router = ServeRouter(addrs, **_router_kw(roles=["prefill", "decode"]))
+    try:
+        with _ReplicaPath() as path:
+            path.watch("decode", dec)
+            router.start()
+            torch.cuda.synchronize()
+            ticks0 = dec.decode_ticks
+            _zero_counts()
+            pa.launches = pa.plain_calls = 0
+            results, ttft, tpot, wall = _timed_streams(
+                torch, lambda i, p: router.stream(p, NEW_TOKENS), prompts,
+                NEW_TOKENS)
+            disagg = check_path(path, ("decode",),
+                                {"decode": dec.decode_ticks - ticks0},
+                                "router (d)")
+        st = router.stats()
+        want_blocks = sum(-(-len(p) // BLOCK) for p in prompts)
+        counts = [e.step_counts() for e in (pre, dec)]
+        if (st[rt.DISAGG_PREFILLS] != len(prompts)
+                or st[rt.DISAGG_SHIPPED_BLOCKS] != want_blocks
+                or st[rt.DISAGG_FALLBACKS] or st[rt.REDISPATCHES]
+                or pre.metrics.get(sm.KV_BLOCKS_SHIPPED) != want_blocks):
+            raise AssertionError(f"router (d): not every ship whole: {st}")
+        if (dec.metrics.get(sm.PREFILL_TOKENS) or counts[1]["prefill_chunks"]
+                or counts[0]["decode_ticks"]):
+            raise AssertionError(f"router (d): the decode replica prefilled "
+                                 f"or the prefill replica decoded: {counts}")
+        used = [e.pool.alloc.used_count for e in (pre, dec)]
+        if used != base:
+            raise AssertionError(f"router (d): pools at {used}, base {base}")
+        held = path.hold(torch)
+        tags = sorted(k[-1] for k in path.calls)
+        if ({h["kernel"] for h in held} != {"paged_attention"}
+                or tags[-1] != ("decode", len(prompts))):
+            raise AssertionError(f"router (d): held {held} at {tags}")
+        summ = dec.metrics.summary()
+        pst = RemoteServeClient(addrs[0], timeout=60)
+        ship = pst.stats()
+        pst.close()
+        disagg.update({
+            "blocks_shipped": want_blocks,
+            "disagg_prefills": st[rt.DISAGG_PREFILLS],
+            "fallbacks": st[rt.DISAGG_FALLBACKS],
+            "ship_p50_ms": ship["ship_p50_s"] * 1e3,
+            "ship_p99_ms": ship["ship_p99_s"] * 1e3,
+            "client_ttft_p50_ms": _pct(ttft, 50),
+            "client_ttft_p99_ms": _pct(ttft, 99),
+            "client_tpot_p50_ms": _pct(tpot, 50),
+            "client_tpot_p99_ms": _pct(tpot, 99),
+            "decode_tpot_p50_ms": summ["tpot_p50_s"] * 1e3,
+            "wall_s": wall, "held": held, "held_at": tags,
+            "identical_to_phase4": int(sum(
+                np.array_equal(a, b) for a, b in zip(results,
+                                                     paged_results))),
+            "vs_phase4": _not_real(torch, model, prompts, paged_results,
+                                   results, "router (d) vs phase 4")})
+        info["disagg"] = disagg
+    finally:
+        router.close()
+        for s, t in srvs:
+            s.shutdown()
+            s.server_close()
+            t.join(timeout=30)
+    info["nvidia_smi"] = _smi()
+    del model, reps, pre, dec
+    torch.cuda.empty_cache()
+    return info
+
+
+def _child_env(over) -> dict:
+    """This process's environment without its ``BYTEPS_*`` / ``DMLC_*``
+    knobs, plus ``over``, with this checkout first on ``PYTHONPATH``: a
+    launcher child's."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BYTEPS_", "DMLC_"))}
+    env.update(over)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    return env
+
+
+@contextlib.contextmanager
+def _children():
+    """Processes of the port's launcher, each logging to a file of its
+    own; every one still running is killed on the way out, and one that
+    exited by itself fails the phase (its log's tail in the error)."""
+    import os
+    import tempfile
+
+    procs = []
+
+    def spawn(name, env_over):
+        log = tempfile.NamedTemporaryFile("w+", prefix=f"{name}-",
+                                          suffix=".log", delete=False)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "byteps_tpu_torch.launcher"],
+            env=_child_env(env_over),
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+        procs.append((name, proc, log))
+        return proc
+
+    def check():
+        for name, proc, log in procs:
+            if proc.poll() is not None:
+                log.flush()
+                with open(log.name) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"child {name} exited rc="
+                                     f"{proc.returncode}:\n{tail}")
+
+    spawn.check = check
+    try:
+        yield spawn
+        check()
+    finally:
+        for _, proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+            log.close()
+            os.unlink(log.name)
+
+
+def _await_ping(addr, check, timeout=PROC_START_S) -> float:
+    from byteps_tpu_torch.serving import RemoteServeClient
+
+    t0 = time.perf_counter()
+    while True:
+        check()
+        try:
+            c = RemoteServeClient(addr, timeout=30)
+            try:
+                if c.ping():
+                    return time.perf_counter() - t0
+            finally:
+                c.close()
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{addr} never answered PING")
+        time.sleep(0.25)
+
+
+def _proc_prompts(seed, vocab):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, size=(n,)).astype(np.int32)
+            for n in PROMPT_LENS]
+
+
+def router_process_phase(torch, seed: int):
+    """Leg (e) of phase 6j (module docstring)."""
+    import numpy as np
+
+    from byteps_tpu_torch.engine.transport import free_port
+    from byteps_tpu_torch.serving import (RemoteServeClient, ServeMetrics,
+                                          ServingEngine)
+    from byteps_tpu_torch.serving import router as rt
+    from byteps_tpu_torch.serving.frontend import _model_from_env
+
+    model = _model_from_env(PROC_MODEL, "cuda")
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    prompts = _proc_prompts(seed, V)
+    solo = ServingEngine(model, n_slots=N_SLOTS, max_seq=1024, paged=True,
+                         block=BLOCK, device="cuda", metrics=ServeMetrics())
+    reqs = [solo.submit(p, NEW_TOKENS) for p in prompts]
+    solo.drain(timeout=300)
+    want = [r.result() for r in reqs]
+    ports = [free_port() for _ in range(3)]
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    with _children() as spawn:
+        t0 = time.perf_counter()
+        for port in ports[:2]:
+            spawn(f"serve{port}", {**PROC_ENV, "DMLC_ROLE": "serve",
+                                   "BYTEPS_SERVE_PORT": str(port)})
+        up = [_await_ping(a, spawn.check) for a in addrs[:2]]
+        spawn("router", {"DMLC_ROLE": "router",
+                         "BYTEPS_ROUTER_PORT": str(ports[2]),
+                         "BYTEPS_ROUTER_REPLICAS": ",".join(addrs[:2]),
+                         "BYTEPS_ROUTER_ROLES": "prefill,decode",
+                         "BYTEPS_HEARTBEAT_TIMEOUT_MS": "30000"})
+        _await_ping(addrs[2], spawn.check)
+        start_s = time.perf_counter() - t0
+        results, ttft, tpot, wall = _timed_streams(
+            torch, lambda i, p: _client_stream(addrs[2], p, NEW_TOKENS),
+            prompts, NEW_TOKENS)
+        spawn.check()
+        stats = []
+        for a in addrs:
+            c = RemoteServeClient(a, timeout=60)
+            stats.append(c.stats())
+            c.close()
+    pre, dec, rst = stats
+    if any(not np.array_equal(a, b) for a, b in zip(results, want)):
+        raise AssertionError(f"router (e): {results} != the in-process "
+                             f"replica's {want}")
+    want_blocks = sum(-(-len(p) // BLOCK) for p in prompts)
+    pc, dc = pre["step_counts"], dec["step_counts"]
+    if (rst[rt.DISAGG_PREFILLS] != len(prompts) or rst[rt.DISAGG_FALLBACKS]
+            or rst[rt.DISAGG_SHIPPED_BLOCKS] != want_blocks
+            or pc["decode_ticks"] or dc["prefill_chunks"]
+            or dc["paged_attention_launches"] != dc["decode_ticks"] * L
+            or not dc["decode_ticks"] or pc["paged_attention_launches"]):
+        raise AssertionError(f"router (e): router {rst}, prefill {pc}, "
+                             f"decode {dc}")
+    del model, solo
+    torch.cuda.empty_cache()
+    return {"phase": "router_process",
+            "model": "the serve role's default (BYTEPS_SERVE_MODEL="
+                     f"{PROC_MODEL!r}), fp32",
+            "processes": 3, "tokens_identical_to_in_process": True,
+            "replica_ping_s": up, "tier_start_s": start_s,
+            "blocks_shipped": want_blocks,
+            "decode_launches": dc["paged_attention_launches"],
+            "decode_ticks": dc["decode_ticks"],
+            "ship_p50_ms": pre["ship_p50_s"] * 1e3,
+            "ship_p99_ms": pre["ship_p99_s"] * 1e3,
+            "ship_n": pre["ship_n"],
+            "decode_tpot_p50_ms": dec["tpot_p50_s"] * 1e3,
+            "decode_tpot_p99_ms": dec["tpot_p99_s"] * 1e3,
+            "client_ttft_p50_ms": _pct(ttft, 50),
+            "client_tpot_p50_ms": _pct(tpot, 50),
+            "wall_s": wall, "nvidia_smi": _smi()}
+
+
+def router_autoscale_phase(torch, seed: int):
+    """Leg (f) of phase 6j (module docstring)."""
+    from byteps_tpu_torch.serving import (AutoscaleController,
+                                          RemoteServeClient, ReplicaLauncher,
+                                          ScalePolicy, ServeMetrics,
+                                          ServeRouter, ServingEngine,
+                                          TierSignals, serve)
+    from byteps_tpu_torch.serving import metrics as sm
+    from byteps_tpu_torch.serving.autoscale import poll_router
+    from byteps_tpu_torch.serving.frontend import _model_from_env
+
+    model = _model_from_env(PROC_MODEL, "cuda")
+    prompts = _proc_prompts(seed + 1, model.cfg.vocab_size)
+    seed_eng = ServingEngine(model, n_slots=N_SLOTS, max_seq=1024,
+                             paged=True, block=BLOCK, device="cuda",
+                             metrics=ServeMetrics())
+    srv, thread = serve(seed_eng, 0, host="127.0.0.1", in_thread=True)
+    router = ServeRouter([f"127.0.0.1:{srv.server_address[1]}"],
+                         **_router_kw(credits=2, affinity=False))
+    launcher = ReplicaLauncher(base_env=_child_env(PROC_ENV),
+                               startup_timeout_s=PROC_START_S)
+    ctl = AutoscaleController(
+        router, ScalePolicy(min_replicas=1, max_replicas=2,
+                            up_threshold=0.8, down_threshold=0.3,
+                            up_cooldown_s=0.0, down_cooldown_s=0.0),
+        TierSignals(poll_router(router), window_s=0.0), launcher,
+        interval_s=1.0, drain_timeout_s=120.0)
+    handle = None
+    try:
+        router.start()
+        errors = []
+
+        def hold_credit(p):
+            try:
+                list(router.stream(p, AUTOSCALE_SPIKE_NEW))
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        spike = [threading.Thread(target=hold_credit, args=(p,))
+                 for p in prompts[:4]]
+        for t in spike:
+            t.start()
+        deadline = time.monotonic() + 120
+        while router.signal_snapshot()["inflight"] < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("autoscale: no spike")
+            time.sleep(0.01)
+        load = router.signal_snapshot()
+        t0 = time.perf_counter()
+        up = ctl.step()
+        spawn_s = time.perf_counter() - t0
+        if (up.action != "up" or ctl.scale_ups != 1
+                or router.placeable_count() != 2):
+            raise AssertionError(f"autoscale: {up} at {load}")
+        handle = ctl._dynamic[-1]
+        for t in spike:
+            t.join(timeout=300)
+        if errors or any(t.is_alive() for t in spike):
+            raise AssertionError(f"autoscale: the spike's streams {errors}")
+        for p in prompts:
+            toks = list(router.stream(p, NEW_TOKENS))
+            if len(toks) != NEW_TOKENS:
+                raise AssertionError(f"autoscale: {toks}")
+        c = RemoteServeClient(handle.addr, timeout=60)
+        st = c.stats()
+        c.close()
+        served, device = st.get(sm.SUBMITTED, 0), st["device"]
+        if served < 1 or not device.startswith("cuda"):
+            raise AssertionError(f"autoscale: the spawned replica served "
+                                 f"{served} on {device}")
+        down = ctl.step()
+        if (down.action != "down" or ctl.scale_downs != 1
+                or router.placeable_count() != 1
+                or handle.proc.poll() is None):
+            raise AssertionError(f"autoscale: {down}, process "
+                                 f"{handle.proc.poll()}")
+        handle = None
+    finally:
+        router.close()
+        if handle is not None and handle.proc.poll() is None:
+            handle.proc.kill()
+            handle.proc.wait(timeout=60)
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    del model, seed_eng
+    torch.cuda.empty_cache()
+    return {"phase": "router_autoscale", "spike": load,
+            "up": [up.action, up.target, up.reason],
+            "spawn_s": spawn_s, "spawned_served": served,
+            "spawned_device": device,
+            "down": [down.action, down.target, down.reason],
+            "startup_timeout_s": PROC_START_S, "nvidia_smi": _smi()}
 
 
 # -------------------------------------------------------------- training
@@ -4893,6 +5640,11 @@ def main() -> int:
     disagg_info["phase4_tpot_p99_ms"] = serve_info["run1"]["tpot_p99_ms"]
     disagg_info["phase4_tokens_per_s"] = serve_info["run1"]["tokens_per_s"]
     _line(disagg_info)
+    router_info = router_serve_phase(torch, args.seed, serve_info,
+                                     paged_results)
+    _line(router_info)
+    _line(router_process_phase(torch, args.seed))
+    _line(router_autoscale_phase(torch, args.seed))
     _line(train_reference_phase(torch, args.seed))
     train_info, flash_launches, _ = train_phase(torch, args.seed)
     train_info["nvidia_smi"] = _smi()
@@ -4991,7 +5743,15 @@ def main() -> int:
         # per run: the int8 mode's limit is in ulps, the bf16 one's not
         "disagg_held_on_path": {name: held(disagg_info[name]["held"],
                                            "paged_attention")
-                                for name, _, _ in DISAGG_POOLS}}]
+                                for name, _, _ in DISAGG_POOLS},
+        # the router slice's path: phase 6j's replicas, (a) per replica
+        # and (d)'s decode replica, and their held calls
+        "router_launches": {
+            "placement": router_info["placement"]["paged_calls"],
+            "disagg": router_info["disagg"]["paged_calls"]},
+        "router_held_on_path": held(router_info["held"]
+                                    + router_info["disagg"]["held"],
+                                    "paged_attention")}]
     for kname, run, ms, err in (
             ("paged_attention_int8", tiers_tp1, "kernel_ms", "max_err"),
             ("paged_attention_int8_tp2", tiers_tp2, "tp2_ms", "tp2_max_err")):

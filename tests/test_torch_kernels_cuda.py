@@ -47,6 +47,9 @@ the disaggregated KV ship between two CUDA engines: the adopted blocks
 give a colocated engine's tokens exactly (fp32), the paged launches are
 the decode replica's ticks x layers, both pools end at their base; and
 the ship's copies ordered after the writes queued on the default stream.
+And a port router over two CUDA replicas failing a stream over across a
+replica's kill: the splice equals its own control (the survivor's resumed
+continuation), every paged-attention call a kernel launch.
 """
 
 import numpy as np
@@ -1270,3 +1273,80 @@ def test_ship_copies_wait_for_writes_queued_on_the_tick_stream():
     got = e._split_rows(e.extract_kv_payloads([bid]))
     assert all(bool((t == 3.0).all()) for layer in got for t in layer.values())
     e.release_kv_ids([bid])
+
+
+@pytest.mark.cuda
+def test_router_fails_a_stream_over_across_a_replica_kill_on_the_card():
+    """A port router over two CUDA paged replicas (tiny fp32 model): the
+    replica holding a stream is killed after 3 tokens and the router
+    re-dispatches it with ``resume`` to the survivor.  The spliced stream
+    equals its own control (the tokens received, then the survivor's own
+    resumed continuation, alone); every paged-attention call of the run
+    was a kernel launch (launches = the replicas' decode ticks x layers,
+    no plain call)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.observability.metrics import MetricsRegistry
+    from byteps_tpu_torch.resilience.policy import RetryPolicy
+    from byteps_tpu_torch.serving import (RemoteServeClient, ServeMetrics,
+                                          ServeRouter, ServingEngine, serve)
+    from byteps_tpu_torch.serving import router as rt
+
+    cfg = TransformerConfig(vocab_size=97, num_layers=2, num_heads=4,
+                            num_kv_heads=2, d_model=64, d_ff=128,
+                            max_seq_len=128, dtype=torch.float32)
+    model = Transformer(cfg, device="cuda")
+    init_weights(model, 5)
+    prompt = np.random.RandomState(6).randint(0, 97, (23,)).astype(np.int32)
+    engines = [ServingEngine(model, n_slots=2, max_seq=128, paged=True,
+                             block=16, device="cuda", metrics=ServeMetrics())
+               for _ in range(2)]
+    resumed = []
+    for e in engines:
+        submit = e.submit
+
+        def recording(p, n, _submit=submit, **kw):
+            if kw.get("resume_tokens") is not None:
+                resumed.append(len(kw["resume_tokens"]))
+            return _submit(p, n, **kw)
+
+        e.submit = recording
+    srvs = [serve(e, 0, host="127.0.0.1", in_thread=True) for e in engines]
+    addrs = [f"127.0.0.1:{s.server_address[1]}" for s, _ in srvs]
+    router = ServeRouter(addrs, credits=2, deadline=120.0,
+                         stream_timeout=60.0, ping_timeout=30.0,
+                         registry=MetricsRegistry(),
+                         retry=RetryPolicy(max_attempts=6, backoff_base=0.02,
+                                           jitter=0.0, backoff_cap=0.2,
+                                           deadline=0.0)).start()
+    try:
+        torch.cuda.synchronize()
+        ticks0 = sum(e.decode_ticks for e in engines)
+        pa.launches = pa.plain_calls = 0
+        got, killed = [], None
+        for tok in router.stream(prompt, 24, rid="k"):
+            got.append(int(tok))
+            if len(got) == 3:
+                killed = router._inflight["k"]["r"]
+                srvs[killed][0].kill()
+        survivor = 1 - killed
+        c = RemoteServeClient(addrs[survivor], timeout=120)
+        k = resumed[-1]
+        control = got[:k] + [int(t) for t in c.stream(
+            prompt, 24, resume=got[:k])]
+        c.close()
+        torch.cuda.synchronize()
+        ticks = sum(e.decode_ticks for e in engines) - ticks0
+        assert len(got) == 24 and got == control
+        assert router.stats()[rt.REDISPATCHES] >= 1
+        assert pa.plain_calls == 0
+        assert ticks > 0 and pa.launches == ticks * cfg.num_layers
+    finally:
+        router.close()
+        for s, t in srvs:
+            s.shutdown()
+            s.server_close()
+            t.join(timeout=30)

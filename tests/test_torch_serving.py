@@ -223,8 +223,9 @@ def _no_jax_child(code: str, env=None) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module, the BERT models, the HF integrations and the
-    disaggregated KV ship included; none of them imports
+    """Every port module, the BERT models, the HF integrations, the
+    disaggregated KV ship and the router tier (router, journal,
+    autoscale, resilience, transport) included; none of them imports
     ``transformers``."""
     proc = _no_jax_child(
         "import byteps_tpu_torch, byteps_tpu_torch.serving\n"
@@ -243,6 +244,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import byteps_tpu_torch.integrations.gpt2\n"
         "import byteps_tpu_torch.integrations.llama\n"
         "import byteps_tpu_torch.integrations.hf_flash\n"
+        "import byteps_tpu_torch.serving.router\n"
+        "import byteps_tpu_torch.serving.journal\n"
+        "import byteps_tpu_torch.serving.autoscale\n"
+        "import byteps_tpu_torch.resilience\n"
+        "import byteps_tpu_torch.engine.transport\n"
         "assert 'transformers' not in sys.modules\n")
     assert proc.returncode == 0, proc.stderr
 

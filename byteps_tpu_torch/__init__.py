@@ -11,8 +11,12 @@ attention's forward and backward as hand-written kernels
 LM-head cross-entropy (``ops/fused_cross_entropy.py``); and cached
 generation (``inference.generate``) with its decode attention and int8
 weight-only product as hand-written kernels (``ops/decode_attention.py``,
-``ops/quant_dot.py``).  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+``ops/quant_dot.py``); and the BytePS core beyond one worker: the
+eager push_pull engine (``engine/dispatcher.py``) and collectives on
+``torch.distributed`` (``parallel/``) behind the Horovod API
+(``api.py``), the ``DistributedOptimizer`` and the data-parallel step
+(``training/``), one process a worker.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -8,11 +8,16 @@ either package: the logging pair ``common/logging.py`` needs, the
 the ``BYTEPS_DISAGG_*`` knobs of the disaggregated KV ship, the router
 tier's ``BYTEPS_ROUTER_*``, ``BYTEPS_DISAGG``, ``BYTEPS_SLO_*`` and
 ``BYTEPS_AUTOSCALE_*`` knobs with ``BYTEPS_HEARTBEAT_TIMEOUT_MS`` (the
-router's ping bound), and the worker knobs ``api.init``,
-``training.Trainer`` and ``make_data_parallel_step`` read.  Knobs naming features the port does
-not have yet (checkpoints, a multi-worker world, async PS, the Unix
-socket and shared-memory transports) are still parsed, so that a
-non-default value is refused loudly instead of ignored.
+router's ping bound), the worker knobs ``api.init``, the eager
+push_pull engine, ``training.Trainer`` and ``make_data_parallel_step``
+read (the DMLC cluster contract, partition bytes and scheduling
+credit, the wire dtype, the mesh shape), and the observability trio
+(``BYTEPS_TRACE_PATH``, which the worker path's tracer honours;
+``BYTEPS_METRICS_PORT`` and ``BYTEPS_TRACE_RPC``).  Knobs naming
+features the port does not have yet (checkpoints, async PS, the
+metrics scrape, RPC trace ids, the Unix socket and shared-memory
+transports) are still parsed, so that a non-default value is refused
+loudly instead of ignored.
 """
 
 from __future__ import annotations
@@ -45,6 +50,14 @@ def _env_str(name: str, default: str) -> str:
     return os.environ.get(name, default)
 
 
+def _env_opt_bool(name: str) -> Optional[bool]:
+    """Tri-state: unset/"" -> None (auto), else truthiness like _env_bool."""
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return None
+    return v.lower() not in ("0", "false", "no", "off", "")
+
+
 def _env_float(name: str, default: float) -> float:
     v = os.environ.get(name)
     if v is None or v == "":
@@ -65,12 +78,30 @@ class Config:
     log_level: str = "WARNING"
     log_hide_time: bool = False
 
-    # --- worker / training (api.py, training/) -------------------------
-    num_worker: int = 1            # DMLC_NUM_WORKER; > 1 refused (later)
+    # --- worker / training (api.py, engine/, training/) ----------------
+    num_worker: int = 1            # DMLC_NUM_WORKER: processes, one GPU each
+    worker_id: int = 0             # DMLC_WORKER_ID: this process's rank
     local_rank: Optional[int] = None   # BYTEPS_LOCAL_RANK (launcher)
     local_size: Optional[int] = None   # BYTEPS_LOCAL_SIZE (launcher)
-    partition_bytes: int = 4_096_000   # push_pull bucket bytes (world > 1)
+    partition_bytes: int = 4_096_000   # push_pull bucket / partition bytes
+    # the partition bound is aligned down to this many bytes, so every
+    # partition splits evenly over a group (the JAX package's value)
+    partition_align: int = 256
+    # engine credit in bytes; 0 = partition_bytes * (group_size + 1)
+    scheduling_credit: int = 0
+    group_size: int = 4
+    wire_dtype: str = ""           # "" (no cast) | "bf16" | "fp16"
+    mesh_shape: str = ""           # e.g. "dp=4" or "dcn=2,dp=2"; "" = dp
+    force_distributed: bool = False  # a dcn axis of 2 on one host
+    debug_sample_tensor: str = ""  # log first/last values of matching names
     enable_async: bool = False     # async PS mode; refused (later slice)
+    compression: str = ""          # registry default scheme; refused (A9)
+
+    # --- observability ---------------------------------------------------
+    trace_path: str = ""           # chrome trace of the worker path
+    trace_buffer: int = 100_000    # buffered events before a rollover flush
+    metrics_port: int = 0          # /metrics scrape; refused (A10)
+    trace_rpc: Optional[bool] = None  # RPC trace ids; refused (A10)
 
     # --- serving (serving/frontend.py serve_from_env) ------------------
     serve_port: int = 9000
@@ -171,9 +202,20 @@ class Config:
             log_hide_time=_env_bool("BYTEPS_LOG_HIDE_TIME"),
             num_worker=_env_int("DMLC_NUM_WORKER", 1),
             local_rank=_env_opt_int("BYTEPS_LOCAL_RANK"),
+            worker_id=_env_int("DMLC_WORKER_ID", 0),
             local_size=_env_opt_int("BYTEPS_LOCAL_SIZE"),
             partition_bytes=_env_int("BYTEPS_PARTITION_BYTES", 4_096_000),
+            scheduling_credit=_env_int("BYTEPS_SCHEDULING_CREDIT", 0),
+            wire_dtype=_env_str("BYTEPS_WIRE_DTYPE", ""),
+            mesh_shape=_env_str("BYTEPS_MESH_SHAPE", ""),
+            force_distributed=_env_bool("BYTEPS_FORCE_DISTRIBUTED"),
+            debug_sample_tensor=_env_str("BYTEPS_DEBUG_SAMPLE_TENSOR", ""),
             enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
+            compression=_env_str("BYTEPS_COMPRESSION", ""),
+            trace_path=_env_str("BYTEPS_TRACE_PATH", ""),
+            trace_buffer=_env_int("BYTEPS_TRACE_BUFFER", 100_000),
+            metrics_port=_env_int("BYTEPS_METRICS_PORT", 0),
+            trace_rpc=_env_opt_bool("BYTEPS_TRACE_RPC"),
             serve_port=_env_int("BYTEPS_SERVE_PORT", 9000),
             serve_slots=_env_int("BYTEPS_SERVE_SLOTS", 8),
             serve_max_seq=_env_int("BYTEPS_SERVE_MAX_SEQ", 0),
@@ -255,6 +297,60 @@ class Config:
             disagg_parked_cap=_env_int("BYTEPS_DISAGG_PARKED_CAP", 32),
             transport=_env_str("BYTEPS_TRANSPORT", "auto"),
         )
+
+
+    @property
+    def wire_torch_dtype(self):
+        """``BYTEPS_WIRE_DTYPE`` as a torch dtype (None = no cast)."""
+        if not self.wire_dtype:
+            return None
+        import torch
+
+        try:
+            return {"bf16": torch.bfloat16,
+                    "fp16": torch.float16}[self.wire_dtype]
+        except KeyError:
+            raise ValueError(f"BYTEPS_WIRE_DTYPE={self.wire_dtype!r}: "
+                             f"'bf16', 'fp16' or unset") from None
+
+    @property
+    def effective_partition_bytes(self) -> int:
+        """The partition bound aligned down to ``partition_align`` (the
+        JAX package's rule, reference global.cc:96-103)."""
+        if self.partition_align <= 1:
+            return self.partition_bytes
+        aligned = (self.partition_bytes
+                   - self.partition_bytes % self.partition_align)
+        return max(self.partition_align, aligned)
+
+    @property
+    def effective_credit(self) -> int:
+        """Scheduling credit in bytes (reference scheduled_queue.cc:31-42):
+        ``BYTEPS_SCHEDULING_CREDIT``, else ``partition_bytes *
+        (group_size + 1)``."""
+        if self.scheduling_credit > 0:
+            return self.scheduling_credit
+        return self.partition_bytes * (self.group_size + 1)
+
+
+def check_observability(cfg: "Config", role: str) -> None:
+    """Refuse the observability knobs the serve and router roles do not
+    serve: the ``/metrics`` scrape (``BYTEPS_METRICS_PORT``), RPC trace
+    ids (``BYTEPS_TRACE_RPC``) and the RPC spans ``BYTEPS_TRACE_PATH``
+    turns on there — the port's PS-tier and observability slice (queue A
+    item 10)."""
+    knobs = [f"BYTEPS_METRICS_PORT={cfg.metrics_port}"
+             if cfg.metrics_port else None,
+             f"BYTEPS_TRACE_RPC={int(cfg.trace_rpc)}"
+             if cfg.trace_rpc is not None else None,
+             f"BYTEPS_TRACE_PATH={cfg.trace_path!r}"
+             if cfg.trace_path else None]
+    knobs = [k for k in knobs if k]
+    if knobs:
+        raise NotImplementedError(
+            f"{', '.join(knobs)}: the {role} role has no metrics scrape "
+            f"and no RPC trace spans in this port yet (queue A item 10, "
+            f"the PS tier and observability export); unset them")
 
 
 def check_transport(transport: Optional[str]) -> None:

@@ -1,19 +1,108 @@
-"""Key -> shard placement — the port's copy of ``ServerSharder`` from
-``byteps_tpu/common/context.py``, the one piece of that module the
-router tier needs (``resilience/router.py``'s ``DegradedModeRouter``
-remaps dead replicas through :meth:`ServerSharder.remap`).
+"""Named-tensor registry and PS key encoding — the port of
+``byteps_tpu/common/context.py``.
 
-The rest of the JAX module — the declared-name registry, the tensor
-context types and the ``declared_key << 16 | partition`` keyspace — is
-the parameter-server runtime's and is ported with it, later.
+Counterpart of the reference's per-tensor bookkeeping:
+  * declared-name -> monotonically assigned ``declared_key`` registry
+    (``BytePSGlobal::IsTensorDeclared``/``GetContextFromName``,
+    reference global.cc:290-303);
+  * keyspace layout ``declared_key << 16 | partition_index`` giving 2^16
+    tensors x 2^16 partitions (reference operations.cc:214-230);
+  * key -> server sharding (:class:`ServerSharder`, reference
+    global.cc:305-334), which the router tier's ``DegradedModeRouter``
+    remaps dead replicas through.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List
+import zlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 from . import logging as bps_log
+from .types import DataType
+
+MAX_PARTITIONS = 1 << 16
+
+
+@dataclass
+class TensorContext:
+    """Per-declared-tensor state — counterpart of ``BPSContext``
+    (reference common.h:138-154)."""
+
+    name: str
+    declared_key: int
+    dtype: Optional[DataType] = None
+    shape: tuple = ()
+    nbytes: int = 0
+    initialized: bool = False
+    key_list: List[int] = field(default_factory=list)
+    priority: int = 0
+    version: int = 0
+
+
+class TensorRegistry:
+    """Thread-safe name -> TensorContext map with monotonic key
+    assignment.  ``declare`` is idempotent per name (reference
+    IsTensorDeclared, global.cc:290-303): the first call assigns the next
+    declared_key, later calls return the existing context."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._by_name: Dict[str, TensorContext] = {}
+        self._next_key = 0
+
+    def declare(self, name: str) -> TensorContext:
+        with self._lock:
+            ctx = self._by_name.get(name)
+            if ctx is None:
+                if self._next_key >= MAX_PARTITIONS:
+                    raise RuntimeError(
+                        f"too many declared tensors (max {MAX_PARTITIONS})")
+                ctx = TensorContext(name=name, declared_key=self._next_key)
+                self._by_name[name] = ctx
+                self._next_key += 1
+                bps_log.trace("declared tensor %s key %d", name,
+                              ctx.declared_key)
+            return ctx
+
+    def get(self, name: str) -> TensorContext:
+        with self._lock:
+            try:
+                return self._by_name[name]
+            except KeyError as e:
+                raise KeyError(f"tensor {name!r} was never declared") from e
+
+    def contains(self, name: str) -> bool:
+        with self._lock:
+            return name in self._by_name
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return list(self._by_name)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._by_name.clear()
+            self._next_key = 0
+
+
+def name_key(name: str) -> int:
+    """Order-independent key: ``crc32(name) & 0xFFFF`` in the
+    declared_key slot of the keyspace, for placement that must not depend
+    on each worker's declaration order."""
+    return (zlib.crc32(name.encode()) & 0xFFFF) << 16
+
+
+def partition_key(declared_key: int, partition_index: int) -> int:
+    """Keyspace layout of reference operations.cc:214-230."""
+    if not 0 <= partition_index < MAX_PARTITIONS:
+        raise ValueError(f"partition_index {partition_index} out of range")
+    return (declared_key << 16) | partition_index
+
+
+def split_key(key: int) -> tuple:
+    return key >> 16, key & (MAX_PARTITIONS - 1)
 
 
 class ServerSharder:

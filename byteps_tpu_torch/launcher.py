@@ -1,39 +1,74 @@
-"""Process launcher — the port's ``python -m byteps_tpu_torch.launcher``.
+"""Process launcher — the port's ``python -m byteps_tpu_torch.launcher``,
+after ``byteps_tpu/launcher.py``.
 
-This package ports two roles of ``byteps_tpu/launcher.py``:
-
+* ``DMLC_ROLE=worker`` (the default) runs the command given on the
+  command line as one worker: it checks the DMLC cluster contract and
+  starts the command with the variables ``api.init`` reads
+  (``BYTEPS_COORDINATOR_ADDR`` from ``DMLC_PS_ROOT_URI`` and
+  ``DMLC_PS_ROOT_PORT``, ``BYTEPS_NUM_PROCESSES``, ``BYTEPS_PROCESS_ID``
+  and ``BYTEPS_LOCAL_RANK``), and exits with its exit code.  One launch a
+  worker: ``DMLC_NUM_WORKER=2`` needs two launches, with
+  ``DMLC_WORKER_ID`` 0 and 1.
 * ``DMLC_ROLE=serve`` builds the serving engine from ``BYTEPS_SERVE_*``
-  (the dense slot engine, or with ``BYTEPS_SERVE_PAGED=1`` the paged
-  one) and blocks on the TCP frontend (``serving/frontend.py:
+  and blocks on the TCP frontend (``serving/frontend.py:
   serve_from_env``), on the GPU;
 * ``DMLC_ROLE=router`` builds the serving router from
-  ``BYTEPS_ROUTER_*`` (with ``BYTEPS_DISAGG``, ``BYTEPS_SLO_*`` and, with
-  ``BYTEPS_AUTOSCALE=1``, the autoscaler) and blocks on its TCP frontend
-  (``serving/router.py:router_from_env``).  The router is host code and
-  touches no device.
-
-The worker, parameter-server and scheduler roles are later slices and
-exit non-zero with a notice.
+  ``BYTEPS_ROUTER_*`` and blocks on its TCP frontend
+  (``serving/router.py:router_from_env``), host code only;
+* ``DMLC_ROLE=scheduler`` exits 0 with a notice: ``torch.distributed``'s
+  TCP rendezvous replaces the DMLC scheduler;
+* ``DMLC_ROLE=server`` (the async parameter-server shard) is refused
+  until the port's PS-tier slice (queue A item 10).
 
 Usage::
 
+    DMLC_NUM_WORKER=2 DMLC_WORKER_ID=0 DMLC_PS_ROOT_URI=10.0.0.1 \\
+        DMLC_PS_ROOT_PORT=29500 python -m byteps_tpu_torch.launcher \\
+        python train.py ...
     DMLC_ROLE=serve BYTEPS_SERVE_PORT=9000 python -m byteps_tpu_torch.launcher
-    DMLC_ROLE=router BYTEPS_ROUTER_REPLICAS=host:9000,host:9001 \\
-        python -m byteps_tpu_torch.launcher
-
-(``BYTEPS_SERVE_MODEL`` overrides the default model, d_model 128 over
-4 heads of 32, as in the JAX serve role.)
 """
 
 from __future__ import annotations
 
 import os
+import subprocess
 import sys
 
 
-def main() -> int:
+def _check_env(env: dict) -> None:
+    """Validate the cluster contract (reference launch.py:10-31)."""
+    required = ["DMLC_NUM_WORKER", "DMLC_ROLE"]
+    if int(env.get("DMLC_NUM_WORKER", "1")) > 1:
+        required += ["DMLC_WORKER_ID", "DMLC_PS_ROOT_URI",
+                     "DMLC_PS_ROOT_PORT"]
+    missing = [k for k in required if k not in env]
+    if missing:
+        raise SystemExit(f"byteps_tpu_torch.launcher: missing required "
+                         f"env: {', '.join(missing)}")
+
+
+def build_child_env(env: dict) -> dict:
+    """The worker command's environment: the DMLC contract rendered as
+    the variables ``api.init`` reads."""
+    child = dict(env)
+    nproc = int(env.get("DMLC_NUM_WORKER", "1"))
+    if nproc > 1:
+        uri = env["DMLC_PS_ROOT_URI"]
+        port = env.get("DMLC_PS_ROOT_PORT", "1234")
+        child["BYTEPS_COORDINATOR_ADDR"] = f"{uri}:{port}"
+        child["BYTEPS_NUM_PROCESSES"] = str(nproc)
+        child["BYTEPS_PROCESS_ID"] = env.get("DMLC_WORKER_ID", "0")
+    # one worker per launch: its local rank is 0 unless the caller says
+    # otherwise (api.local_rank)
+    child.setdefault("BYTEPS_LOCAL_RANK", "0")
+    return child
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     env = dict(os.environ)
-    role = env.get("DMLC_ROLE", "worker")
+    env.setdefault("DMLC_ROLE", "worker")
+    role = env["DMLC_ROLE"]
     if role == "serve":
         from .serving.frontend import serve_from_env
 
@@ -42,11 +77,27 @@ def main() -> int:
         from .serving.router import router_from_env
 
         return router_from_env(env)
-    print(f"byteps_tpu_torch.launcher: role {role!r} is not ported yet; "
-          f"only DMLC_ROLE=serve and DMLC_ROLE=router run in this "
-          f"package (use byteps_tpu.launcher for the others)",
-          file=sys.stderr)
-    return 2
+    if role == "scheduler":
+        print("byteps_tpu_torch.launcher: role 'scheduler' is not needed "
+              "(torch.distributed's TCP rendezvous replaces the DMLC "
+              "scheduler); exiting.")
+        return 0
+    if role != "worker":
+        print(f"byteps_tpu_torch.launcher: role {role!r} is not ported "
+              f"yet: the parameter-server tier is queue A item 10 (use "
+              f"byteps_tpu.launcher for it); this package runs "
+              f"DMLC_ROLE=worker, serve and router", file=sys.stderr)
+        return 2
+    if not argv:
+        raise SystemExit("usage: python -m byteps_tpu_torch.launcher "
+                         "COMMAND [ARGS...]")
+    _check_env(env)
+    proc = subprocess.Popen(argv, env=build_child_env(env))
+    try:
+        return proc.wait()
+    except KeyboardInterrupt:
+        proc.terminate()
+        return proc.wait()
 
 
 if __name__ == "__main__":

@@ -6,11 +6,14 @@ reservoir for percentiles) and a get-or-create :class:`MetricsRegistry`
 keyed by name and static labels, with ``get``, ``remove`` and
 ``snapshot()``.
 
-The JAX package mirrors every bump onto its chrome-trace ``Tracer`` and
-serves a Prometheus scrape; neither is ported, so the registry here
-stores values only (a counter's or gauge's ``track``, its trace row in
-JAX, is accepted and ignored).  ``snapshot()`` keeps the JAX
-layout (``{"counters", "gauges", "histograms"}`` keyed by
+As in the JAX package, a counter bump or a gauge write is mirrored onto
+the process's chrome-trace ``Tracer`` (common/tracing.py) when tracing
+is on (``BYTEPS_TRACE_PATH``): an instant event with ``inc``'s keyword
+arguments (unless ``instants=False``) and a value on the metric's
+counter track (its ``track``, by default the name's namespace prefix);
+``mirror=False`` keeps a metric registry-only.  The Prometheus scrape is
+not ported (queue A item 10).  ``snapshot()`` keeps the JAX layout
+(``{"counters", "gauges", "histograms"}`` keyed by
 ``name{label=value,...}``), which the STATS replies carry unchanged.
 """
 
@@ -23,12 +26,27 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "get_registry"]
 
 
-class _Metric:
-    """Identity: the name and its static labels (``label_key`` is the
-    snapshot key, JAX's ``name{k=v,...}``)."""
+def _tracer():
+    from ..common.tracing import get_tracer
 
-    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None):
+    return get_tracer()
+
+
+def _default_track(name: str) -> str:
+    """A metric's chrome-trace row: its namespace prefix
+    (``resilience.retry`` -> ``resilience``), else ``metrics``."""
+    return name.split(".", 1)[0] if "." in name else "metrics"
+
+
+class _Metric:
+    """Identity: the name, its trace row and its static labels
+    (``label_key`` is the snapshot key and the mirrored series name,
+    JAX's ``name{k=v,...}``)."""
+
+    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None,
+                 track: Optional[str] = None):
         self.name = name
+        self.track = track or _default_track(name)
         self.labels = dict(labels or {})
         if self.labels:
             inner = ",".join(f"{k}={v}"
@@ -40,17 +58,32 @@ class _Metric:
 
 
 class Counter(_Metric):
-    """Monotonic counter (``inc``'s keyword arguments are the JAX
-    tracer's instant-event args, dropped here)."""
+    """Monotonic counter.  ``inc``'s keyword arguments ride the mirrored
+    instant event; ``instants=False`` keeps only the value track and
+    ``mirror=False`` drops the mirroring."""
 
-    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None):
-        super().__init__(name, labels)
+    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None,
+                 track: Optional[str] = None, instants: bool = True,
+                 mirror: bool = True):
+        super().__init__(name, labels, track)
         self._value = 0
+        self._instants = instants
+        self._mirror = mirror
 
-    def inc(self, n: int = 1, **_args) -> int:
+    def inc(self, n: int = 1, **args) -> int:
         with self._lock:
             self._value += n
-            return self._value
+            total = self._value
+        if self._mirror:
+            tracer = _tracer()
+            if tracer.enabled:
+                if self._instants:
+                    # "name" would collide with instant()'s own first param
+                    safe = {("tensor" if k == "name" else k): v
+                            for k, v in args.items()}
+                    tracer.instant(self.label_key, self.track, **safe)
+                tracer.counter(self.label_key, total, self.track)
+        return total
 
     @property
     def value(self) -> int:
@@ -59,15 +92,21 @@ class Counter(_Metric):
 
 
 class Gauge(_Metric):
-    """Last-written value."""
+    """Last-written value, mirrored onto its trace value track."""
 
-    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None):
-        super().__init__(name, labels)
+    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None,
+                 track: Optional[str] = None, mirror: bool = True):
+        super().__init__(name, labels, track)
         self._value = 0.0
+        self._mirror = mirror
 
     def set(self, value: float) -> None:
         with self._lock:
             self._value = float(value)
+        if self._mirror:
+            tracer = _tracer()
+            if tracer.enabled:
+                tracer.counter(self.label_key, value, self.track)
 
     @property
     def value(self) -> float:
@@ -175,12 +214,15 @@ class MetricsRegistry:
             return m
 
     def counter(self, name: str, track: Optional[str] = None,
+                instants: bool = True, mirror: bool = True,
                 **labels) -> Counter:
-        return self._get_or_create(Counter, name, labels)
+        return self._get_or_create(Counter, name, labels, track=track,
+                                   instants=instants, mirror=mirror)
 
     def gauge(self, name: str, track: Optional[str] = None,
-              **labels) -> Gauge:
-        return self._get_or_create(Gauge, name, labels)
+              mirror: bool = True, **labels) -> Gauge:
+        return self._get_or_create(Gauge, name, labels, track=track,
+                                   mirror=mirror)
 
     def histogram(self, name: str) -> Histogram:
         return self._get_or_create(Histogram, name, {})

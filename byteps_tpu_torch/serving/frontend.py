@@ -893,10 +893,12 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
     (``BYTEPS_SERVE_PAGED_KERNEL=off``) the gather fallback.  A
     checkpoint (``BYTEPS_SERVE_CHECKPOINT``), which the port cannot load
     yet, is refused, never ignored; so is a ``BYTEPS_SERVE_PREFIX_BLOCK``
-    other than ``BYTEPS_SERVE_BLOCK`` on a paged engine."""
+    other than ``BYTEPS_SERVE_BLOCK`` on a paged engine, and so are the
+    metrics scrape and the RPC trace knobs (``BYTEPS_METRICS_PORT``,
+    ``BYTEPS_TRACE_RPC``, ``BYTEPS_TRACE_PATH``)."""
     import os
 
-    from ..common.config import get_config, reset_config
+    from ..common.config import check_observability, get_config, reset_config
     from .engine import resolve_device
 
     if env is not None:
@@ -908,6 +910,7 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
         raise NotImplementedError(
             "['BYTEPS_SERVE_CHECKPOINT'] selects a checkpoint, which this "
             "port cannot load yet")
+    check_observability(cfg, "serve")
     dev = resolve_device(device)
     model = _model_from_env(cfg.serve_model, dev)
     engine = ServingEngine(

@@ -2160,16 +2160,20 @@ def serve_router(router: ServeRouter, port: int, host: str = "0.0.0.0",
 
 def router_from_env(env=None) -> int:
     """Entry point for the launcher's ``router`` role: build the router
-    from ``BYTEPS_ROUTER_*`` and block on the TCP frontend."""
+    from ``BYTEPS_ROUTER_*`` and block on the TCP frontend.  The metrics
+    scrape and the RPC trace knobs (``BYTEPS_METRICS_PORT``,
+    ``BYTEPS_TRACE_RPC``, ``BYTEPS_TRACE_PATH``) are refused, never
+    ignored."""
     import os
 
-    from ..common.config import get_config, reset_config
+    from ..common.config import check_observability, get_config, reset_config
 
     if env is not None:
         os.environ.update({k: str(v) for k, v in env.items()
                            if k.startswith(("BYTEPS_", "DMLC_"))})
     reset_config()
     cfg = get_config()
+    check_observability(cfg, "router")
     replicas = [a.strip() for a in cfg.router_replicas.split(",")
                 if a.strip()]
     if not replicas:

@@ -1,12 +1,17 @@
-"""Train-step factories — the port of ``byteps_tpu/training/step.py`` for
-one worker.
+"""Train-step factories — the port of ``byteps_tpu/training/step.py``.
 
 ``make_data_parallel_step(loss_fn, optimizer)`` returns a step that runs
-the loss forward, ``backward()`` and ``optimizer.step()``.  This is the
-JAX factory's world-1 short-circuit (``step.py:142-152``): with one
-worker there is nothing to reduce, so the optimizer is used as it is.
-A larger world, wire compression and ``backward_passes_per_step > 1``
-need the port's push_pull (the collectives slice) and are refused.
+the loss forward on this worker's batch, ``backward()`` and
+``optimizer.step()``.  With more than one worker (or
+``backward_passes_per_step > 1``) the optimizer is wrapped in the
+:class:`~byteps_tpu_torch.training.optimizer.DistributedOptimizer`, so
+the gradients are averaged across workers, bucketed, while backward
+runs; the reported loss is the mean over the workers and floating
+model state is averaged, as the JAX step's ``psum / n`` does.  With one
+worker and one pass a step, the JAX factory's short-circuit
+(``step.py:142-152``): the optimizer is used as it is, and a cast
+compression still rounds each gradient through its wire dtype, so a
+one-worker rerun sees the numerics of a compressed multi-worker run.
 
 PyTorch idiom where JAX was functional: parameters live in the module
 and the optimizer (a ``torch.optim`` optimizer built by the caller over
@@ -27,10 +32,13 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from .. import api
+from ..ops.compression import Compression
+from .optimizer import DistributedOptimizer
 
 __all__ = ["TrainState", "TrainStep", "create_train_state",
            "make_data_parallel_step", "lm_loss_fn"]
@@ -61,11 +69,6 @@ def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
                       model_state if model_state is not None else {}, 0)
 
 
-def _is_none_compression(compression) -> bool:
-    return compression is None or (isinstance(compression, str)
-                                   and compression == "none")
-
-
 class TrainStep:
     """The step function plus the optimizer whose state it updates; use
     ``init_state`` to build a matching :class:`TrainState`."""
@@ -87,37 +90,50 @@ def make_data_parallel_step(loss_fn: Callable,
                             compression: Any = None,
                             partition_bytes: Optional[int] = None,
                             backward_passes_per_step: int = 1) -> TrainStep:
-    """A train step ``step(state, batch) -> (state, {"loss": loss})`` for
-    a world of one worker (``world_size`` defaults to ``api.size()``).
-    The returned loss is the detached scalar; reading it synchronizes
-    with the device.  ``partition_bytes`` (default
-    ``BYTEPS_PARTITION_BYTES``) sizes the buckets of the multi-worker
-    push_pull and is unused by a world of one, as in the JAX step."""
-    world = api.size() if world_size is None else world_size
-    if world != 1:
-        raise NotImplementedError(
-            f"world size {world}: gradient push_pull belongs to the port's "
-            f"collectives slice (torch.distributed), not ported yet; one "
-            f"worker only for now")
-    if not _is_none_compression(compression):
-        raise NotImplementedError(
-            f"compression={compression!r}: wire compression belongs to the "
-            f"port's compression slice, not ported yet; only 'none' for "
-            f"now")
-    if backward_passes_per_step != 1:
-        raise NotImplementedError(
-            "backward_passes_per_step > 1 accumulates through the "
-            "DistributedOptimizer of the port's collectives slice, not "
-            "ported yet")
+    """A train step ``step(state, batch) -> (state, {"loss": loss})`` over
+    ``api.size()`` workers (``world_size``, when given, must equal it).
+    ``batch`` is this worker's share; the returned loss is the detached
+    mean over the workers, and reading it synchronizes with the device.
+    ``compression`` is a cast (``"none"``, ``"fp16"``, ``"bf16"`` or a
+    Compressor class); ``partition_bytes`` (default
+    ``BYTEPS_PARTITION_BYTES``) sizes the gradient buckets."""
+    world = api.size()
+    if world_size is not None and world_size != world:
+        raise ValueError(f"world size {world_size} but api.size() is "
+                         f"{world}: the workers are the processes of "
+                         f"api.init()")
+    comp = Compression.resolve(compression)
+    distributed = world > 1 or backward_passes_per_step > 1
+    if distributed:
+        optimizer = DistributedOptimizer(
+            optimizer, compression=comp,
+            backward_passes_per_step=backward_passes_per_step,
+            partition_bytes=partition_bytes)
+    group = api.mesh().group(None)
+
+    def mean(t: torch.Tensor) -> torch.Tensor:
+        t = t.detach().clone()
+        dist.all_reduce(t, group=group)
+        return t / world
 
     def step(state: TrainState, batch):
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss, new_mstate = loss_fn(state.model, state.model_state, batch)
         loss.backward()
+        if not distributed and comp.wire_dtype is not None:
+            for p in state.model.parameters():
+                if p.grad is not None:
+                    p.grad = comp.decompress(*comp.compress(p.grad))
         opt.step()
+        loss = loss.detach()
+        if world > 1:
+            loss = mean(loss)
+            new_mstate = {k: mean(v) if torch.is_tensor(v)
+                          and v.is_floating_point() else v
+                          for k, v in new_mstate.items()}
         return (TrainState(state.model, opt, new_mstate, state.step + 1),
-                {"loss": loss.detach()})
+                {"loss": loss})
 
     return TrainStep(step, optimizer)
 

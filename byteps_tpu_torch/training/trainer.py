@@ -1,6 +1,10 @@
 """High-level training loop — the port of ``byteps_tpu/training/
-trainer.py`` for one worker: owns the step function, the
-broadcast-at-start and the train loop, so user code is model + data.
+trainer.py``: owns the step function, the broadcast-at-start and the
+train loop, so user code is model + data.  Each worker (process) runs
+one ``Trainer`` over its own share of the batches; rank 0's parameters
+are broadcast at start, the gradients are averaged across the workers
+every step (``make_data_parallel_step``) and the logged loss is the mean
+over the workers.
 
 Example::
 
@@ -9,12 +13,13 @@ Example::
                                         weight_decay=1e-4))
     state = trainer.fit(model, {}, batches, steps=1000)
 
-``evaluate(eval_fn, batches)`` averages metrics over batches without
-gradients.  Checkpoints, async-PS mode, ByteScheduler overlap and
-callbacks are refused until their slices land.  ``device`` defaults to
-``cuda`` (no
-GPU: pass ``device="cpu"``); the model's parameters must already be
-there, and batches are moved there.
+``evaluate(eval_fn, batches)`` averages metrics over batches and
+workers without gradients.  Checkpoints, callbacks and ByteScheduler
+overlap (queue A item 8) and async-PS mode (item 10) are refused until
+their slices land.  ``device`` defaults to ``cuda`` (no GPU: pass
+``device="cpu"``); the model's parameters must already be there, and
+batches are moved there.  To share one card between workers, call
+``api.init(device, backend="gloo")`` before building the Trainer.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import time
 from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import api
@@ -53,9 +59,9 @@ class Trainer:
              else async_mode)) if on]
         if refused:
             raise NotImplementedError(
-                f"{refused}: not ported yet (they belong to the port's "
-                f"collectives slice and its PS-tier slice); the port's "
-                f"Trainer runs the synchronous step")
+                f"{refused}: not ported yet (checkpoints, callbacks and "
+                f"overlap are queue A item 8, async mode item 10); the "
+                f"port's Trainer runs the synchronous step")
         api.init(device)
         self.device = api.device()
         self.step_fn = make_data_parallel_step(
@@ -67,7 +73,8 @@ class Trainer:
 
     def init_state(self, model: nn.Module, model_state=None,
                    root_rank: int = 0) -> TrainState:
-        """Broadcast-consistent init (the identity with one worker)."""
+        """Broadcast-consistent init: ``root_rank``'s parameters (and
+        model state) on every worker, in place."""
         wrong = {p.device for p in model.parameters()
                  if p.device != self.device}
         if wrong:
@@ -138,4 +145,11 @@ class Trainer:
                     drain(out)
         finally:
             model.train(was_training)
-        return {k: v / max(n, 1) for k, v in sums.items()}
+        means = {k: v / max(n, 1) for k, v in sums.items()}
+        if api.size() > 1 and means:
+            keys = sorted(means)
+            t = torch.tensor([means[k] for k in keys], dtype=torch.float64,
+                             device=self.device)
+            dist.all_reduce(t, group=api.mesh().group(None))
+            means = dict(zip(keys, (t / api.size()).tolist()))
+        return means

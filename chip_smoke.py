@@ -309,6 +309,52 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    while each design's backward runs back to back for 2 s.  GPT-2 small's
    fused head (N=8192, H=768, V=50257) is checked and timed the same way
    in bf16.
+13a. Data-parallel training (the main path of the BytePS-core slice).
+   (a) One worker on NCCL: ``api.init()`` on ``cuda`` (default backend
+   ``nccl``, world 1), then CUDA tensors of Llama-3.2-1B's first layer
+   (its 9 parameter shapes) and the tied embedding (257 partitions of
+   4,096,000 bytes): ``declare`` gives keys 0..9; ``push_pull_async`` of
+   all ten in reverse priority order while the engine's credit is held
+   at 0, then released: the grant order is (priority desc, key asc) over
+   every partition, as predicted; ``poll`` / ``synchronize``,
+   ``push_pull`` with average on and off, ``push_pull_sparse`` (a
+   duplicate row, one out of range), ``broadcast`` and
+   ``broadcast_parameters`` give the world of one's bits exactly.
+   Under ``BYTEPS_TRACE_PATH`` the chrome trace is written, read back,
+   and holds a dispatch and a push_pull span for every partition.
+   (b) Two workers through the launcher: ``python -m
+   byteps_tpu_torch.launcher chip_smoke.py --dp-worker`` twice, with
+   ``DMLC_NUM_WORKER=2``, ``DMLC_WORKER_ID`` 0 and 1 and a free
+   ``DMLC_PS_ROOT_PORT``, started after the kernels are built (they reuse
+   the build directory).  NCCL refuses two ranks on one GPU, so both ask
+   for ``backend="gloo"`` on ``cuda:0`` by name.  Each runs
+   ``Trainer.fit`` on full-width Llama-3.2-1B with the fused head (random
+   weights: rank r's from ``--seed + r``, rank 0's broadcast at start,
+   AdamW as phase 11), 2 x 2048 tokens a worker (rank r rows 2r and 2r+1
+   of phase 11's 4 x 2048 batch), 3 steps; the DistributedOptimizer
+   all-reduces the gradient buckets on the eager engine while backward
+   runs.  Each step's averaged loss must be identical on both ranks, the
+   parameters' SHA-256 equal after step 3, and each loss within 1e-3
+   relative of a one-worker run of the 4 x 2048 batch in this process
+   (the split changes the order of the dW sums); every worker step
+   launches flash forward, dq and dk/dv once a layer and the fused-CE
+   forward once and dx and dW once a vocab chunk, on TMA, with no plain
+   call.  Each worker's first flash call and its fused-CE call of step 1
+   (B=2 x 2048; N=4096, H=2048, V=128256), forward and backward, are held
+   to the plain versions at phase 9's and 13's limits.  The first step's
+   averaged gradient at three leaves (the tied embedding's first 4096
+   rows, layer 0's q and layer 8's MLP down projection) must lie within
+   2e-2 of each leaf's largest |g| of the one-worker run's, and two
+   wrong reductions computed from the same readings must not: the sum
+   left unaveraged, and each rank's own gradient alone.  Per worker:
+   step ms, push_pull busy ms a step (the union of the tracer's
+   push_pull spans), each partition's push_pull span and its latency
+   from dispatch, the dispatcher's ms in the order gathers, buckets and
+   bytes, collectives a step, peak memory, agreement cycles; beside them
+   a bare gloo ``all_reduce`` of one partition's 4,096,000 bytes on a
+   CUDA and on a host tensor, on the default group while the engine is
+   idle.  No collective is staged through the host: the port has no
+   staging path.
 
 13b. BERT reference — BERT-base (``bert_config()``: 12 x 768, 12 heads,
    3072, vocab 30522) in fp32 from ``--seed``, ``attn_impl="flash"``
@@ -480,7 +526,9 @@ calls of 15b or 6h; the flash forward entry phase 15b's prefill launches
 and held calls; the flash entries also the BERT fine-tune's launches,
 its held forward and backward calls and the BERT case's times, GPT-2's
 and Llama's prefills and GPT-2's fused training; the fused-CE entries
-GPT-2's training launches and held call; the bf16 decode entry GPT-2's
+GPT-2's training launches and held call; the flash and fused-CE entries
+each worker's launches in phase 13a (b) and both workers' held calls;
+the bf16 decode entry GPT-2's
 and Llama's launches, their held calls and the G = 1 case's times; the
 int8 product GPT-2's launches by design and held calls), and ``{"ok":
 true, "device": {...}}``.
@@ -4660,6 +4708,502 @@ def fce_kernel_phase(torch, seed: int):
     main["gpt2"] = gpt2
     return main
 
+# ------------------------------------------------ data-parallel training
+
+DP_WORLD = 2          # workers of phase 13a (b), one process each
+DP_STEPS = 3
+DP_LOSS_TOL = 1e-3    # the two-worker losses vs one worker's, relative
+DP_TIMEOUT_S = 600.0  # both workers: start, broadcast, 3 steps, hash
+# the first step's averaged gradient vs the one-worker run's at these
+# leaves (their first DP_GRAD_ROWS rows), relative to each leaf's largest
+# |g|: the bf16 gradient limit of the held dx / dW calls
+DP_GRAD_LEAVES = ("embed.weight", "blocks.0.attn.q.weight",
+                  "blocks.8.mlp.down.weight")
+DP_GRAD_ROWS = 4096
+DP_GRAD_TOL = 2e-2
+DP_BARE_REPS = 10     # bare all_reduces timed a tensor kind, after 2 warm
+
+
+def dp_eager_phase(torch, seed: int) -> dict:
+    """Phase 13a (a): the eager API at one worker on NCCL (module
+    docstring)."""
+    import math
+    import os
+    import tempfile
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.common.config import get_config, reset_config
+    from byteps_tpu_torch.common.context import partition_key
+    from byteps_tpu_torch.common.tracing import reset_tracer
+    from byteps_tpu_torch.engine.dispatcher import get_engine
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig)
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16)
+    meta = Transformer(cfg, device="meta")
+    shapes = [(n, tuple(p.shape)) for n, p in meta.named_parameters()
+              if n == "embed.weight" or n.startswith("blocks.0.")]
+    total = sum(math.prod(s) * 4 for _, s in shapes)
+    fd, trace = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    # credit for every byte at once: held at 0 while the tensors are
+    # enqueued, then released, the queue grants its whole order in one go
+    over = {"BYTEPS_TRACE_PATH": trace,
+            "BYTEPS_SCHEDULING_CREDIT": str(total + 1)}
+    os.environ.update(over)
+    reset_config()
+    reset_tracer()
+    info = {"phase": "dp_eager", "world": 1,
+            "tensors": [[n, list(s)] for n, s in shapes]}
+    try:
+        api.init()
+        info["backend"] = api.backend()
+        if (api.size(), info["backend"]) != (1, "nccl"):
+            raise AssertionError(f"world {api.size()} on "
+                                 f"{info['backend']}, want 1 on nccl")
+        engine = get_engine()
+        bound = get_config().effective_partition_bytes
+        names = [n for n, _ in shapes]
+        keys = [api.declare(f"avg.{n}") for n in names]
+        if keys != list(range(len(names))):
+            raise AssertionError(f"declared keys {keys}")
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        xs = [torch.randn(s, device="cuda", generator=g) for _, s in shapes]
+        parts = [-(-x.numel() * 4 // bound) for x in xs]
+        held = engine.queue.credits
+        if not engine.queue.try_debit(held):
+            raise AssertionError("could not hold the engine's credit")
+        grants0 = len(engine.grants)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = {n: api.push_pull_async(x, name=f"avg.{n}")
+                   for n, x in reversed(list(zip(names, xs)))}
+        if any(api.poll(h) for h in handles.values()):
+            raise AssertionError("a push_pull finished with no credit")
+        engine.queue.credit(held)
+        outs = {n: api.synchronize(h) for n, h in handles.items()}
+        info["avg_ms"] = (time.perf_counter() - t0) * 1e3
+        granted = [g_[0] for g_ in list(engine.grants)[grants0:]]
+        # priority -declared_key: (priority desc, key asc) sorts by
+        # (declared key, partition key)
+        predicted = [name for _, _, name in sorted(
+            (k, partition_key(k, i),
+             f"avg.{n}_{i}" if p > 1 else f"avg.{n}")
+            for k, n, p in zip(keys, names, parts) for i in range(p))]
+        info["grant_order_as_predicted"] = granted == predicted
+        info["granted_first"] = granted[:3]
+        info["partitions_per_tensor"] = dict(zip(names, parts))
+        if granted != predicted:
+            raise AssertionError(f"grant order {granted[:12]}... vs "
+                                 f"(priority desc, key asc) "
+                                 f"{predicted[:12]}...")
+        bad = [n for n, x in zip(names, xs) if not torch.equal(outs[n], x)]
+        polls = 0
+        h = api.push_pull_async(xs[1], average=False, name="sum.one")
+        while not api.poll(h):
+            polls += 1
+            time.sleep(1e-4)
+        if not torch.equal(api.synchronize(h), xs[1]):
+            bad.append("sum.one")
+        # again with the communicator up: the first collective on a
+        # group initializes NCCL inside avg_ms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums = [api.push_pull_async(x, average=False, name=f"sum.{n}")
+                for n, x in zip(names, xs)]
+        sums = [api.synchronize(h) for h in sums]
+        info["sum_ms"] = (time.perf_counter() - t0) * 1e3
+        bad += [f"sum.{n}" for n, x, y in zip(names, xs, sums)
+                if not torch.equal(y, x)]
+        idx = torch.tensor([3, 3, 7, 5000, 5], device="cuda")
+        vals = torch.randn(5, cfg.d_model, device="cuda", generator=g)
+        want = torch.zeros(64, cfg.d_model)
+        for i, v in zip(idx.tolist(), vals.cpu()):
+            if i < 64:
+                want[i] += v
+        if not torch.equal(api.push_pull_sparse(idx, vals, 64).cpu(), want):
+            bad.append("push_pull_sparse")
+        if not torch.equal(api.broadcast(xs[2]), xs[2]):
+            bad.append("broadcast")
+        layer = torch.nn.ParameterDict({n.replace(".", "_"):
+                                        torch.nn.Parameter(x.clone())
+                                        for n, x in zip(names, xs)})
+        if api.broadcast_parameters(layer) is not layer or not all(
+                torch.equal(layer[n.replace(".", "_")], x)
+                for n, x in zip(names, xs)):
+            bad.append("broadcast_parameters")
+        if bad:
+            raise AssertionError(f"not the world of one's bits: {bad}")
+        info["polls_before_done"] = polls
+        info["engine"] = dict(engine.counts)
+    finally:
+        api.shutdown()           # flushes the trace
+        for k in over:
+            os.environ.pop(k, None)
+        reset_config()
+        reset_tracer()
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    os.unlink(trace)
+    per = {}
+    for e in events:
+        if e.get("ph") == "X" and e["name"].startswith("avg."):
+            per.setdefault(e["name"], set()).add(e["cat"])
+    n_parts = sum(parts)
+    if len(per) != n_parts or any(v != {"dispatch", "push_pull"}
+                                  for v in per.values()):
+        raise AssertionError(f"trace: {len(per)} partitions with spans, "
+                             f"want {n_parts} with dispatch and push_pull")
+    info["trace_events"] = len(events)
+    info["trace_partitions"] = len(per)
+    info["trace_events_per_partition"] = 2
+    torch.cuda.empty_cache()
+    return info
+
+
+def _union_ms(spans) -> float:
+    """Milliseconds covered by the union of ``(start_us, end_us)``."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def dp_worker(torch, seed: int, out: str) -> int:
+    """One worker of phase 13a (b), run by the port's launcher: the
+    fused-head Llama-3.2-1B step on this rank's rows through
+    ``Trainer.fit`` at world 2, gloo on the shared card."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.common.tracing import get_tracer
+    from byteps_tpu_torch.engine.dispatcher import get_engine
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    api.init(device="cuda", backend="gloo")
+    rank, world = api.rank(), api.size()
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16, attn_impl="flash")
+    nc = fce.vocab_chunks(cfg.vocab_size)
+    want = (cfg.num_layers,) * 3 + (1, nc, nc)
+    model = Transformer(cfg, device="cuda")
+    init_weights(model, seed + rank)     # rank 0's are phase 11's
+    leaves = dict(model.named_parameters())
+    local = {}
+
+    def keep(n):
+        def hook(p):
+            if n not in local:               # the first step's, unreduced
+                local[n] = p.grad[:DP_GRAD_ROWS].detach().clone()
+        return hook
+
+    # registered before the DistributedOptimizer's hooks, so each runs
+    # first, while the gradient is still this rank's own
+    for n in DP_GRAD_LEAVES:
+        leaves[n].register_post_accumulate_grad_hook(keep(n))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4, fused=True)
+    toks = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(TRAIN_B, MAX_SEQ))
+    per = TRAIN_B // world
+    batch = {"tokens": torch.from_numpy(
+        toks[rank * per:(rank + 1) * per]).cuda()}
+    with _PathCalls() as path:     # the loss binds the fused CE here
+        trainer = Trainer(lm_loss_fn(model, fused_head=True), opt,
+                          log_every=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state = trainer.init_state(model)     # rank 0's weights
+        torch.cuda.synchronize()
+        bcast_s = time.perf_counter() - t0
+        engine, tracer = get_engine(), get_tracer()
+        plan = trainer.step_fn.optimizer._bps_plan
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(DP_STEPS):
+            _zero_counts()
+            c0 = engine.counts["collectives"]
+            g0 = engine.counts["gather_ms"]
+            torch.cuda.synchronize()
+            tracer.instant("step_start", "dp", step=i)
+            t1 = time.perf_counter()
+            trainer.fit(model, {}, [batch])
+            loss = trainer.metrics["loss"].item()     # synchronizes
+            ms = (time.perf_counter() - t1) * 1e3
+            tracer.instant("step_end", "dp", step=i)
+            launches = _flash_counts() + _fce_counts()
+            if launches != want or fce.tma_launches != 1 + 3 * nc \
+                    or fa.plain_calls or fce.plain_calls:
+                raise AssertionError(
+                    f"rank {rank} step {i}: launches {launches} (want "
+                    f"{want}), {fce.tma_launches} TMA (want {1 + 3 * nc}), "
+                    f"plain calls {fa.plain_calls}/{fce.plain_calls}")
+            steps.append({"loss": loss, "ms": ms, "launches": launches,
+                          "collectives": engine.counts["collectives"] - c0,
+                          "gather_ms": engine.counts["gather_ms"] - g0})
+            if i == 0:       # the averaged gradient, and this rank's own
+                torch.save({"local": {n: g.cpu() for n, g in local.items()},
+                            "avg": {n: leaves[n].grad[:DP_GRAD_ROWS].cpu()
+                                    for n in DP_GRAD_LEAVES}},
+                           out + ".grads.pt")
+    peak = torch.cuda.max_memory_allocated()
+    # one partition's all_reduce with nothing else on the wire: the
+    # default group (gloo, as the engine's), idle while the engine is
+    bare = {}
+    elems = get_config().effective_partition_bytes // 4
+    for kind in ("cuda", "cpu"):
+        t = torch.ones(elems, device=kind)
+        times = []
+        for k in range(2 + DP_BARE_REPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        bare[kind] = float(np.median(times[2:]))
+    h = hashlib.sha256()
+    for _, p in model.named_parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    cycles = engine.counts["cycles"]
+    del trainer, opt, model, leaves, local, batch
+    torch.cuda.empty_cache()
+    held = path.hold(torch)
+    api.shutdown()                                      # flushes the trace
+    with open(os.environ["BYTEPS_TRACE_PATH"]) as f:
+        events = json.load(f)["traceEvents"]
+    marks = {(e["name"], e["args"]["step"]): e["ts"] for e in events
+             if e.get("cat") == "dp"}
+    for i, st in enumerate(steps):
+        a, b = marks[("step_start", i)], marks[("step_end", i)]
+        spans = [e for e in events if e.get("ph") == "X"
+                 and e.get("cat") in ("dispatch", "push_pull")
+                 and a <= e["ts"] <= b]
+        done = {e["name"]: e["ts"] + e["dur"] for e in spans
+                if e["cat"] == "push_pull"}
+        st["push_pull_busy_ms"] = _union_ms(
+            [(e["ts"], e["ts"] + e["dur"]) for e in spans
+             if e["cat"] == "push_pull"])
+        st["push_pull_spans"] = len(done)
+        st["push_pull_span_ms_p50"] = float(np.median(
+            [e["dur"] for e in spans if e["cat"] == "push_pull"])) / 1e3
+        st["dispatch_to_done_ms_p50"] = float(np.median(
+            [done[e["name"]] - e["ts"] for e in spans
+             if e["cat"] == "dispatch" and e["name"] in done])) / 1e3
+    with open(out, "w") as f:
+        json.dump({"rank": rank, "world": world, "backend": "gloo",
+                   "device": torch.cuda.get_device_name(0),
+                   "broadcast_s": bcast_s, "steps": steps,
+                   "buckets": plan.num_buckets,
+                   "bucket_bytes": sum(b.nbytes for b in plan.buckets),
+                   "agreement_cycles": cycles, "peak_memory_gb": peak / 1e9,
+                   "bare_all_reduce_bytes": elems * 4,
+                   "bare_all_reduce_ms_p50": bare,
+                   "params_sha256": h.hexdigest(),
+                   "predicted_launches": want, "held": held}, f)
+    return 0
+
+
+def dp_train_phase(torch, seed: int) -> dict:
+    """Phase 13a (b): one worker's reference run of phase 11's batch, then
+    two workers through the launcher (module docstring)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.engine.transport import free_port
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16, attn_impl="flash")
+    model = Transformer(cfg, device="cuda")
+    init_weights(model, seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4, fused=True)
+    trainer = Trainer(lm_loss_fn(model, fused_head=True), opt, log_every=0)
+    toks = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(TRAIN_B, MAX_SEQ))
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    leaves = dict(model.named_parameters())
+    ref, ref_ms = [], []
+    for i in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.fit(model, {}, [batch])
+        ref.append(trainer.metrics["loss"].item())
+        ref_ms.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            ref_grads = {n: leaves[n].grad[:DP_GRAD_ROWS].cpu()
+                         for n in DP_GRAD_LEAVES}
+    api.shutdown()
+    del model, opt, trainer, batch, leaves
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="dp-")
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DP_WORLD):
+            log = open(os.path.join(tmp, f"worker{r}.log"), "w")
+            env = _child_env({
+                "DMLC_ROLE": "worker", "DMLC_NUM_WORKER": str(DP_WORLD),
+                "DMLC_WORKER_ID": str(r), "DMLC_PS_ROOT_URI": "127.0.0.1",
+                "DMLC_PS_ROOT_PORT": str(port),
+                "BYTEPS_TRACE_PATH": os.path.join(tmp, f"trace{r}.json")})
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.launcher",
+                 sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--dp-worker", "--seed", str(seed), "--dp-out",
+                 os.path.join(tmp, f"worker{r}.json")],
+                env=env, cwd=here, stdout=log, stderr=subprocess.STDOUT),
+                log))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            log.close()
+    wall_s = time.perf_counter() - t0
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = {}
+        for r in failed:
+            with open(os.path.join(tmp, f"worker{r}.log")) as f:
+                tails[r] = f.read()[-3000:]
+        raise AssertionError(f"dp workers {failed} failed "
+                             f"(rc {[p.returncode for p, _ in procs]}): "
+                             f"{tails}")
+    res = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(tmp, f"worker{r}.json")) as f:
+            res.append(json.load(f))
+    losses = [[s["loss"] for s in w["steps"]] for w in res]
+    if any(ls != losses[0] for ls in losses):
+        raise AssertionError(f"averaged losses differ across ranks: "
+                             f"{losses}")
+    if len({w["params_sha256"] for w in res}) != 1:
+        raise AssertionError("the ranks' parameters differ after the "
+                             "last step")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], ref)]
+    if not all(np.isfinite(losses[0])) or max(rel) > DP_LOSS_TOL:
+        raise AssertionError(f"two-worker losses {losses[0]} vs one "
+                             f"worker's {ref}: rel {rel} > {DP_LOSS_TOL}")
+    grads = [torch.load(os.path.join(tmp, f"worker{r}.json.grads.pt"))
+             for r in range(DP_WORLD)]
+    grad_check = _dp_grad_check(torch, ref_grads, grads)
+    want_held = sorted([
+        ("flash_attention", [TRAIN_B // DP_WORLD, MAX_SEQ, cfg.num_heads,
+                             cfg.d_head], ["dk", "dq", "dv"]),
+        ("fused_linear_cross_entropy",
+         [TRAIN_B // DP_WORLD * MAX_SEQ, cfg.d_model], ["dw", "dx"])])
+    for w in res:
+        got = sorted((h["kernel"], h["shapes"][0], h.get("backward_held"))
+                     for h in w["held"])
+        if got != want_held:
+            raise AssertionError(f"rank {w['rank']} held calls {got}, want "
+                                 f"{want_held}")
+    launches = tuple(res[0]["steps"][0]["launches"])
+    info = {"phase": "dp_train", "world": DP_WORLD, "backend": "gloo",
+            "model": "Llama-3.2-1B (random weights, rank 0's broadcast)",
+            "reduced": {"max_seq": [131072, MAX_SEQ]},
+            "batch_per_worker": [TRAIN_B // DP_WORLD, MAX_SEQ],
+            "steps": DP_STEPS, "losses": losses[0],
+            "one_worker_losses": ref, "one_worker_step_ms": ref_ms,
+            "loss_max_rel_diff": max(rel), "loss_tolerance": DP_LOSS_TOL,
+            "params_sha256_equal": True, "wall_s": wall_s,
+            "first_step_gradient": grad_check,
+            "host_staging": "none (the port has no staging path)",
+            "launches_per_worker_step": launches,
+            "workers": [{
+                "rank": w["rank"],
+                "step_ms": [s["ms"] for s in w["steps"]],
+                "step_ms_p50": float(np.median([s["ms"]
+                                                for s in w["steps"]])),
+                "push_pull_busy_ms": [s["push_pull_busy_ms"]
+                                      for s in w["steps"]],
+                "push_pull_spans": [s["push_pull_spans"]
+                                    for s in w["steps"]],
+                "push_pull_span_ms_p50": [s["push_pull_span_ms_p50"]
+                                          for s in w["steps"]],
+                "dispatch_to_done_ms_p50": [s["dispatch_to_done_ms_p50"]
+                                            for s in w["steps"]],
+                "gather_ms": [s["gather_ms"] for s in w["steps"]],
+                "bare_all_reduce_bytes": w["bare_all_reduce_bytes"],
+                "bare_all_reduce_ms_p50": w["bare_all_reduce_ms_p50"],
+                "collectives_per_step": [s["collectives"]
+                                         for s in w["steps"]],
+                "buckets": w["buckets"], "bucket_bytes": w["bucket_bytes"],
+                "agreement_cycles": w["agreement_cycles"],
+                "broadcast_s": w["broadcast_s"],
+                "peak_memory_gb": w["peak_memory_gb"],
+                "launches": [s["launches"] for s in w["steps"]],
+                "predicted_launches": w["predicted_launches"],
+                "held": w["held"]}
+                for w in res]}
+    return info
+
+
+def _dp_grad_check(torch, ref: dict, grads: list) -> dict:
+    """Phase 13a (b)'s first-step gradients: each rank's averaged
+    gradient at each leaf against the one-worker run's ``ref``, as the
+    largest difference over the leaf's largest |g|, within
+    ``DP_GRAD_TOL``; the same measure for two wrong reductions of this
+    run's own readings (the sum left unaveraged, each rank's own gradient
+    alone), each of which must miss the limit, or the check could not
+    tell them from a right one."""
+    def err(g, r):
+        return ((g.float() - r.float()).abs().max()
+                / r.float().abs().max()).item()
+
+    out = {"leaves": list(DP_GRAD_LEAVES), "rows": DP_GRAD_ROWS,
+           "tolerance": DP_GRAD_TOL}
+    for n, r in ref.items():
+        avg = [g["avg"][n] for g in grads]
+        if any(not torch.equal(a, avg[0]) for a in avg):
+            raise AssertionError(f"{n}: the ranks' averaged gradients "
+                                 f"differ")
+        line = {"averaged": err(avg[0], r),
+                "control_sum_unaveraged": err(avg[0] * len(grads), r),
+                "control_own_gradient": [err(g["local"][n], r)
+                                         for g in grads]}
+        out[n] = line
+        if not line["averaged"] <= DP_GRAD_TOL:
+            raise AssertionError(f"{n}: averaged gradient {line} off the "
+                                 f"one-worker run's by > {DP_GRAD_TOL}")
+        if min([line["control_sum_unaveraged"]]
+               + line["control_own_gradient"]) <= DP_GRAD_TOL:
+            raise AssertionError(f"{n}: a wrong reduction falls within "
+                                 f"{DP_GRAD_TOL}: {line}")
+    return out
+
+
 # ------------------------------------------------------------ generation
 
 
@@ -5574,6 +6118,11 @@ def main() -> int:
                     help="print only the decode kernels each phase-16 "
                          "case launches (phase 16 runs this in a fresh "
                          "process)")
+    ap.add_argument("--dp-worker", action="store_true",
+                    help="run one worker of phase 13a (b) (the phase "
+                         "starts two through the port's launcher)")
+    ap.add_argument("--dp-out", default="",
+                    help="where --dp-worker writes its JSON result")
     ap.add_argument("--quant-kernel-names", action="store_true",
                     help="print only the int8-product kernels each bf16 "
                          "phase-17 case launches (phase 17 runs this in a "
@@ -5597,6 +6146,8 @@ def main() -> int:
     if args.quant_kernel_names:
         _line(quant_kernel_names(torch, args.seed))
         return 0
+    if args.dp_worker:
+        return dp_worker(torch, args.seed, args.dp_out)
     smi = _smi()
     _line({"phase": "device", "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -5665,6 +6216,12 @@ def main() -> int:
     _line(fused_info)
     _line(eval_info)
     fce_main = fce_kernel_phase(torch, args.seed)
+    _line(dp_eager_phase(torch, args.seed))
+    dp_info = dp_train_phase(torch, args.seed)
+    dp_info["nvidia_smi"] = _smi()
+    _line(dp_info)
+    dp_launches = [DP_STEPS * n for n in dp_info["launches_per_worker_step"]]
+    dp_held = [h for w in dp_info["workers"] for h in w["held"]]
     # this slice's phases run after phase 13: their profile takes CPU and
     # CUDA activities, after which phase 13's CUDA-only profiles saw no
     # kernel (seen on the H100)
@@ -5777,6 +6334,8 @@ def main() -> int:
                  if kname == "fwd" else {})
         i = ("fwd", "dq", "dkv").index(kname)
         extra.update({
+            "dp_world2_launches_per_worker": dp_launches[i],
+            "dp_held_on_path": held(dp_held, "flash_attention"),
             "bert_finetune_launches": bert_launches[i],
             "bert_held_on_path": held(bert_held, "flash_attention"),
             "bert_case": {d: case(r) for d, r in flash_main["bert"].items()},
@@ -5815,6 +6374,9 @@ def main() -> int:
                               "library_ms", "tflops")}},
             "gpt2_train_launches": gpt2_train[3 + ("fwd", "dx", "dw").index(
                 kname)],
+            "dp_world2_launches_per_worker": dp_launches[
+                3 + ("fwd", "dx", "dw").index(kname)],
+            "dp_held_on_path": held(dp_held, "fused_linear_cross_entropy"),
             "gpt2_train_held_on_path": held(gpt2_train_held,
                                             "fused_linear_cross_entropy"),
             "name": f"fused_cross_entropy_{kname}", "route": "cuda",

@@ -49,7 +49,10 @@ the decode replica's ticks x layers, both pools end at their base; and
 the ship's copies ordered after the writes queued on the default stream.
 And a port router over two CUDA replicas failing a stream over across a
 replica's kill: the splice equals its own control (the survivor's resumed
-continuation), every paged-attention call a kernel launch.
+continuation), every paged-attention call a kernel launch.  And the
+eager push_pull API at one worker on NCCL (every result the input's
+bits), and two gloo processes sharing the card running
+``push_pull_shard`` on CUDA tensors, bit-identical to the host sum.
 """
 
 import numpy as np
@@ -1350,3 +1353,72 @@ def test_router_fails_a_stream_over_across_a_replica_kill_on_the_card():
             s.shutdown()
             s.server_close()
             t.join(timeout=30)
+
+
+@pytest.mark.cuda
+def test_eager_api_at_one_worker_on_nccl():
+    """``api.init()`` on ``cuda`` takes ``nccl``; declare, push_pull
+    (average on and off), the async handle, the sparse sum, broadcast and
+    broadcast_parameters give what a world of one must, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from byteps_tpu_torch import api
+
+    api.init()
+    try:
+        assert (api.size(), api.backend()) == (1, "nccl")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(4099, device="cuda", generator=g)
+        assert api.declare("x") == 0
+        assert torch.equal(api.push_pull(x, name="x"), x)
+        assert torch.equal(api.push_pull(x, average=False, name="y"), x)
+        h = api.push_pull_async(x, name="z")
+        out = api.synchronize(h)
+        assert torch.equal(out, x)
+        idx = torch.tensor([3, 3, 7], device="cuda")
+        vals = torch.randn(3, 8, device="cuda", generator=g)
+        want = torch.zeros(10, 8, device="cuda")
+        want[3] = vals[0] + vals[1]
+        want[7] = vals[2]
+        assert torch.equal(api.push_pull_sparse(idx, vals, 10), want)
+        assert torch.equal(api.broadcast(x), x)
+        m = torch.nn.Linear(8, 8).cuda()
+        assert api.broadcast_parameters(m) is m
+    finally:
+        api.shutdown()
+
+
+def _gloo_shard_on_cuda(rank, world):
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.parallel import collectives as C
+
+    api.init(device="cuda", backend="gloo")
+    rng = np.random.RandomState(40 + rank)
+    host = rng.randn(1001).astype(np.float32)
+    x = torch.from_numpy(host).cuda()
+    y = C.push_pull_shard(x, api.mesh().group("dp"))
+    ybf = C.push_pull_shard(x, api.mesh().group("dp"), average=True,
+                            wire_dtype=torch.bfloat16)
+    return (host, y.cpu().numpy(), ybf.cpu().numpy(), y.is_cuda,
+            api.backend())
+
+
+@pytest.mark.cuda
+def test_two_gloo_processes_push_pull_shard_on_cuda_tensors():
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    GPU): reduce-scatter and all-gather take the CUDA tensors directly,
+    nothing is staged through host buffers, and the sum is the host sum's
+    bits (two terms)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_dist_workers import run_workers
+
+    res = run_workers(2, _gloo_shard_on_cuda)
+    want = res[0][0] + res[1][0]
+    wbf = ((torch.from_numpy(res[0][0]).bfloat16()
+            + torch.from_numpy(res[1][0]).bfloat16()) / 2).float().numpy()
+    for host, y, ybf, on_cuda, backend in res:
+        assert on_cuda and backend == "gloo"
+        np.testing.assert_array_equal(y, want)
+        np.testing.assert_array_equal(ybf, wbf)
+    print("gloo on CUDA tensors: host staging used: no")

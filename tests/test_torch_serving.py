@@ -224,9 +224,12 @@ def _no_jax_child(code: str, env=None) -> subprocess.CompletedProcess:
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module, the BERT models, the HF integrations, the
-    disaggregated KV ship and the router tier (router, journal,
-    autoscale, resilience, transport) included; none of them imports
-    ``transformers``."""
+    disaggregated KV ship, the router tier (router, journal, autoscale,
+    resilience, transport) and the BytePS core (the common runtime, the
+    mesh and collectives, the eager engine, compression, the
+    DistributedOptimizer) included; none of them imports
+    ``transformers``.  The launcher's worker child is held in
+    test_torch_api_multi.py."""
     proc = _no_jax_child(
         "import byteps_tpu_torch, byteps_tpu_torch.serving\n"
         "import byteps_tpu_torch.serving.disagg\n"
@@ -249,6 +252,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import byteps_tpu_torch.serving.autoscale\n"
         "import byteps_tpu_torch.resilience\n"
         "import byteps_tpu_torch.engine.transport\n"
+        "import byteps_tpu_torch.engine.dispatcher\n"
+        "import byteps_tpu_torch.engine.handles\n"
+        "import byteps_tpu_torch.parallel.mesh\n"
+        "import byteps_tpu_torch.parallel.collectives\n"
+        "import byteps_tpu_torch.common.types\n"
+        "import byteps_tpu_torch.common.context\n"
+        "import byteps_tpu_torch.common.partition\n"
+        "import byteps_tpu_torch.common.ready_table\n"
+        "import byteps_tpu_torch.common.tracing\n"
+        "import byteps_tpu_torch.ops.compression\n"
+        "import byteps_tpu_torch.training.optimizer\n"
         "assert 'transformers' not in sys.modules\n")
     assert proc.returncode == 0, proc.stderr
 
@@ -333,6 +347,35 @@ def test_serve_role_runs_on_the_gpu_unless_told_otherwise(monkeypatch):
     monkeypatch.setenv("BYTEPS_SERVE_CHECKPOINT", "/nonexistent.ckpt")
     with pytest.raises(NotImplementedError, match="CHECKPOINT"):
         serve_from_env(device="cpu")
-    monkeypatch.setenv("DMLC_ROLE", "worker")
-    assert launcher.main() == 2
+    # the worker role is ported (test_torch_api_multi.py); the PS
+    # server role is not
+    monkeypatch.setenv("DMLC_ROLE", "server")
+    assert launcher.main([]) == 2
     reset_config()
+
+
+@pytest.mark.parametrize("role", ["serve", "router"])
+@pytest.mark.parametrize("knob,value", [("BYTEPS_METRICS_PORT", "9091"),
+                                        ("BYTEPS_TRACE_RPC", "1"),
+                                        ("BYTEPS_TRACE_PATH",
+                                         "/tmp/trace.json")])
+def test_serve_and_router_roles_refuse_the_observability_knobs(
+        monkeypatch, role, knob, value):
+    """The metrics scrape and the RPC trace spans are not ported (queue A
+    item 10): a serve or router process given their knobs refuses to
+    start instead of running without them."""
+    from byteps_tpu_torch.common.config import reset_config
+    from byteps_tpu_torch.serving.frontend import serve_from_env
+    from byteps_tpu_torch.serving.router import router_from_env
+
+    monkeypatch.setenv(knob, value)
+    monkeypatch.setenv("BYTEPS_ROUTER_REPLICAS", "127.0.0.1:1")
+    try:
+        with pytest.raises(NotImplementedError, match=f"{knob}.*item 10"):
+            if role == "serve":
+                serve_from_env(device="cpu")
+            else:
+                router_from_env()
+    finally:
+        monkeypatch.delenv(knob)
+        reset_config()

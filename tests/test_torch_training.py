@@ -352,10 +352,19 @@ def test_trainer_fit_runs_on_cpu_and_refuses_what_is_not_ported(monkeypatch):
             Trainer(lm_loss_fn(model), opt, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="compression"):
         Trainer(lm_loss_fn(model), opt, device="cpu", compression="onebit")
-    with pytest.raises(NotImplementedError, match="backward_passes"):
-        Trainer(lm_loss_fn(model), opt, device="cpu",
-                backward_passes_per_step=2)
-    with pytest.raises(NotImplementedError, match="world size"):
+    # backward_passes_per_step accumulates (training/optimizer.py): the
+    # first of two steps leaves the weights as they are
+    acc = Trainer(lm_loss_fn(model), torch.optim.SGD(model.parameters(),
+                                                     lr=0.1),
+                  device="cpu", backward_passes_per_step=2)
+    before = [p.detach().clone() for p in model.parameters()]
+    acc.fit(model, {}, [{"tokens": _tokens(7)}], steps=1)
+    assert all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    acc.fit(model, {}, [{"tokens": _tokens(8)}], steps=1)
+    assert not all(torch.equal(a, p)
+                   for a, p in zip(before, model.parameters()))
+    # the workers are api.init's processes: one here
+    with pytest.raises(ValueError, match="world size"):
         make_data_parallel_step(lm_loss_fn(model), opt, world_size=2)
     # the fused head and the early-exit term, refused before their slice,
     # give the plain head's loss and the sum of the two exits
@@ -373,7 +382,8 @@ def test_trainer_fit_runs_on_cpu_and_refuses_what_is_not_ported(monkeypatch):
     api.shutdown()
     monkeypatch.setenv("DMLC_NUM_WORKER", "2")
     reset_config()
-    with pytest.raises(NotImplementedError, match="DMLC_NUM_WORKER"):
+    # a second worker is ported, but needs its rendezvous address
+    with pytest.raises(ValueError, match="DMLC_NUM_WORKER"):
         api.init(device="cpu")
     monkeypatch.setenv("DMLC_NUM_WORKER", "1")
     monkeypatch.setenv("BYTEPS_ENABLE_ASYNC", "1")

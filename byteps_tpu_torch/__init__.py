@@ -15,8 +15,11 @@ weight-only product as hand-written kernels (``ops/decode_attention.py``,
 eager push_pull engine (``engine/dispatcher.py``) and collectives on
 ``torch.distributed`` (``parallel/``) behind the Horovod API
 (``api.py``), the ``DistributedOptimizer`` and the data-parallel step
-(``training/``), one process a worker.  Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+(``training/``), one process a worker; and the rest of the worker's
+training path: the compression registry with error feedback
+(``compression/``), checkpoints, callbacks and the delayed-gradient
+overlap step (``training/``).  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -20,8 +20,8 @@ CUDA worker uses ``nccl`` and a CPU worker ``gloo`` unless ``backend=``
 names another; nothing switches backends on its own.
 
 Refused, naming the port's queue-A item: the async-PS and hierarchical
-PS paths and the metrics scrape (item 10), a compression registry
-scheme (item 9).
+PS paths, the metrics scrape and the PS tier's ``BYTEPS_COMPRESSION``
+(item 10).
 """
 
 from __future__ import annotations
@@ -116,9 +116,11 @@ def _refuse_unported(cfg) -> None:
             "synchronous push_pull")
     if cfg.compression and cfg.compression != "none":
         raise NotImplementedError(
-            f"BYTEPS_COMPRESSION={cfg.compression!r}: the compression "
-            f"registry belongs to the port's compression slice (queue A "
-            f"item 9)")
+            f"BYTEPS_COMPRESSION={cfg.compression!r} selects the PS tier's "
+            f"default wire scheme, and the PS tier that reads it is the "
+            f"port's PS-tier slice (queue A item 10); on the worker path "
+            f"pass compression= to push_pull, the DistributedOptimizer or "
+            f"the Trainer")
 
 
 def _rendezvous(world: int) -> str:
@@ -299,6 +301,37 @@ def _auto_name(prefix: str = "byteps_push_pull") -> str:
     return f"{prefix}_{_name_counter[0]}"
 
 
+_roundtrip_counter = [0]
+
+
+def _maybe_roundtrip(tensor: torch.Tensor, compression,
+                     name: str = "") -> torch.Tensor:
+    """Apply a biased registry scheme's compress->decompress to this
+    worker's contribution before the collective (cast schemes ride the
+    engine's wire dtype instead): per-contribution scales, as each worker
+    would put on a real wire.
+
+    Seeded schemes fold (config seed, tensor name, per-process call
+    counter) like the wire path's ``derive_seed``, so successive pushes
+    of the same tensor move the random-k mask instead of freezing one
+    coordinate subset; every worker calling in the same order draws the
+    same seeds.  Stateless (no error feedback): one-shot reductions only;
+    training loops carry the unsent mass through the
+    DistributedOptimizer's error feedback."""
+    scheme = getattr(compression, "scheme", None)
+    if scheme is None or not scheme.biased:
+        return tensor
+    cfg = get_config()
+    seed = None
+    if scheme.seeded:
+        from .compression import derive_seed
+
+        _roundtrip_counter[0] += 1
+        seed = derive_seed(cfg.compression_seed, name,
+                           _roundtrip_counter[0])
+    return scheme.roundtrip(tensor, seed=seed, ratio=cfg.compression_ratio)
+
+
 def push_pull(tensor: torch.Tensor, average: bool = True,
               name: Optional[str] = None, version: int = 0,
               priority: int = 0, compression: Any = Compression.none,
@@ -308,8 +341,10 @@ def push_pull(tensor: torch.Tensor, average: bool = True,
     result equals the elementwise sum over every worker's contribution,
     identically on all workers).  Every worker calls it with the same
     ``name`` — the engine matches partitions across workers by name.
-    ``compression`` is a cast (``"none"``, ``"fp16"``, ``"bf16"`` or a
-    Compressor class)."""
+    ``compression`` is a Compressor class or a registry scheme name: a
+    cast (``"fp16"``, ``"bf16"``) rides the wire dtype, a biased scheme
+    (``"onebit"``, ``"topk"``, ``"randomk"``, ``"int8"``) rounds this
+    worker's contribution first, without error feedback."""
     handle = push_pull_async(tensor, average=average, name=name,
                              version=version, priority=priority,
                              compression=compression,
@@ -337,6 +372,7 @@ def push_pull_async(tensor: torch.Tensor, average: bool = True,
     if tensor.device != _state.device:
         raise ValueError(f"tensor on {tensor.device}, worker on "
                          f"{_state.device}")
+    tensor = _maybe_roundtrip(tensor, comp, name=name or "")
     return engine.push_pull_async(tensor, name or _auto_name(),
                                   average=average, priority=priority,
                                   version=version,

@@ -11,13 +11,15 @@ tier's ``BYTEPS_ROUTER_*``, ``BYTEPS_DISAGG``, ``BYTEPS_SLO_*`` and
 router's ping bound), the worker knobs ``api.init``, the eager
 push_pull engine, ``training.Trainer`` and ``make_data_parallel_step``
 read (the DMLC cluster contract, partition bytes and scheduling
-credit, the wire dtype, the mesh shape), and the observability trio
+credit, the wire dtype, the mesh shape), the compression knobs
+(``BYTEPS_COMPRESSION_RATIO``, ``_SEED``, ``_OVERRIDES``, ``_REPLY``,
+``BYTEPS_MIN_COMPRESS_BYTES``), and the observability trio
 (``BYTEPS_TRACE_PATH``, which the worker path's tracer honours;
 ``BYTEPS_METRICS_PORT`` and ``BYTEPS_TRACE_RPC``).  Knobs naming
-features the port does not have yet (checkpoints, async PS, the
-metrics scrape, RPC trace ids, the Unix socket and shared-memory
-transports) are still parsed, so that a non-default value is refused
-loudly instead of ignored.
+features the port does not have yet (the PS tier's
+``BYTEPS_COMPRESSION``, async PS, the metrics scrape, RPC trace ids,
+the Unix socket and shared-memory transports) are still parsed, so
+that a non-default value is refused loudly instead of ignored.
 """
 
 from __future__ import annotations
@@ -95,7 +97,15 @@ class Config:
     force_distributed: bool = False  # a dcn axis of 2 on one host
     debug_sample_tensor: str = ""  # log first/last values of matching names
     enable_async: bool = False     # async PS mode; refused (later slice)
-    compression: str = ""          # registry default scheme; refused (A9)
+    # --- gradient compression (compression/; the JAX package's names
+    # and defaults) ------------------------------------------------------
+    # the PS tier's default wire scheme; refused until that tier (A10)
+    compression: str = ""
+    compression_min_bytes: int = 1024   # raw pass-through below this
+    compression_overrides: str = ""     # "substring=scheme,..." per-name
+    compression_ratio: float = 0.01     # k/n for topk / randomk
+    compression_seed: int = 0           # base seed (randomk / int8 dither)
+    compression_reply: str = ""         # server reply cast: ""|bf16|fp16
 
     # --- observability ---------------------------------------------------
     trace_path: str = ""           # chrome trace of the worker path
@@ -114,7 +124,7 @@ class Config:
     serve_top_p: Optional[float] = None
     serve_eos_id: Optional[int] = None
     serve_model: str = ""         # "k=v,..." TransformerConfig overrides
-    serve_checkpoint: str = ""    # not ported: refused when set
+    serve_checkpoint: str = ""    # a port checkpoint of the model's params
     serve_chunk: int = 0          # chunked prefill size in tokens; 0 = off
     serve_prefix_cache: bool = False  # prefix store (row-copy or radix)
     # the dense store's match granularity (tokens; unset = 16); a paged
@@ -212,6 +222,13 @@ class Config:
             debug_sample_tensor=_env_str("BYTEPS_DEBUG_SAMPLE_TENSOR", ""),
             enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
             compression=_env_str("BYTEPS_COMPRESSION", ""),
+            compression_min_bytes=_env_int("BYTEPS_MIN_COMPRESS_BYTES",
+                                           1024),
+            compression_overrides=_env_str("BYTEPS_COMPRESSION_OVERRIDES",
+                                           ""),
+            compression_ratio=_env_float("BYTEPS_COMPRESSION_RATIO", 0.01),
+            compression_seed=_env_int("BYTEPS_COMPRESSION_SEED", 0),
+            compression_reply=_env_str("BYTEPS_COMPRESSION_REPLY", ""),
             trace_path=_env_str("BYTEPS_TRACE_PATH", ""),
             trace_buffer=_env_int("BYTEPS_TRACE_BUFFER", 100_000),
             metrics_port=_env_int("BYTEPS_METRICS_PORT", 0),

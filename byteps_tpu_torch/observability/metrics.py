@@ -3,8 +3,8 @@
 router tier and the resilience counters need: :class:`Counter`,
 :class:`Gauge`, :class:`Histogram` (fixed buckets plus a bounded
 reservoir for percentiles) and a get-or-create :class:`MetricsRegistry`
-keyed by name and static labels, with ``get``, ``remove`` and
-``snapshot()``.
+keyed by name and static labels, with ``get``, ``remove``,
+``remove_prefix`` and ``snapshot()``.
 
 As in the JAX package, a counter bump or a gauge write is mirrored onto
 the process's chrome-trace ``Tracer`` (common/tracing.py) when tracing
@@ -236,6 +236,15 @@ class MetricsRegistry:
         labels starts from zero."""
         with self._lock:
             return self._metrics.pop(_key(name, labels), None) is not None
+
+    def remove_prefix(self, prefix: str) -> int:
+        """Drop every metric whose name starts with ``prefix`` (any
+        labels); returns how many were removed."""
+        with self._lock:
+            doomed = [k for k in self._metrics if k[0].startswith(prefix)]
+            for k in doomed:
+                del self._metrics[k]
+        return len(doomed)
 
     def snapshot(self) -> Dict[str, Dict[str, object]]:
         with self._lock:

@@ -4,10 +4,10 @@
 namespace exposing ``none``, ``fp16`` and ``bf16``, as torch casts.
 
 The casts ride the collectives' ``wire_dtype``: the payload is cast for
-the wire and the sum, and cast back after.  The JAX package's registry
-schemes (onebit, topk, randomk, int8 with error feedback) are the port's
-compression slice; a registry name other than ``none``/``fp16``/``bf16``
-is refused (queue A item 9).
+the wire and the sum, and cast back after.  The full registry (onebit /
+topk / randomk / int8, ``byteps_tpu_torch/compression``) is bridged in
+by ``Compression.resolve``, so every ``compression=`` entry point takes
+either spelling.
 """
 
 from __future__ import annotations
@@ -73,6 +73,43 @@ class BF16Compressor(_CastCompressor):
     wire_dtype = torch.bfloat16
 
 
+_registry_adapters: dict = {}
+
+
+def _registry_adapter(scheme):
+    """Wrap a registry Scheme as a stateless Compressor: ``compress`` is
+    the scheme's compress-then-decompress roundtrip (the value that would
+    reach the far side of the wire), ``decompress`` the identity.  No
+    error feedback — this is the api.push_pull one-shot path; training
+    loops get EF through DistributedOptimizer / error_feedback_compress.
+    Seeded schemes draw from ``BYTEPS_COMPRESSION_SEED`` (fixed per call
+    site — deterministic)."""
+    cached = _registry_adapters.get(scheme.name)
+    if cached is not None:
+        return cached
+
+    class RegistryCompressor(Compressor):
+        wire_dtype = None
+
+        @staticmethod
+        def compress(tensor):
+            from ..common.config import get_config
+
+            cfg = get_config()
+            seed = cfg.compression_seed if scheme.seeded else None
+            return scheme.roundtrip(tensor, seed=seed,
+                                    ratio=cfg.compression_ratio), None
+
+        @staticmethod
+        def decompress(tensor, ctx):
+            return tensor
+
+    RegistryCompressor.__name__ = f"{scheme.name.capitalize()}Compressor"
+    RegistryCompressor.scheme = scheme
+    _registry_adapters[scheme.name] = RegistryCompressor
+    return RegistryCompressor
+
+
 class Compression:
     """Optional gradient compression used during push_pull (reference
     compression.py:69-75)."""
@@ -83,20 +120,18 @@ class Compression:
 
     @classmethod
     def resolve(cls, spec):
-        """A Compressor class (reference spelling), ``"none"``,
-        ``"fp16"``, ``"bf16"`` or None.  A registry scheme name is
-        refused."""
+        """A Compressor class (reference spelling), a registry scheme
+        name (``"bf16"``, ``"onebit"``, ``"topk"``, ...), or None.  An
+        unknown name raises ``KeyError`` listing the schemes."""
         if spec is None:
             return cls.none
         if isinstance(spec, str):
             if spec in ("none", "fp16", "bf16"):
                 return getattr(cls, spec)
-            raise NotImplementedError(
-                f"compression={spec!r}: the compression registry (onebit, "
-                f"topk, randomk, int8, error feedback) belongs to the port's "
-                f"compression slice (queue A item 9); 'none', 'fp16' and "
-                f"'bf16' are ported")
+            from ..compression import get_scheme
+
+            return _registry_adapter(get_scheme(spec))
         if isinstance(spec, type) and issubclass(spec, Compressor):
             return spec
-        raise TypeError(f"compression={spec!r}: a Compressor class or one "
-                        f"of 'none', 'fp16', 'bf16'")
+        raise TypeError(f"compression={spec!r}: a Compressor class or a "
+                        f"registry scheme name")

@@ -890,12 +890,15 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
     JAX, with its row-copy prefix store (``BYTEPS_SERVE_PREFIX_CACHE``,
     matching at ``BYTEPS_SERVE_PREFIX_BLOCK``) and speculation
     (``BYTEPS_SERVE_SPEC``); with it the paged engine, on the kernel or
-    (``BYTEPS_SERVE_PAGED_KERNEL=off``) the gather fallback.  A
-    checkpoint (``BYTEPS_SERVE_CHECKPOINT``), which the port cannot load
-    yet, is refused, never ignored; so is a ``BYTEPS_SERVE_PREFIX_BLOCK``
-    other than ``BYTEPS_SERVE_BLOCK`` on a paged engine, and so are the
-    metrics scrape and the RPC trace knobs (``BYTEPS_METRICS_PORT``,
-    ``BYTEPS_TRACE_RPC``, ``BYTEPS_TRACE_PATH``)."""
+    (``BYTEPS_SERVE_PAGED_KERNEL=off``) the gather fallback.
+    ``BYTEPS_SERVE_CHECKPOINT`` names a port checkpoint of the model's
+    parameters (``save_checkpoint(path, model)``,
+    training/checkpoint.py), loaded over the random weights as the JAX
+    role's ``restore_checkpoint(path, params, broadcast=False)`` does.
+    A ``BYTEPS_SERVE_PREFIX_BLOCK`` other than ``BYTEPS_SERVE_BLOCK`` on
+    a paged engine is refused, and so are the metrics scrape and the RPC
+    trace knobs (``BYTEPS_METRICS_PORT``, ``BYTEPS_TRACE_RPC``,
+    ``BYTEPS_TRACE_PATH``)."""
     import os
 
     from ..common.config import check_observability, get_config, reset_config
@@ -906,13 +909,13 @@ def serve_from_env(env=None, device=None, port: Optional[int] = None,
                            if k.startswith(("BYTEPS_", "DMLC_"))})
     reset_config()
     cfg = get_config()
-    if cfg.serve_checkpoint:
-        raise NotImplementedError(
-            "['BYTEPS_SERVE_CHECKPOINT'] selects a checkpoint, which this "
-            "port cannot load yet")
     check_observability(cfg, "serve")
     dev = resolve_device(device)
     model = _model_from_env(cfg.serve_model, dev)
+    if cfg.serve_checkpoint:
+        from ..training.checkpoint import restore_checkpoint
+
+        restore_checkpoint(cfg.serve_checkpoint, model, broadcast=False)
     engine = ServingEngine(
         model,
         n_slots=cfg.serve_slots,

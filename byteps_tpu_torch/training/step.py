@@ -9,9 +9,17 @@ the gradients are averaged across workers, bucketed, while backward
 runs; the reported loss is the mean over the workers and floating
 model state is averaged, as the JAX step's ``psum / n`` does.  With one
 worker and one pass a step, the JAX factory's short-circuit
-(``step.py:142-152``): the optimizer is used as it is, and a cast
-compression still rounds each gradient through its wire dtype, so a
-one-worker rerun sees the numerics of a compressed multi-worker run.
+(``step.py:142-152``): no DistributedOptimizer, but a compression spec
+still acts as it would on a wire (JAX ``step.py:52-95``) — a cast rounds
+each gradient through its dtype, and a biased scheme named by string
+runs error feedback on each gradient locally (the optimizer wrapped by
+``with_error_feedback``) — so a compressed run at two workers and its
+one-worker rerun see the same numerics.
+
+Checkpoints do not move between world sizes (JAX ``step.py:134-136``):
+the optimizer's ``state_dict()`` carries the error-feedback residuals,
+and only rank 0's are saved (training/checkpoint.py), so a resume at
+another world restarts the other ranks' carry from rank 0's.
 
 PyTorch idiom where JAX was functional: parameters live in the module
 and the optimizer (a ``torch.optim`` optimizer built by the caller over
@@ -38,7 +46,7 @@ from torch import nn
 
 from .. import api
 from ..ops.compression import Compression
-from .optimizer import DistributedOptimizer
+from .optimizer import DistributedOptimizer, with_error_feedback
 
 __all__ = ["TrainState", "TrainStep", "create_train_state",
            "make_data_parallel_step", "lm_loss_fn"]
@@ -47,12 +55,27 @@ __all__ = ["TrainState", "TrainStep", "create_train_state",
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters), the optimizer (its state), mutable
-    model collections, and the step counter."""
+    model collections, and the step counter.  ``state_dict()`` is what a
+    checkpoint holds (tensors and plain containers only);
+    ``load_state_dict()`` puts it back in place."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     model_state: Dict[str, Any]
     step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "model_state": dict(self.model_state), "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        dev = next(self.model.parameters()).device
+        self.model_state = {k: v.to(dev) if torch.is_tensor(v) else v
+                            for k, v in sd["model_state"].items()}
+        self.step = int(sd["step"])
 
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -94,21 +117,26 @@ def make_data_parallel_step(loss_fn: Callable,
     ``api.size()`` workers (``world_size``, when given, must equal it).
     ``batch`` is this worker's share; the returned loss is the detached
     mean over the workers, and reading it synchronizes with the device.
-    ``compression`` is a cast (``"none"``, ``"fp16"``, ``"bf16"`` or a
-    Compressor class); ``partition_bytes`` (default
-    ``BYTEPS_PARTITION_BYTES``) sizes the gradient buckets."""
+    ``compression`` is a Compressor class or a registry scheme name (a
+    cast, or a biased scheme run with error feedback);
+    ``partition_bytes`` (default ``BYTEPS_PARTITION_BYTES``) sizes the
+    gradient buckets."""
     world = api.size()
     if world_size is not None and world_size != world:
         raise ValueError(f"world size {world_size} but api.size() is "
                          f"{world}: the workers are the processes of "
                          f"api.init()")
-    comp = Compression.resolve(compression)
     distributed = world > 1 or backward_passes_per_step > 1
+    roundtrip = None
     if distributed:
         optimizer = DistributedOptimizer(
-            optimizer, compression=comp,
+            optimizer, compression=compression,
             backward_passes_per_step=backward_passes_per_step,
             partition_bytes=partition_bytes)
+    else:
+        roundtrip, ef = _world1_compression(compression)
+        if ef is not None:
+            optimizer = with_error_feedback(optimizer, ef)
     group = api.mesh().group(None)
 
     def mean(t: torch.Tensor) -> torch.Tensor:
@@ -121,10 +149,10 @@ def make_data_parallel_step(loss_fn: Callable,
         opt.zero_grad(set_to_none=True)
         loss, new_mstate = loss_fn(state.model, state.model_state, batch)
         loss.backward()
-        if not distributed and comp.wire_dtype is not None:
+        if roundtrip is not None:
             for p in state.model.parameters():
                 if p.grad is not None:
-                    p.grad = comp.decompress(*comp.compress(p.grad))
+                    p.grad = roundtrip.decompress(*roundtrip.compress(p.grad))
         opt.step()
         loss = loss.detach()
         if world > 1:
@@ -136,6 +164,23 @@ def make_data_parallel_step(loss_fn: Callable,
                 {"loss": loss})
 
     return TrainStep(step, optimizer)
+
+
+def _world1_compression(compression) -> tuple:
+    """The one-worker rendering of a compression spec (JAX
+    ``_world1_compression_tx``): ``(roundtrip, error_feedback)``.  A
+    scheme name runs error feedback if the scheme is biased, else its
+    cast; a Compressor class (a cast, or the stateless roundtrip of a
+    registry class) is applied to each gradient as ``compress`` then
+    ``decompress``; none gives ``(None, None)``."""
+    if isinstance(compression, str):
+        from ..compression import error_feedback_compress, get_scheme
+
+        scheme = get_scheme(compression)
+        if scheme.biased:
+            return None, error_feedback_compress(scheme)
+    comp = Compression.resolve(compression)
+    return (None if comp is Compression.none else comp), None
 
 
 def lm_loss_fn(model: nn.Module, fused_head: bool = False,

@@ -14,12 +14,17 @@ Example::
     state = trainer.fit(model, {}, batches, steps=1000)
 
 ``evaluate(eval_fn, batches)`` averages metrics over batches and
-workers without gradients.  Checkpoints, callbacks and ByteScheduler
-overlap (queue A item 8) and async-PS mode (item 10) are refused until
-their slices land.  ``device`` defaults to ``cuda`` (no GPU: pass
-``device="cpu"``); the model's parameters must already be there, and
-batches are moved there.  To share one card between workers, call
-``api.init(device, backend="gloo")`` before building the Trainer.
+workers without gradients.  ``checkpoint_dir`` keeps rolling checkpoints
+(``checkpoint_every`` steps, the last ``checkpoint_keep``;
+training/checkpoint.py) and ``init_state`` resumes from the newest, as
+the JAX ``Trainer`` does; ``callbacks`` run after each step and may
+return a replacement state; ``overlap=True`` trains with the
+delayed-gradient step (training/overlap.py), flushed at the end of each
+``fit``.  Async-PS mode (queue A item 10) is refused.  ``device``
+defaults to ``cuda`` (no GPU: pass ``device="cpu"``); the model's
+parameters must already be there, and batches are moved there.  To share
+one card between workers, call ``api.init(device, backend="gloo")``
+before building the Trainer.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch import nn
 from .. import api
 from ..common import logging as bps_log
 from ..common.config import get_config
+from .checkpoint import CheckpointManager
 from .step import TrainState, make_data_parallel_step
 
 __all__ = ["Trainer"]
@@ -46,40 +52,61 @@ class Trainer:
     def __init__(self, loss_fn: Callable,
                  optimizer: torch.optim.Optimizer, compression=None,
                  backward_passes_per_step: int = 1,
-                 checkpoint_dir: Optional[str] = None, log_every: int = 100,
-                 callbacks: Sequence[Callable] = (),
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 1000, checkpoint_keep: int = 3,
+                 log_every: int = 100, callbacks: Sequence[Callable] = (),
                  async_mode: Optional[bool] = None, overlap: bool = False,
                  device=None):
-        refused = [name for name, on in (
-            ("checkpoint_dir", checkpoint_dir is not None),
-            ("callbacks", bool(callbacks)),
-            ("overlap=True", overlap),
-            ("async_mode (or BYTEPS_ENABLE_ASYNC)",
-             get_config().enable_async if async_mode is None
-             else async_mode)) if on]
-        if refused:
+        if (get_config().enable_async if async_mode is None
+                else async_mode):
             raise NotImplementedError(
-                f"{refused}: not ported yet (checkpoints, callbacks and "
-                f"overlap are queue A item 8, async mode item 10); the "
-                f"port's Trainer runs the synchronous step")
+                "async_mode (or BYTEPS_ENABLE_ASYNC): the async parameter-"
+                "server mode belongs to the port's PS-tier slice (queue A "
+                "item 10); the port's Trainer runs the synchronous step")
         api.init(device)
         self.device = api.device()
-        self.step_fn = make_data_parallel_step(
-            loss_fn, optimizer, compression=compression,
-            backward_passes_per_step=backward_passes_per_step)
+        # ByteScheduler mode: cross-iteration overlap through the
+        # delayed-gradient step; fit() flushes the final pending gradients
+        self.overlap = bool(overlap)
+        if self.overlap:
+            if backward_passes_per_step != 1:
+                raise ValueError("overlap=True does not compose with "
+                                 "backward_passes_per_step > 1")
+            from .overlap import make_delayed_grad_step
+
+            self.step_fn = make_delayed_grad_step(
+                loss_fn, optimizer, compression=compression)
+        else:
+            self.step_fn = make_data_parallel_step(
+                loss_fn, optimizer, compression=compression,
+                backward_passes_per_step=backward_passes_per_step)
+        self.ckpt = (CheckpointManager(checkpoint_dir, checkpoint_every,
+                                       checkpoint_keep)
+                     if checkpoint_dir else None)
         self.log_every = log_every
+        self.callbacks = list(callbacks)
         self.state: Optional[TrainState] = None
         self.metrics: dict = {}  # the last step's {"loss": tensor}
 
     def init_state(self, model: nn.Module, model_state=None,
-                   root_rank: int = 0) -> TrainState:
+                   root_rank: int = 0, resume: bool = True) -> TrainState:
         """Broadcast-consistent init: ``root_rank``'s parameters (and
-        model state) on every worker, in place."""
+        model state) on every worker, in place — or, with a checkpoint
+        directory holding a checkpoint and ``resume``, the newest
+        checkpoint's state (model, optimizer, model state, step and any
+        error-feedback residuals or pending gradients), loaded on rank 0
+        and broadcast."""
         wrong = {p.device for p in model.parameters()
                  if p.device != self.device}
         if wrong:
             raise ValueError(f"model parameters on {wrong}, trainer on "
                              f"{self.device}: move the model first")
+        if self.ckpt is not None and resume:
+            state = self.step_fn.init_state(model, model_state)
+            restored, step = self.ckpt.restore_latest(template=state)
+            if restored is not None:
+                bps_log.info("resuming from checkpoint step %d", step)
+                return restored
         model = api.broadcast_parameters(model, root_rank)
         if model_state:
             model_state = api.broadcast_parameters(model_state, root_rank)
@@ -88,9 +115,12 @@ class Trainer:
     def fit(self, model: nn.Module, model_state, batches: Iterable,
             steps: Optional[int] = None) -> TrainState:
         """Run the step over ``batches`` (dicts of arrays or tensors), at
-        most ``steps`` of them; a later call continues from the state."""
+        most ``steps`` of them; a later call continues from the state.
+        After each step the state is checkpointed when due, then the
+        callbacks run; with ``overlap`` the last pending gradients are
+        applied at the end."""
         state = self.state or self.init_state(model, model_state)
-        model.train()
+        state.model.train()
         t0 = time.time()
         seen = 0
         for i, batch in enumerate(batches):
@@ -100,10 +130,18 @@ class Trainer:
                      for k, v in batch.items()}
             state, self.metrics = self.step_fn(state, batch)
             seen += 1
+            if self.ckpt is not None:
+                self.ckpt.maybe_save(state, state.step)
+            for cb in self.callbacks:
+                maybe = cb(state)
+                if maybe is not None:
+                    state = maybe
             if self.log_every and seen % self.log_every == 0:
                 bps_log.info("step %d loss %.4f (%.2f steps/s)", state.step,
                              float(self.metrics["loss"]),
                              seen / max(time.time() - t0, 1e-9))
+        if self.overlap:
+            state = self.step_fn.flush(state)
         self.state = state
         return state
 

@@ -355,6 +355,44 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    CUDA and on a host tensor, on the default group while the engine is
    idle.  No collective is staged through the host: the port has no
    staging path.
+13h. The rest of the training path (the main path of the slice that adds
+   the compression registry with error feedback, checkpoints, callbacks
+   and the delayed-gradient overlap step) — phase 11's model, AdamW,
+   fused head and 4 x 2048 batch.  (a) ``Trainer(compression="onebit")``
+   at one worker, 4 steps: error feedback rounds every gradient leaf
+   locally before AdamW (the JAX world-1 chain); losses finite and
+   falling; at step 1, at phase 13a's three leaves, the card's
+   dequantized gradient and residual against a float64 recomputation on
+   the host from the same gradient (copied by a hook before the
+   feedback): the scale the float64 mean of |g| within 1 ulp, every
+   element ±scale by the sign of g, the residual g - deq exactly and not
+   zero; step p50 beside phase 11's; every step phase 11's launches on
+   TMA, no plain call.  (b) The run of (a) with ``checkpoint_dir`` (a
+   temporary directory), ``checkpoint_every=2``, ``checkpoint_keep=1``,
+   stopped after step 2; then fresh weights from ``--seed + 1``, a fresh
+   AdamW and a fresh Trainer on the directory resume at step 2 and run
+   steps 3-4: their losses and the parameters' SHA-256 bit-identical to
+   (a)'s; the same resume with the residual zeroed must differ (the
+   resumed Trainers do not save again).  The bytes, seconds and free
+   disk of the save, the restore's seconds; a directory with less room
+   than the state fails the phase with those numbers.  (c) Two launcher workers as in
+   13a (b) (``--ef-worker``): each runs a onebit Trainer for 2 steps,
+   then frees it and runs ``Trainer(overlap=True)`` for 3 steps and the
+   flush.  Losses identical across ranks and the SHA-256 equal after
+   each; at step 1, at the three leaves' first 4096 rows, the averaged
+   gradient handed to AdamW equals ``(deq_0 + deq_1) / 2`` of the ranks'
+   dequantized payloads (recorded in the error-feedback call), and the
+   unaveraged sum and each rank's payload alone do not; each residual
+   equals ``g_r - deq_r``; each overlap loss within 1e-3 relative of a
+   one-worker delayed-gradient run of the 4 x 2048 batch in this process;
+   each worker's first flash and fused-CE calls held as in 13a (b); per
+   worker peak memory, and the share of the engine's push_pull busy time
+   that falls inside a step's forward and backward (the tracer's
+   ``overlap`` spans; printed, not gated).  (d) The serve role (phase 6's
+   default model) with ``BYTEPS_SERVE_CHECKPOINT`` on a port checkpoint
+   of that model saved from ``--seed + 1``: the served tokens equal the
+   in-process ``generate()`` on the saved weights (grouped rows, as the
+   dense engine) and differ from the role's default weights'.
 
 13b. BERT reference — BERT-base (``bert_config()``: 12 x 768, 12 heads,
    3072, vocab 30522) in fp32 from ``--seed``, ``attn_impl="flash"``
@@ -527,7 +565,9 @@ and held calls; the flash entries also the BERT fine-tune's launches,
 its held forward and backward calls and the BERT case's times, GPT-2's
 and Llama's prefills and GPT-2's fused training; the fused-CE entries
 GPT-2's training launches and held call; the flash and fused-CE entries
-each worker's launches in phase 13a (b) and both workers' held calls;
+each worker's launches in phase 13a (b) and both workers' held calls,
+and phase 13h's launches (``training_rest_launches``: (a)'s four steps,
+and (c)'s per worker for each trainer) and its workers' held calls;
 the bf16 decode entry GPT-2's
 and Llama's launches, their held calls and the G = 1 case's times; the
 int8 product GPT-2's launches by design and held calls), and ``{"ok":
@@ -1140,6 +1180,8 @@ def kernel_phase(torch, seed: int, final_pos):
 
 
 PAGED_ROLE_ENV = {"BYTEPS_SERVE_PAGED": "1"}
+SERVE_ROLE_PROMPT = tuple(i % 7 for i in range(1, 40))
+SERVE_ROLE_NEW = 8
 
 
 def serve_role_phase(torch, env) -> dict:
@@ -1171,8 +1213,9 @@ def serve_role_phase(torch, env) -> dict:
         cfg = eng.model.cfg
         c = RemoteServeClient(f"127.0.0.1:{srv.server_address[1]}",
                               timeout=300)
-        prompt = np.arange(1, 40, dtype=np.int32) % 7
-        a, b = c.generate(prompt, 8), c.generate(prompt, 8)
+        prompt = np.asarray(SERVE_ROLE_PROMPT, np.int32)
+        a, b = (c.generate(prompt, SERVE_ROLE_NEW),
+                c.generate(prompt, SERVE_ROLE_NEW))
         st = c.stats()
         c.close()
     finally:
@@ -1190,7 +1233,7 @@ def serve_role_phase(torch, env) -> dict:
     # paged: one launch per layer a tick at any tp; dense: grouped rows,
     # no kernel (the model's head_dim-32 attention in plain torch)
     want = counts["decode_ticks"] * cfg.num_layers if paged else 0
-    if (a.shape != (8,) or not np.array_equal(a, b) or pa.plain_calls
+    if (a.shape != (SERVE_ROLE_NEW,) or not np.array_equal(a, b) or pa.plain_calls
             or da.plain_calls or pa.launches != want or da.launches
             or counts["decode_ticks"] == 0 or eng.paged != paged
             or (st["kv_blocks"] is None) == paged):
@@ -1200,7 +1243,7 @@ def serve_role_phase(torch, env) -> dict:
                              f"{counts}")
     info = {"phase": "serve_role", "env": env, "head_dim": cfg.d_head,
             "device": st["device"], "engine": "paged" if paged else "dense",
-            "tokens_identical": True,
+            "tokens_identical": True, "tokens": a.tolist(),
             "paged_launches": pa.launches, "step_counts": counts,
             "kv_blocks": st["kv_blocks"], "prefix_cache": st["prefix_cache"]}
     if "BYTEPS_TP" in env:
@@ -5019,6 +5062,64 @@ def dp_worker(torch, seed: int, out: str) -> int:
     return 0
 
 
+def _launch_workers(flag: str, seed: int, tmp: str) -> tuple:
+    """``DP_WORLD`` workers through the port's launcher (``DMLC_ROLE=
+    worker``, a free ``DMLC_PS_ROOT_PORT``), each running this script
+    with ``flag`` and tracing to ``tmp/trace{r}.json``; every one still
+    running at ``DP_TIMEOUT_S`` is killed.  Returns each worker's JSON
+    result and the wall seconds; a worker that failed fails the phase
+    with its log's tail."""
+    import os
+
+    from byteps_tpu_torch.engine.transport import free_port
+
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DP_WORLD):
+            log = open(os.path.join(tmp, f"worker{r}.log"), "w")
+            env = _child_env({
+                "DMLC_ROLE": "worker", "DMLC_NUM_WORKER": str(DP_WORLD),
+                "DMLC_WORKER_ID": str(r), "DMLC_PS_ROOT_URI": "127.0.0.1",
+                "DMLC_PS_ROOT_PORT": str(port),
+                "BYTEPS_TRACE_PATH": os.path.join(tmp, f"trace{r}.json")})
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.launcher",
+                 sys.executable, os.path.join(here, "chip_smoke.py"),
+                 flag, "--seed", str(seed), "--dp-out",
+                 os.path.join(tmp, f"worker{r}.json")],
+                env=env, cwd=here, stdout=log, stderr=subprocess.STDOUT),
+                log))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            log.close()
+    wall_s = time.perf_counter() - t0
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = {}
+        for r in failed:
+            with open(os.path.join(tmp, f"worker{r}.log")) as f:
+                tails[r] = f.read()[-3000:]
+        raise AssertionError(f"{flag} workers {failed} failed "
+                             f"(rc {[p.returncode for p, _ in procs]}): "
+                             f"{tails}")
+    res = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(tmp, f"worker{r}.json")) as f:
+            res.append(json.load(f))
+    return res, wall_s
+
+
 def dp_train_phase(torch, seed: int) -> dict:
     """Phase 13a (b): one worker's reference run of phase 11's batch, then
     two workers through the launcher (module docstring)."""
@@ -5028,7 +5129,6 @@ def dp_train_phase(torch, seed: int) -> dict:
     import numpy as np
 
     from byteps_tpu_torch import api
-    from byteps_tpu_torch.engine.transport import free_port
     from byteps_tpu_torch.models.transformer import (Transformer,
                                                      TransformerConfig,
                                                      init_weights)
@@ -5060,50 +5160,7 @@ def dp_train_phase(torch, seed: int) -> dict:
     torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="dp-")
-    port = free_port()
-    here = os.path.dirname(os.path.abspath(__file__))
-    procs = []
-    t0 = time.perf_counter()
-    try:
-        for r in range(DP_WORLD):
-            log = open(os.path.join(tmp, f"worker{r}.log"), "w")
-            env = _child_env({
-                "DMLC_ROLE": "worker", "DMLC_NUM_WORKER": str(DP_WORLD),
-                "DMLC_WORKER_ID": str(r), "DMLC_PS_ROOT_URI": "127.0.0.1",
-                "DMLC_PS_ROOT_PORT": str(port),
-                "BYTEPS_TRACE_PATH": os.path.join(tmp, f"trace{r}.json")})
-            procs.append((subprocess.Popen(
-                [sys.executable, "-m", "byteps_tpu_torch.launcher",
-                 sys.executable, os.path.join(here, "chip_smoke.py"),
-                 "--dp-worker", "--seed", str(seed), "--dp-out",
-                 os.path.join(tmp, f"worker{r}.json")],
-                env=env, cwd=here, stdout=log, stderr=subprocess.STDOUT),
-                log))
-        deadline = time.monotonic() + DP_TIMEOUT_S
-        for p, _ in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=60)
-            log.close()
-    wall_s = time.perf_counter() - t0
-    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
-    if failed:
-        tails = {}
-        for r in failed:
-            with open(os.path.join(tmp, f"worker{r}.log")) as f:
-                tails[r] = f.read()[-3000:]
-        raise AssertionError(f"dp workers {failed} failed "
-                             f"(rc {[p.returncode for p, _ in procs]}): "
-                             f"{tails}")
-    res = []
-    for r in range(DP_WORLD):
-        with open(os.path.join(tmp, f"worker{r}.json")) as f:
-            res.append(json.load(f))
+    res, wall_s = _launch_workers("--dp-worker", seed, tmp)
     losses = [[s["loss"] for s in w["steps"]] for w in res]
     if any(ls != losses[0] for ls in losses):
         raise AssertionError(f"averaged losses differ across ranks: "
@@ -5202,6 +5259,532 @@ def _dp_grad_check(torch, ref: dict, grads: list) -> dict:
             raise AssertionError(f"{n}: a wrong reduction falls within "
                                  f"{DP_GRAD_TOL}: {line}")
     return out
+
+
+# ------------------------------------------------ the rest of training
+
+EF_STEPS = 4           # 13h (a): onebit steps at world 1
+EF_SAVE_AT = 2         # 13h (b): checkpoint_every; resumed after it
+EF_WORLD2_STEPS = 2    # 13h (c): the onebit trainer's steps a worker
+OVL_STEPS = 3          # 13h (c): the overlap trainer's steps, then a flush
+OVL_LOSS_TOL = 1e-3    # world-2 overlap losses vs one worker's, relative
+
+
+def _fused_model(torch, seed: int):
+    """Phase 11's model (fp32 weights from ``seed``, bf16 compute, flash)
+    and AdamW, not yet in a Trainer."""
+    from byteps_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig,
+                                                     init_weights)
+
+    cfg = TransformerConfig(**LLAMA_3_2_1B, max_seq_len=MAX_SEQ,
+                            dtype=torch.bfloat16, attn_impl="flash")
+    model = Transformer(cfg, device="cuda")
+    init_weights(model, seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4, fused=True)
+    return cfg, model, opt
+
+
+def _train_batch(torch, seed: int, rows=slice(None)) -> dict:
+    """Phase 11's 4 x 2048 batch (``rows`` of it)."""
+    import numpy as np
+
+    toks = np.random.RandomState(seed).randint(
+        0, LLAMA_3_2_1B["vocab_size"], size=(TRAIN_B, MAX_SEQ))
+    return {"tokens": torch.from_numpy(toks[rows]).cuda()}
+
+
+def _params_sha(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in model.named_parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _want_launches(fce) -> tuple:
+    nc = fce.vocab_chunks(LLAMA_3_2_1B["vocab_size"])
+    return (LLAMA_3_2_1B["num_layers"],) * 3 + (1, nc, nc), 1 + 3 * nc
+
+
+def _step_launches(torch, fit, what: str) -> tuple:
+    """``fit()`` one step with the counts at 0; the launches it made,
+    which must be phase 11's, on TMA, with no plain call."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
+
+    want, tma = _want_launches(fce)
+    _zero_counts()
+    fit()
+    got = _flash_counts() + _fce_counts()
+    if got != want or fce.tma_launches != tma or fa.plain_calls \
+            or fce.plain_calls:
+        raise AssertionError(
+            f"{what}: launches {got} (want {want}), {fce.tma_launches} TMA "
+            f"(want {tma}), plain calls {fa.plain_calls}/{fce.plain_calls}")
+    return got
+
+
+def _onebit_leaf(torch, g, deq, e_new) -> dict:
+    """Error feedback's first step at a leaf (zero residual before), held
+    to a float64 recomputation on the host: the dequantized value is
+    ±scale by the sign of g, the scale the float64 mean of |g| rounded
+    once (within 1 ulp), and the residual g - deq exactly."""
+    import numpy as np
+
+    g, deq, e_new = g.float().cpu(), deq.float().cpu(), e_new.float().cpu()
+    exact = g.double().abs().mean().item()
+    scale = deq.abs().max().item()
+    ulps = abs(scale - float(np.float32(exact))) / float(
+        np.spacing(np.float32(exact)))
+    s = torch.tensor(scale)
+    line = {"numel": g.numel(), "scale": scale, "scale_float64": exact,
+            "scale_ulps": ulps,
+            "signs_equal": torch.equal(deq, torch.where(g >= 0, s, -s)),
+            "residual_equal": torch.equal(e_new, g - deq),
+            "residual_max_abs": e_new.abs().max().item()}
+    if not (ulps <= 1 and line["signs_equal"] and line["residual_equal"]
+            and line["residual_max_abs"] > 0):
+        raise AssertionError(f"onebit error feedback at step 1: {line}")
+    return line
+
+
+def _tree_bytes(torch, tree) -> int:
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(torch, v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(torch, v) for v in tree)
+    return 0
+
+
+def ef_phase(torch, seed: int, phase11_ms: float) -> tuple:
+    """Phase 13h (a) onebit at one worker and (b) checkpoint and resume
+    (module docstring).  Returns the line and (a)'s launches."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    batch = _train_batch(torch, seed)
+    root = tempfile.mkdtemp(prefix="ckpt-")
+    saves = []
+
+    def run(seed_, n, what, zero_residual=False, watch=False, **kw):
+        """A fused-head onebit Trainer from ``seed_`` (resuming when
+        ``kw`` names a checkpoint directory holding one), ``n`` steps;
+        everything it held is freed on return."""
+        cfg, model, opt = _fused_model(torch, seed_)
+        leaves = dict(model.named_parameters())
+        raw = {}
+        for name in DP_GRAD_LEAVES if watch else ():
+            def hook(p, name=name):
+                if name not in raw:   # step 1's gradient, before feedback
+                    raw[name] = p.grad.detach().to("cpu", copy=True)
+            leaves[name].register_post_accumulate_grad_hook(hook)
+        trainer = Trainer(lm_loss_fn(model, fused_head=True), opt,
+                          compression="onebit", log_every=0, **kw)
+        if trainer.ckpt is not None:
+            real = trainer.ckpt.maybe_save
+
+            def save(state, step):
+                need = _tree_bytes(torch, state.state_dict())
+                free_b = shutil.disk_usage(root).free
+                if step % trainer.ckpt.save_every == 0 and free_b < need:
+                    raise AssertionError(
+                        f"13h (b): {free_b} bytes free under {root}, the "
+                        f"checkpoint needs {need}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = real(state, step)
+                if path is not None:
+                    saves.append({
+                        "step": step, "s": time.perf_counter() - t0,
+                        "bytes": os.path.getsize(os.path.join(
+                            path, "checkpoint.pt")),
+                        "state_bytes": need, "free_bytes_before": free_b})
+                return path
+            trainer.ckpt.maybe_save = save
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state = trainer.init_state(model)
+        torch.cuda.synchronize()
+        out = {"init_s": time.perf_counter() - t0,
+               "start_step": trainer.state.step, "losses": [], "ms": [],
+               "launches": []}
+        if zero_residual:
+            for e in trainer.state.optimizer.ef_state.error:
+                e.zero_()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["launches"].append(_step_launches(
+                torch, lambda: trainer.fit(model, {}, [batch]),
+                f"{what} step {i + 1}"))
+            out["losses"].append(trainer.metrics["loss"].item())
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            if watch and i == 0:
+                ef = trainer.state.optimizer.ef_state
+                index = {k: j for j, k in enumerate(leaves)}
+                out["step1_leaves"] = {
+                    k: _onebit_leaf(torch, raw[k], leaves[k].grad,
+                                    ef.error[index[k]])
+                    for k in DP_GRAD_LEAVES}
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["sha256"] = _params_sha(model)
+        api.shutdown()
+        return out
+
+    def done():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        a = run(seed, EF_STEPS, "13h (a)", watch=True)        # (a)
+        done()
+        first = run(seed, EF_SAVE_AT, "13h (b)", checkpoint_dir=root,
+                    checkpoint_every=EF_SAVE_AT, checkpoint_keep=1)
+        done()
+        control = run(seed + 1, EF_STEPS - EF_SAVE_AT, "13h (b) control",
+                      zero_residual=True, checkpoint_dir=root,
+                      checkpoint_every=10 ** 9)
+        done()
+        resumed = run(seed + 1, EF_STEPS - EF_SAVE_AT, "13h (b) resumed",
+                      checkpoint_dir=root, checkpoint_every=10 ** 9)
+        done()
+        listing = sorted(os.listdir(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = a["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"13h (a) losses {losses}: not finite and "
+                             f"falling")
+    total = tuple(int(x) for x in np.sum(a["launches"], axis=0))
+    identical = (first["losses"] + resumed["losses"] == losses
+                 and resumed["sha256"] == a["sha256"])
+    control_differs = (control["sha256"] != a["sha256"]
+                       and control["losses"] != losses[EF_SAVE_AT:])
+    ck = {"dir": root, "saves": saves, "restore_s": resumed["init_s"],
+          "resumed_at": [control["start_step"], resumed["start_step"]],
+          "listing_after": listing, "losses_first": first["losses"],
+          "losses_resumed": resumed["losses"],
+          "losses_control": control["losses"],
+          "resumed_bit_identical": identical,
+          "control_residual_zeroed_differs": control_differs,
+          "peak_memory_gb_resumed": resumed["peak_memory_gb"]}
+    if (not identical or not control_differs
+            or ck["resumed_at"] != [EF_SAVE_AT] * 2
+            or listing != [f"step_{EF_SAVE_AT:010d}"]):
+        raise AssertionError(f"13h (b): {ck}")
+    info = {"phase": "training_rest", "model": "Llama-3.2-1B "
+            "(random weights)", "reduced": {"max_seq": [131072, MAX_SEQ]},
+            "batch": [TRAIN_B, MAX_SEQ], "compression": "onebit",
+            "onebit": {"losses": losses, "step_ms": a["ms"],
+                       "step_ms_p50": float(np.median(a["ms"][1:])),
+                       "phase11_step_ms_p50": phase11_ms,
+                       "peak_memory_gb": a["peak_memory_gb"],
+                       "launches": total,
+                       "step1_leaves": a["step1_leaves"]},
+            "checkpoint": ck}
+    return info, total
+
+
+def _intervals(spans) -> list:
+    """The union of ``(start, end)`` spans as sorted disjoint intervals."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _inside_ms(spans, within) -> float:
+    """Milliseconds of the union of ``spans`` that fall inside the union
+    of ``within``."""
+    total = 0.0
+    for a, b in _intervals(spans):
+        for c, d in _intervals(within):
+            total += max(0.0, min(b, d) - max(a, c))
+    return total / 1e3
+
+
+def ef_worker(torch, seed: int, out: str) -> int:
+    """One worker of phase 13h (c), run by the port's launcher: the
+    fused-head Llama-3.2-1B step on this rank's rows at world 2, gloo on
+    the shared card, with onebit compression for EF_WORLD2_STEPS steps,
+    then with the delayed-gradient overlap for OVL_STEPS steps and a
+    flush."""
+    import gc
+    import os
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.common.tracing import get_tracer
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    api.init(device="cuda", backend="gloo")
+    rank, world = api.rank(), api.size()
+    per = TRAIN_B // world
+    batch = _train_batch(torch, seed, slice(rank * per, (rank + 1) * per))
+    tracer = get_tracer()
+    res = {"rank": rank, "world": world, "backend": "gloo"}
+    rec, raw = {}, {}
+
+    def onebit():
+        cfg, model, opt = _fused_model(torch, seed + rank)
+        leaves = dict(model.named_parameters())
+        names = list(leaves)
+        for n in DP_GRAD_LEAVES:
+            # registered before the DistributedOptimizer's hooks: this
+            # rank's own gradient, before error feedback rounds it
+            def hook(p, n=n):
+                if n not in raw:
+                    raw[n] = p.grad[:DP_GRAD_ROWS].detach().to(
+                        "cpu", copy=True)
+            leaves[n].register_post_accumulate_grad_hook(hook)
+        trainer = Trainer(lm_loss_fn(model, fused_head=True), opt,
+                          compression="onebit", log_every=0)
+        ef = trainer.step_fn.optimizer.error_feedback
+        leaf = ef.leaf
+
+        def recording(i, g, e, count):
+            deq, e_new = leaf(i, g, e, count)
+            if count == 0 and names[i] in DP_GRAD_LEAVES:
+                rec[names[i]] = (deq[:DP_GRAD_ROWS].detach().cpu(),
+                                 e_new[:DP_GRAD_ROWS].detach().cpu())
+            return deq, e_new
+        ef.leaf = recording
+        trainer.state = trainer.init_state(model)     # rank 0's weights
+        torch.cuda.reset_peak_memory_stats()
+        steps, avg = [], {}
+        for i in range(EF_WORLD2_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            launches = _step_launches(
+                torch, lambda: trainer.fit(model, {}, [batch]),
+                f"13h (c) rank {rank} onebit step {i + 1}")
+            steps.append({"loss": trainer.metrics["loss"].item(),
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": launches})
+            if i == 0:   # the averaged gradient handed to AdamW
+                avg = {n: leaves[n].grad[:DP_GRAD_ROWS].cpu()
+                       for n in DP_GRAD_LEAVES}
+        return {"steps": steps, "sha256": _params_sha(model),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}, \
+            avg
+
+    def overlap():
+        cfg, model, opt = _fused_model(torch, seed + rank)
+        trainer = Trainer(lm_loss_fn(model, fused_head=True), opt,
+                          overlap=True, log_every=0)
+        trainer.state = trainer.init_state(model)     # rank 0's weights
+        steps = []
+        mark = [time.perf_counter(), _flash_counts() + _fce_counts()]
+
+        def record(state):
+            now = _flash_counts() + _fce_counts()
+            steps.append({"loss": trainer.metrics["loss"].item(),
+                          "ms": (time.perf_counter() - mark[0]) * 1e3,
+                          "launches": [a - b for a, b in zip(now, mark[1])]})
+            mark[:] = [time.perf_counter(), now]
+        trainer.callbacks.append(record)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        mark[1] = _flash_counts() + _fce_counts()
+        tracer.instant("overlap_start", "ef")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(model, {}, [batch] * OVL_STEPS)      # flushes at the end
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tracer.instant("overlap_end", "ef")
+        from byteps_tpu_torch.ops import fused_cross_entropy as fce
+
+        want, _ = _want_launches(fce)
+        if any(tuple(s["launches"]) != want for s in steps):
+            raise AssertionError(f"13h (c) rank {rank} overlap launches "
+                                 f"{[s['launches'] for s in steps]}, want "
+                                 f"{want} a step")
+        return {"steps": steps, "wall_s": wall, "step": trainer.state.step,
+                "sha256": _params_sha(model),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    with _PathCalls() as path:     # the loss binds the fused CE here
+        res["onebit"], avg = onebit()
+    gc.collect()
+    torch.cuda.empty_cache()       # the first trainer's state is freed
+    res["allocated_gb_between_trainers"] = \
+        torch.cuda.memory_allocated() / 1e9
+    torch.save({"raw": raw, "deq": {n: d for n, (d, _) in rec.items()},
+                "residual": {n: e for n, (_, e) in rec.items()},
+                "avg": avg}, out + ".ef.pt")
+    res["overlap"] = overlap()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["held"] = path.hold(torch)
+    api.shutdown()                 # flushes the trace
+    with open(os.environ["BYTEPS_TRACE_PATH"]) as f:
+        events = json.load(f)["traceEvents"]
+    marks = {e["name"]: e["ts"] for e in events if e.get("cat") == "ef"}
+    a, b = marks["overlap_start"], marks["overlap_end"]
+    spans = [e for e in events if e.get("ph") == "X" and a <= e["ts"] <= b]
+    pp = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+          if e["cat"] == "push_pull"]
+    fb = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+          if e["cat"] == "overlap"]
+    busy = _union_ms(pp)
+    res["overlap"].update({
+        "push_pull_busy_ms": busy, "forward_backward_ms": _union_ms(fb),
+        "push_pull_inside_forward_backward_ms": _inside_ms(pp, fb),
+        "push_pull_share_inside_forward_backward":
+            _inside_ms(pp, fb) / busy if busy else None,
+        "push_pull_spans": len(pp), "forward_backward_spans": len(fb)})
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def ef_world2_phase(torch, seed: int) -> dict:
+    """Phase 13h (c): a one-worker delayed-gradient run of phase 11's
+    batch, then two workers through the launcher (module docstring)."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    def one_worker():
+        cfg, model, opt = _fused_model(torch, seed)
+        trainer = Trainer(lm_loss_fn(model, fused_head=True), opt,
+                          overlap=True, log_every=0)
+        losses = []
+        trainer.callbacks.append(
+            lambda st: losses.append(trainer.metrics["loss"].item()))
+        trainer.fit(model, {}, [_train_batch(torch, seed)] * OVL_STEPS)
+        api.shutdown()
+        return losses
+
+    ref = one_worker()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ef-")
+    res, wall_s = _launch_workers("--ef-worker", seed, tmp)
+    info = {"phase": "training_rest_world2", "world": DP_WORLD,
+            "backend": "gloo", "batch_per_worker": [TRAIN_B // DP_WORLD,
+                                                    MAX_SEQ],
+            "wall_s": wall_s, "allocated_gb_between_trainers": [
+                w["allocated_gb_between_trainers"] for w in res]}
+    for kind in ("onebit", "overlap"):
+        losses = [[s["loss"] for s in w[kind]["steps"]] for w in res]
+        if any(ls != losses[0] for ls in losses) or \
+                len({w[kind]["sha256"] for w in res}) != 1:
+            raise AssertionError(f"13h (c) {kind}: the ranks differ: "
+                                 f"{losses}")
+        info[kind] = {"losses": losses[0], "params_sha256_equal": True,
+                      "workers": [w[kind] for w in res]}
+    rel = [abs(a - b) / abs(b) for a, b in zip(info["overlap"]["losses"],
+                                               ref)]
+    info["overlap"].update({"one_worker_losses": ref,
+                            "loss_max_rel_diff": max(rel),
+                            "loss_tolerance": OVL_LOSS_TOL})
+    if not all(np.isfinite(ref)) or max(rel) > OVL_LOSS_TOL:
+        raise AssertionError(f"13h (c) overlap losses "
+                             f"{info['overlap']['losses']} vs one worker's "
+                             f"{ref}: rel {rel}")
+    # step 1's average: exactly (deq_0 + deq_1) / 2 of the recorded
+    # payloads (a sum of two fp32 values, halved); the unaveraged sum and
+    # one rank's payload alone must miss; each residual g + 0 - deq
+    ef = [torch.load(f"{tmp}/worker{r}.json.ef.pt") for r in range(DP_WORLD)]
+    check = {}
+    for n in DP_GRAD_LEAVES:
+        deq = [e["deq"][n] for e in ef]
+        avg = [e["avg"][n] for e in ef]
+        want = (deq[0] + deq[1]) / 2
+        line = {"average_equal": all(torch.equal(a, want) for a in avg),
+                "control_sum_unaveraged_equal": torch.equal(
+                    avg[0], deq[0] + deq[1]),
+                "control_one_payload_equal": [torch.equal(avg[0], d)
+                                              for d in deq],
+                "residuals_equal": [torch.equal(e["residual"][n],
+                                                e["raw"][n] - e["deq"][n])
+                                    for e in ef],
+                "scales": [e["deq"][n].abs().max().item() for e in ef]}
+        check[n] = line
+        if not (line["average_equal"] and all(line["residuals_equal"])) \
+                or line["control_sum_unaveraged_equal"] \
+                or any(line["control_one_payload_equal"]):
+            raise AssertionError(f"13h (c) {n}: {line}")
+    info["onebit"]["step1_average"] = {"rows": DP_GRAD_ROWS, **check}
+    cfg_h = LLAMA_3_2_1B["num_heads"]
+    want_held = sorted([
+        ("flash_attention", [TRAIN_B // DP_WORLD, MAX_SEQ, cfg_h,
+                             LLAMA_3_2_1B["head_dim"]], ["dk", "dq", "dv"]),
+        ("fused_linear_cross_entropy",
+         [TRAIN_B // DP_WORLD * MAX_SEQ, LLAMA_3_2_1B["d_model"]],
+         ["dw", "dx"])])
+    for w in res:
+        got = sorted((h["kernel"], h["shapes"][0], h.get("backward_held"))
+                     for h in w["held"])
+        if got != want_held:
+            raise AssertionError(f"13h (c) rank {w['rank']} held calls "
+                                 f"{got}, want {want_held}")
+    info["held"] = [h for w in res for h in w["held"]]
+    info["launches_per_worker"] = {
+        kind: [int(x) for x in np.sum([s["launches"] for s in
+                                        res[0][kind]["steps"]], axis=0)]
+        for kind in ("onebit", "overlap")}
+    return info
+
+
+def serve_checkpoint_phase(torch, seed: int) -> dict:
+    """Phase 13h (d): the serve role with ``BYTEPS_SERVE_CHECKPOINT`` on
+    a port checkpoint of its model saved from another seed."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from byteps_tpu_torch.inference import generate
+    from byteps_tpu_torch.serving.frontend import _model_from_env
+    from byteps_tpu_torch.training import save_checkpoint
+
+    root = tempfile.mkdtemp(prefix="serve-ckpt-")
+    try:
+        model = _model_from_env("", torch.device("cuda"), seed=seed + 1)
+        path = save_checkpoint(os.path.join(root, "weights"), model)
+        info = serve_role_phase(torch, {"BYTEPS_SERVE_CHECKPOINT": path})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    prompt = torch.tensor([SERVE_ROLE_PROMPT], dtype=torch.int32,
+                          device="cuda")
+    want = generate(model, prompt, SERVE_ROLE_NEW, temperature=0,
+                    cache_layout="grouped")["tokens"][0].tolist()
+    default = generate(_model_from_env("", torch.device("cuda")), prompt,
+                       SERVE_ROLE_NEW, temperature=0,
+                       cache_layout="grouped")["tokens"][0].tolist()
+    info.update({"phase": "serve_role_checkpoint",
+                 "generate_on_saved_weights": want,
+                 "default_weights_tokens": default})
+    if info["tokens"] != want or want == default:
+        raise AssertionError(f"13h (d): served {info['tokens']}, generate "
+                             f"on the saved weights {want}, on the role's "
+                             f"default weights {default}")
+    del model
+    torch.cuda.empty_cache()
+    return info
 
 
 # ------------------------------------------------------------ generation
@@ -6121,8 +6704,12 @@ def main() -> int:
     ap.add_argument("--dp-worker", action="store_true",
                     help="run one worker of phase 13a (b) (the phase "
                          "starts two through the port's launcher)")
+    ap.add_argument("--ef-worker", action="store_true",
+                    help="run one worker of phase 13h (c) (the phase "
+                         "starts two through the port's launcher)")
     ap.add_argument("--dp-out", default="",
-                    help="where --dp-worker writes its JSON result")
+                    help="where --dp-worker or --ef-worker writes its "
+                         "JSON result")
     ap.add_argument("--quant-kernel-names", action="store_true",
                     help="print only the int8-product kernels each bf16 "
                          "phase-17 case launches (phase 17 runs this in a "
@@ -6148,6 +6735,8 @@ def main() -> int:
         return 0
     if args.dp_worker:
         return dp_worker(torch, args.seed, args.dp_out)
+    if args.ef_worker:
+        return ef_worker(torch, args.seed, args.dp_out)
     smi = _smi()
     _line({"phase": "device", "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -6222,6 +6811,14 @@ def main() -> int:
     _line(dp_info)
     dp_launches = [DP_STEPS * n for n in dp_info["launches_per_worker_step"]]
     dp_held = [h for w in dp_info["workers"] for h in w["held"]]
+    ef_info, ef_launches = ef_phase(torch, args.seed,
+                                    fused_info["step_ms_p50"])
+    ef_info["nvidia_smi"] = _smi()
+    _line(ef_info)
+    ef2_info = ef_world2_phase(torch, args.seed)
+    ef2_info["nvidia_smi"] = _smi()
+    _line(ef2_info)
+    _line(serve_checkpoint_phase(torch, args.seed))
     # this slice's phases run after phase 13: their profile takes CPU and
     # CUDA activities, after which phase 13's CUDA-only profiles saw no
     # kernel (seen on the H100)
@@ -6275,6 +6872,17 @@ def main() -> int:
     gen_held = (gpt2_runs["bf16"]["held"] + gpt2_runs["int8_weights"]["held"]
                 + llama_run["held"])
     gpt2_train_held = gpt2_info["train"]["held"]
+
+    def training_rest(i, kernel):
+        """Phase 13h's launches of count ``i`` (flash fwd, dq, dkv, fused
+        CE fwd, dx, dw) and its workers' held calls of ``kernel``."""
+        return {"training_rest_launches": {
+                    "onebit_world1": ef_launches[i],
+                    "world2_per_worker": {
+                        k: v[i] for k, v in
+                        ef2_info["launches_per_worker"].items()}},
+                "training_rest_held_on_path": held(ef2_info["held"],
+                                                   kernel)}
 
     def case(r):
         return {k: r[k] for k in (
@@ -6336,6 +6944,7 @@ def main() -> int:
         extra.update({
             "dp_world2_launches_per_worker": dp_launches[i],
             "dp_held_on_path": held(dp_held, "flash_attention"),
+            **training_rest(i, "flash_attention"),
             "bert_finetune_launches": bert_launches[i],
             "bert_held_on_path": held(bert_held, "flash_attention"),
             "bert_case": {d: case(r) for d, r in flash_main["bert"].items()},
@@ -6377,6 +6986,8 @@ def main() -> int:
             "dp_world2_launches_per_worker": dp_launches[
                 3 + ("fwd", "dx", "dw").index(kname)],
             "dp_held_on_path": held(dp_held, "fused_linear_cross_entropy"),
+            **training_rest(3 + ("fwd", "dx", "dw").index(kname),
+                            "fused_linear_cross_entropy"),
             "gpt2_train_held_on_path": held(gpt2_train_held,
                                             "fused_linear_cross_entropy"),
             "name": f"fused_cross_entropy_{kname}", "route": "cuda",

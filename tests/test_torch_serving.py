@@ -263,6 +263,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import byteps_tpu_torch.common.tracing\n"
         "import byteps_tpu_torch.ops.compression\n"
         "import byteps_tpu_torch.training.optimizer\n"
+        "import byteps_tpu_torch.compression\n"
+        "import byteps_tpu_torch.ops.quantization\n"
+        "import byteps_tpu_torch.ops.sparsification\n"
+        "import byteps_tpu_torch.training.callbacks\n"
+        "import byteps_tpu_torch.training.checkpoint\n"
+        "import byteps_tpu_torch.training.overlap\n"
         "assert 'transformers' not in sys.modules\n")
     assert proc.returncode == 0, proc.stderr
 
@@ -323,7 +329,7 @@ def test_serve_from_env_on_cpu_answers_a_jax_client(monkeypatch):
 
 def test_serve_role_runs_on_the_gpu_unless_told_otherwise(monkeypatch):
     """``DMLC_ROLE=serve`` without a GPU raises instead of serving on the
-    CPU, and unported knobs are refused rather than ignored: a checkpoint
+    CPU, and knobs are never ignored: a missing checkpoint raises
     (``BYTEPS_SERVE_PAGED_KERNEL=off``, once refused, builds the gather
     fallback now)."""
     from byteps_tpu_torch import launcher
@@ -344,8 +350,10 @@ def test_serve_role_runs_on_the_gpu_unless_told_otherwise(monkeypatch):
     srv.server_close()
     thread.join(timeout=10)
     assert srv.engine.paged and not srv.engine.paged_kernel
+    # a checkpoint is loaded now (test_torch_training_extras.py); one
+    # that is not there raises rather than serving random weights
     monkeypatch.setenv("BYTEPS_SERVE_CHECKPOINT", "/nonexistent.ckpt")
-    with pytest.raises(NotImplementedError, match="CHECKPOINT"):
+    with pytest.raises(FileNotFoundError):
         serve_from_env(device="cpu")
     # the worker role is ported (test_torch_api_multi.py); the PS
     # server role is not

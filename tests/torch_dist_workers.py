@@ -383,3 +383,198 @@ def train_cases(rank, world, cfg_kw, state_dict, batches):
     out["trainer"] = (losses, ev, {n: np_of(p) for n, p in
                                    model.named_parameters()})
     return out
+
+
+# ------------------------------------------------- compression / EF
+
+EF_COMBOS = [(1, "onebit"), (2, "onebit"), (1, "topk"), (2, "topk")]
+EF_SHAPES = [(7, 5), (300,), (2, 3)]
+
+
+def ef_grads(seed: int, rank: int, step: int) -> list:
+    """This rank's gradient leaves at ``step`` (numpy)."""
+    rng = rank_rng(seed * 10 + step, rank)
+    return [rng.randn(*s).astype(np.float32) for s in EF_SHAPES]
+
+
+def ef_transform_cases(rank, world, seed, steps):
+    """The stateless bf16 roundtrip and the int8 error feedback, each
+    followed by ``push_pull_gradients``, and the top-k EF push_pull, over
+    ``steps`` steps of this rank's gradients: the updates and residuals
+    of each step."""
+    import torch
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.compression import compression_roundtrip
+    from byteps_tpu_torch.ops.quantization import \
+        error_feedback_quantize_gradients
+    from byteps_tpu_torch.ops.sparsification import \
+        topk_ef_push_pull_gradients
+    from byteps_tpu_torch.training.optimizer import push_pull_gradients
+
+    api.init(device="cpu")
+    out = {}
+    for name, tx, chain in (
+            ("bf16", compression_roundtrip("bf16"), True),
+            ("int8", error_feedback_quantize_gradients(), True),
+            ("topk", topk_ef_push_pull_gradients(ratio=0.1), False)):
+        grads = [[torch.from_numpy(g) for g in ef_grads(seed, rank, s)]
+                 for s in range(steps)]
+        state = tx.init(grads[0])
+        rows = []
+        for g in grads:
+            up, state = tx.update(g, state)
+            if chain:
+                up = push_pull_gradients(up, partition_bytes=512)
+            err = getattr(state, "error", None) or []
+            rows.append(([np_of(u) for u in up], [np_of(e) for e in err]))
+        out[name] = rows
+    x = torch.from_numpy(ef_grads(seed, rank, 9)[1])
+    out["push_pull"] = {
+        n: np_of(api.push_pull(x, average=True, name=f"pp_{n}",
+                               compression=n))
+        for n in ("onebit", "topk", "randomk")}
+    return out
+
+
+def ef_train_cases(rank, world, cfg_kw, state_dict, batches):
+    """``make_data_parallel_step`` under each of EF_COMBOS (three
+    SGD-momentum steps, this rank's rows of each global batch): the
+    averaged losses and the weights; then the DistributedOptimizer's
+    residuals through ``state_dict`` / ``load_state_dict``."""
+    import torch
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.training import lm_loss_fn, make_data_parallel_step
+
+    api.init(device="cpu")
+    per = batches[0].shape[0] // world
+
+    def mine(b):
+        return {"tokens": torch.from_numpy(b[rank * per:(rank + 1) * per])}
+
+    out = {}
+    for bpps, scheme in EF_COMBOS:
+        model = _port_model(cfg_kw, state_dict)
+        step = make_data_parallel_step(
+            lm_loss_fn(model), torch.optim.SGD(model.parameters(), lr=0.1,
+                                               momentum=0.9),
+            compression=scheme, backward_passes_per_step=bpps)
+        state = step.init_state(model)
+        losses = []
+        for b in batches:
+            state, m = step(state, mine(b))
+            losses.append(m["loss"].item())
+        opt = step.optimizer
+        sd = opt.state_dict()
+        fresh = _port_model(cfg_kw, state_dict)
+        twin = make_data_parallel_step(
+            lm_loss_fn(fresh), torch.optim.SGD(fresh.parameters(), lr=0.1,
+                                               momentum=0.9),
+            compression=scheme, backward_passes_per_step=bpps).optimizer
+        twin.load_state_dict(sd)
+        out[(bpps, scheme)] = (
+            losses, {n: np_of(p) for n, p in model.named_parameters()},
+            [np_of(e) for e in opt.ef_state.error], opt.ef_state.count,
+            all(torch.equal(a, b) for a, b in zip(opt.ef_state.error,
+                                                  twin.ef_state.error))
+            and twin.ef_state.count == opt.ef_state.count
+            and sd["bps_compression"]["count"] == opt.ef_state.count)
+    return out
+
+
+# ------------------------------------- overlap, checkpoints, callbacks
+
+def extras_cases(rank, world, cfg_kw, state_dict, batches, ckpt_root):
+    """At ``world`` workers: ``make_delayed_grad_step`` (3 SGD-momentum
+    steps and a flush) and ``Trainer(overlap=True)``; ``average_metrics``;
+    ``BroadcastGlobalVariablesCallback`` from rank 1; a Trainer
+    checkpointing every step on rank 0's directory (rank 1's stays
+    empty), then resumed on fresh rank-dependent weights."""
+    import torch
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.models import transformer as pt
+    from byteps_tpu_torch.training import (BroadcastGlobalVariablesCallback,
+                                           Trainer, TrainState,
+                                           average_metrics, lm_loss_fn,
+                                           make_delayed_grad_step)
+
+    api.init(device="cpu")
+    per = batches[0].shape[0] // world
+
+    def mine(b):
+        return {"tokens": torch.from_numpy(b[rank * per:(rank + 1) * per])}
+
+    def weights(m):
+        return {n: np_of(p) for n, p in m.named_parameters()}
+
+    out = {}
+    model = _port_model(cfg_kw, state_dict)
+    step = make_delayed_grad_step(
+        lm_loss_fn(model), torch.optim.SGD(model.parameters(), lr=0.1,
+                                           momentum=0.9))
+    state = step.init_state(model)
+    losses = []
+    for b in batches:
+        state, m = step(state, mine(b))
+        losses.append(m["loss"].item())
+    before_flush = weights(model)
+    state = step.flush(state)
+    out["delayed"] = (losses, before_flush, weights(model), state.step)
+    model = _port_model(cfg_kw, state_dict)
+    trainer = Trainer(lm_loss_fn(model), torch.optim.SGD(
+        model.parameters(), lr=0.1, momentum=0.9), device="cpu",
+        overlap=True, log_every=0)
+    losses = []
+    trainer.callbacks.append(
+        lambda st: losses.append(trainer.metrics["loss"].item()))
+    trainer.fit(model, {}, [mine(b) for b in batches])
+    out["trainer_overlap"] = (losses, weights(model))
+    out["metrics"] = average_metrics({"loss": 1.5 + rank,
+                                      "acc": torch.tensor(0.25 * rank)})
+    # the callback: rank-dependent weights, optimizer and model state,
+    # then rank 1's everywhere
+    model = pt.Transformer(pt.TransformerConfig(dtype=torch.float32,
+                                                **cfg_kw))
+    pt.init_weights(model, 50 + rank)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1 * (rank + 1),
+                          momentum=0.9)
+    loss, _ = lm_loss_fn(model)(model, {}, mine(batches[0]))
+    loss.backward()
+    opt.step()
+    st = TrainState(model, opt, {"bn": torch.full((3,), float(rank))}, 0)
+    cb = BroadcastGlobalVariablesCallback(root_rank=1)
+    assert cb(st) is st and cb(st) is st
+    out["callback"] = (weights(model), st.model_state["bn"].tolist(),
+                       opt.param_groups[0]["lr"],
+                       {n: np_of(opt.state[p]["momentum_buffer"])
+                        for n, p in model.named_parameters()})
+    # checkpoints: rank 0 saves every step; rank 1 names a directory of
+    # its own, which stays empty; a resume on fresh weights gets rank 0's
+    import os
+
+    d = os.path.join(ckpt_root, f"rank{rank}")
+    model = pt.Transformer(pt.TransformerConfig(dtype=torch.float32,
+                                                **cfg_kw))
+    pt.init_weights(model, 60 + rank)
+    trainer = Trainer(lm_loss_fn(model), torch.optim.AdamW(
+        model.parameters(), lr=1e-3, weight_decay=1e-4), device="cpu",
+        compression="onebit", checkpoint_dir=d, checkpoint_every=1,
+        checkpoint_keep=2, log_every=0)
+    trainer.fit(model, {}, [mine(b) for b in batches])
+    saved = weights(model)
+    res = trainer.state.optimizer.ef_state.error
+    listing = sorted(os.listdir(d))
+    model = pt.Transformer(pt.TransformerConfig(dtype=torch.float32,
+                                                **cfg_kw))
+    pt.init_weights(model, 70 + rank)
+    fresh = Trainer(lm_loss_fn(model), torch.optim.AdamW(
+        model.parameters(), lr=1e-3, weight_decay=1e-4), device="cpu",
+        compression="onebit", checkpoint_dir=d, log_every=0)
+    resumed = fresh.init_state(model)
+    out["checkpoint"] = (saved, listing, weights(model), resumed.step,
+                         [np_of(e) for e in res],
+                         [np_of(e) for e in
+                          resumed.optimizer.ef_state.error])
+    return out

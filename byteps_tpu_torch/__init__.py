@@ -18,7 +18,11 @@ eager push_pull engine (``engine/dispatcher.py``) and collectives on
 (``training/``), one process a worker; and the rest of the worker's
 training path: the compression registry with error feedback
 (``compression/``), checkpoints, callbacks and the delayed-gradient
-overlap step (``training/``).  Entry points run on ``cuda`` unless the
+overlap step (``training/``); and the async parameter-server tier over
+TCP: the native host reducer (``native/``, ``csrc/byteps_native.cc``),
+the PS shard and its client (``engine/ps_server.py``, ``engine/wire.py``)
+and the async stores and worker (``engine/async_ps.py``) behind
+``Trainer(async_mode=True)``.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """
 

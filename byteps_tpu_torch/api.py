@@ -19,9 +19,16 @@ eager engine (engine/dispatcher.py) on a process group of its own.  A
 CUDA worker uses ``nccl`` and a CPU worker ``gloo`` unless ``backend=``
 names another; nothing switches backends on its own.
 
-Refused, naming the port's queue-A item: the async-PS and hierarchical
-PS paths, the metrics scrape and the PS tier's ``BYTEPS_COMPRESSION``
-(item 10).
+Under ``BYTEPS_ENABLE_ASYNC`` the workers share no process group: they
+exchange weights through the async parameter-server tier
+(engine/async_ps.py), and ``init`` brings up only this worker's own
+group of one on a free loopback port, as JAX's ``_maybe_init_distributed``
+skips the collective bootstrap there.  ``shutdown`` closes the
+process-default async store.
+
+Refused, naming the port's queue-A item 10: the hierarchical PS path
+(``hierarchical=True``, ``BYTEPS_HIERARCHICAL``), the metrics scrape,
+RPC trace ids and the Unix-socket / shared-memory transports.
 """
 
 from __future__ import annotations
@@ -109,23 +116,18 @@ def _refuse_unported(cfg) -> None:
         raise NotImplementedError(
             "BYTEPS_TRACE_RPC: RPC trace ids belong to the port's PS-tier "
             "slice (queue A item 10); unset it")
-    if cfg.enable_async:
+    if cfg.hierarchical:
         raise NotImplementedError(
-            "BYTEPS_ENABLE_ASYNC: the async parameter-server mode belongs "
-            "to the port's PS-tier slice (queue A item 10); the port runs "
-            "synchronous push_pull")
-    if cfg.compression and cfg.compression != "none":
-        raise NotImplementedError(
-            f"BYTEPS_COMPRESSION={cfg.compression!r} selects the PS tier's "
-            f"default wire scheme, and the PS tier that reads it is the "
-            f"port's PS-tier slice (queue A item 10); on the worker path "
-            f"pass compression= to push_pull, the DistributedOptimizer or "
-            f"the Trainer")
+            "BYTEPS_HIERARCHICAL=1: hierarchical push/pull comes with the "
+            "port of hierarchical.py (queue A item 10); unset it")
+    from .common.config import check_transport
+
+    check_transport(cfg.transport)
 
 
-def _rendezvous(world: int) -> str:
-    addr = os.environ.get("BYTEPS_COORDINATOR_ADDR")
-    if not addr and os.environ.get("DMLC_PS_ROOT_URI"):
+def _rendezvous(world: int, local: bool = False) -> str:
+    addr = None if local else os.environ.get("BYTEPS_COORDINATOR_ADDR")
+    if not addr and not local and os.environ.get("DMLC_PS_ROOT_URI"):
         addr = (os.environ["DMLC_PS_ROOT_URI"] + ":"
                 + os.environ.get("DMLC_PS_ROOT_PORT", "1234"))
     if not addr:
@@ -160,8 +162,14 @@ def init(device=None, backend: Optional[str] = None) -> None:
             return
         cfg = get_config()
         _refuse_unported(cfg)
-        world = int(os.environ.get("BYTEPS_NUM_PROCESSES", cfg.num_worker))
-        rank_ = int(os.environ.get("BYTEPS_PROCESS_ID", cfg.worker_id))
+        if cfg.enable_async:
+            # async-PS workers meet only at the server tier: a group of
+            # one each (DMLC_PS_ROOT_URI names the servers' host here)
+            world, rank_ = 1, 0
+        else:
+            world = int(os.environ.get("BYTEPS_NUM_PROCESSES",
+                                       cfg.num_worker))
+            rank_ = int(os.environ.get("BYTEPS_PROCESS_ID", cfg.worker_id))
         if not 0 <= rank_ < world:
             raise ValueError(f"DMLC_WORKER_ID={rank_} is not a rank of the "
                              f"{world}-worker world")
@@ -188,8 +196,9 @@ def init(device=None, backend: Optional[str] = None) -> None:
         owns = not dist.is_initialized()
         if owns:
             dist.init_process_group(
-                backend, init_method=_rendezvous(world), world_size=world,
-                rank=rank_, timeout=datetime.timedelta(minutes=10))
+                backend, init_method=_rendezvous(world, cfg.enable_async),
+                world_size=world, rank=rank_,
+                timeout=datetime.timedelta(minutes=10))
         elif (dist.get_world_size(), dist.get_rank()) != (world, rank_):
             raise ValueError(
                 f"torch.distributed is already initialized as rank "
@@ -223,6 +232,11 @@ def shutdown() -> None:
             _dispatcher.stop_engine()
             if _state.owns_group and dist.is_initialized():
                 dist.destroy_process_group()
+        # the process-default async-PS store owns wire workers and a
+        # heartbeat: live threads, closed here
+        from .engine.async_ps import close_async_store
+
+        close_async_store()
         _state.initialized = False
         _state.device = None
         _state.backend = None

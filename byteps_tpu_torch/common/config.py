@@ -7,19 +7,23 @@ either package: the logging pair ``common/logging.py`` needs, the
 ``BYTEPS_SERVE_*`` knobs ``serving/frontend.py:serve_from_env`` reads,
 the ``BYTEPS_DISAGG_*`` knobs of the disaggregated KV ship, the router
 tier's ``BYTEPS_ROUTER_*``, ``BYTEPS_DISAGG``, ``BYTEPS_SLO_*`` and
-``BYTEPS_AUTOSCALE_*`` knobs with ``BYTEPS_HEARTBEAT_TIMEOUT_MS`` (the
-router's ping bound), the worker knobs ``api.init``, the eager
-push_pull engine, ``training.Trainer`` and ``make_data_parallel_step``
-read (the DMLC cluster contract, partition bytes and scheduling
-credit, the wire dtype, the mesh shape), the compression knobs
-(``BYTEPS_COMPRESSION_RATIO``, ``_SEED``, ``_OVERRIDES``, ``_REPLY``,
-``BYTEPS_MIN_COMPRESS_BYTES``), and the observability trio
+``BYTEPS_AUTOSCALE_*`` knobs with the ``BYTEPS_HEARTBEAT_*`` pair, the
+worker knobs ``api.init``, the eager push_pull engine,
+``training.Trainer`` and ``make_data_parallel_step`` read (the DMLC
+cluster contract, partition bytes and scheduling credit, the wire
+dtype, the mesh shape), the compression knobs (``BYTEPS_COMPRESSION``
+and its ``_RATIO``, ``_SEED``, ``_OVERRIDES``, ``_REPLY``,
+``BYTEPS_MIN_COMPRESS_BYTES``), the async parameter-server tier's
+(``BYTEPS_ENABLE_ASYNC``, ``BYTEPS_SERVER_ADDRS``, ``DMLC_NUM_SERVER``,
+``BYTEPS_USE_HASH_KEY``, ``BYTEPS_FAILOVER``, the ``BYTEPS_RETRY_*``
+policy, ``BYTEPS_WIRE_WINDOW`` / ``_FANOUT`` and the
+``BYTEPS_SERVER_*PROFILE*`` timeline), and the observability trio
 (``BYTEPS_TRACE_PATH``, which the worker path's tracer honours;
 ``BYTEPS_METRICS_PORT`` and ``BYTEPS_TRACE_RPC``).  Knobs naming
-features the port does not have yet (the PS tier's
-``BYTEPS_COMPRESSION``, async PS, the metrics scrape, RPC trace ids,
-the Unix socket and shared-memory transports) are still parsed, so
-that a non-default value is refused loudly instead of ignored.
+features the port does not have yet (the metrics scrape, RPC trace ids,
+hierarchical push/pull, the Unix socket and shared-memory transports)
+are still parsed, so that a non-default value is refused loudly instead
+of ignored.
 """
 
 from __future__ import annotations
@@ -96,10 +100,40 @@ class Config:
     mesh_shape: str = ""           # e.g. "dp=4" or "dcn=2,dp=2"; "" = dp
     force_distributed: bool = False  # a dcn axis of 2 on one host
     debug_sample_tensor: str = ""  # log first/last values of matching names
-    enable_async: bool = False     # async PS mode; refused (later slice)
+    enable_async: bool = False     # async PS mode (engine/async_ps.py)
+    # hierarchical push/pull (the JAX engine/hierarchical.py); refused
+    hierarchical: bool = False
+
+    # --- async parameter-server tier (engine/async_ps.py, ps_server.py)
+    num_server: int = 1            # DMLC_NUM_SERVER: PS shards
+    use_hash_key: bool = False     # key->server sharding (global.cc:305-334)
+    # explicit shard addresses "host:port,host:port"; "" = derive from
+    # the DMLC contract (root port + 100 + shard index)
+    server_addrs: str = ""
+    # the server's per-key request timeline (reference docs/timeline.md)
+    server_enable_profile: bool = False
+    server_profile_output_path: str = "server_profile.json"
+    server_key_to_profile: Optional[int] = None  # None = all keys
+    # resilience of the PS client (resilience/policy.py from_config)
+    retry_max_attempts: int = 3       # total tries per op; 1 = fail fast
+    retry_backoff_ms: float = 50.0    # sleep before 2nd attempt
+    retry_backoff_mult: float = 2.0   # exponential growth per attempt
+    retry_jitter: float = 0.1         # +-10% randomization of each sleep
+    retry_deadline_ms: float = 15_000.0  # per-op wall bound; 0 = none
+    # None = auto (on when DMLC_NUM_WORKER <= 1): the OP_VERSION dedup of
+    # retried mutations is only unambiguous for a single writer per key
+    retry_version_guard: Optional[bool] = None
+    heartbeat_interval_ms: float = 0.0   # 0 = no heartbeat thread
+    heartbeat_miss_threshold: int = 3  # consecutive misses -> shard DOWN
+    failover: bool = True  # degraded-mode re-routing around dead shards
+    # in-flight request window per shard connection; 0 = serial client
+    wire_window: int = 8
+    # partitions of one op encoded and submitted ahead of the gather
+    wire_fanout: int = 16
+
     # --- gradient compression (compression/; the JAX package's names
     # and defaults) ------------------------------------------------------
-    # the PS tier's default wire scheme; refused until that tier (A10)
+    # the PS tier's default wire scheme (RemoteStore's CompressionPolicy)
     compression: str = ""
     compression_min_bytes: int = 1024   # raw pass-through below this
     compression_overrides: str = ""     # "substring=scheme,..." per-name
@@ -142,7 +176,7 @@ class Config:
     serve_tp: int = 1             # BYTEPS_TP: KV-head shards of the pool
     serve_client_timeout_ms: float = 300_000.0
 
-    # --- the router's ping / STATS bound (resilience heartbeat) -------
+    # --- the heartbeat's ping / STATS bound (router and PS client) ----
     heartbeat_timeout_ms: float = 1_000.0  # per-ping connect/read bound
 
     # --- serving router (serving/router.py) ----------------------------
@@ -204,6 +238,8 @@ class Config:
     # rendezvous is advertised, so a JAX client's "auto" finds TCP);
     # "unix", "shm" and explicit "unix:/..." / "shm:/..." are refused
     transport: str = "auto"
+    # per-endpoint overrides "host:port=spec,..." (tcp / auto only)
+    transport_overrides: str = ""
 
     @staticmethod
     def from_env() -> "Config":
@@ -221,6 +257,29 @@ class Config:
             force_distributed=_env_bool("BYTEPS_FORCE_DISTRIBUTED"),
             debug_sample_tensor=_env_str("BYTEPS_DEBUG_SAMPLE_TENSOR", ""),
             enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
+            hierarchical=_env_bool("BYTEPS_HIERARCHICAL"),
+            num_server=_env_int("DMLC_NUM_SERVER", 1),
+            use_hash_key=_env_bool("BYTEPS_USE_HASH_KEY"),
+            server_addrs=_env_str("BYTEPS_SERVER_ADDRS", ""),
+            server_enable_profile=_env_bool("BYTEPS_SERVER_ENABLE_PROFILE"),
+            server_profile_output_path=_env_str(
+                "BYTEPS_SERVER_PROFILE_OUTPUT_PATH", "server_profile.json"),
+            server_key_to_profile=_env_opt_int(
+                "BYTEPS_SERVER_KEY_TO_PROFILE"),
+            retry_max_attempts=_env_int("BYTEPS_RETRY_MAX_ATTEMPTS", 3),
+            retry_backoff_ms=_env_float("BYTEPS_RETRY_BACKOFF_MS", 50.0),
+            retry_backoff_mult=_env_float("BYTEPS_RETRY_BACKOFF_MULT", 2.0),
+            retry_jitter=_env_float("BYTEPS_RETRY_JITTER", 0.1),
+            retry_deadline_ms=_env_float("BYTEPS_RETRY_DEADLINE_MS",
+                                         15_000.0),
+            retry_version_guard=_env_opt_bool("BYTEPS_RETRY_VERSION_GUARD"),
+            heartbeat_interval_ms=_env_float("BYTEPS_HEARTBEAT_INTERVAL_MS",
+                                             0.0),
+            heartbeat_miss_threshold=_env_int(
+                "BYTEPS_HEARTBEAT_MISS_THRESHOLD", 3),
+            failover=_env_bool("BYTEPS_FAILOVER", True),
+            wire_window=_env_int("BYTEPS_WIRE_WINDOW", 8),
+            wire_fanout=_env_int("BYTEPS_WIRE_FANOUT", 16),
             compression=_env_str("BYTEPS_COMPRESSION", ""),
             compression_min_bytes=_env_int("BYTEPS_MIN_COMPRESS_BYTES",
                                            1024),
@@ -313,6 +372,7 @@ class Config:
             disagg_ship_retries=_env_int("BYTEPS_DISAGG_SHIP_RETRIES", 2),
             disagg_parked_cap=_env_int("BYTEPS_DISAGG_PARKED_CAP", 32),
             transport=_env_str("BYTEPS_TRANSPORT", "auto"),
+            transport_overrides=_env_str("BYTEPS_TRANSPORT_OVERRIDES", ""),
         )
 
 
@@ -378,8 +438,9 @@ def check_transport(transport: Optional[str]) -> None:
     if t not in ("auto", "tcp"):
         raise NotImplementedError(
             f"transport {t!r} (BYTEPS_TRANSPORT) selects a Unix-socket or "
-            f"shared-memory endpoint, which this port does not serve; use "
-            f"'auto' or 'tcp'")
+            f"shared-memory endpoint, which this port does not serve yet "
+            f"(queue A item 10: the unix / shm transports); use 'auto' or "
+            f"'tcp'")
 
 
 _config: Optional[Config] = None

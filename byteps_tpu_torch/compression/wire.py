@@ -18,7 +18,9 @@ Blob layout (everything little-endian, inside the outer frame payload):
 
 One difference: numpy has no bfloat16 without ``ml_dtypes``, which the
 port does not use, so a blob whose original dtype is ``bfloat16``
-decodes to float32 holding the same values (bf16 widens exactly).
+decodes to float32 holding the same values (bf16 widens exactly), and a
+bf16 tensor to compress is a CPU ``torch.Tensor`` (its blob names
+``bfloat16``, as JAX's does).
 
 ``WireCompressor`` is the client-side manager: it owns the per-tensor
 error-feedback residuals and push counters.  The critical ordering:
@@ -35,8 +37,9 @@ error-feedback residuals and push counters.  The critical ordering:
      PUSH that the server deduplicates still commits exactly once —
      the residual can never be double-folded.
 
-Nothing on the port's worker path speaks this yet: the PS tier that
-does is queue A item 10.
+The parameter-server client (engine/ps_server.py ``RemoteStore``)
+compresses its PUSH / PUSH_PULL payloads through ``WireCompressor`` and
+the shard cast-compresses its replies through ``maybe_compress_reply``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import threading
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from .registry import (REPLY_SAFE, CompressionPolicy, Scheme, derive_seed,
                        get_scheme)
@@ -91,18 +95,27 @@ class WireBlob:
         return sum(memoryview(b).nbytes for b in self._bufs)
 
 
-def encode_blob(scheme: Scheme, arr: np.ndarray, seed: int = 0,
+def _f32(arr) -> np.ndarray:
+    """``arr`` as a float32 numpy array (a bf16 tensor widens exactly)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().float().contiguous().numpy()
+    return np.asarray(arr, np.float32)
+
+
+def encode_blob(scheme: Scheme, arr, seed: int = 0,
                 ratio: float = 0.01, with_deq: bool = True
                 ) -> Tuple[WireBlob, Optional[np.ndarray]]:
-    """Compress ``arr`` under ``scheme``; returns the wire blob and the
-    dequantized value (fp32, arr's shape) the server will reconstruct —
-    the EF residual is ``corrected - deq``.  Callers that don't need the
-    residual (reply leg, unbiased push) pass ``with_deq=False`` and get
-    ``None`` back, skipping a full decode of their own payload."""
-    xf = np.ascontiguousarray(arr, np.float32)
+    """Compress ``arr`` (a numpy array, or a bf16 CPU tensor) under
+    ``scheme``; returns the wire blob and the dequantized value (fp32,
+    arr's shape) the server will reconstruct — the EF residual is
+    ``corrected - deq``.  Callers that don't need the residual (reply
+    leg, unbiased push) pass ``with_deq=False`` and get ``None`` back,
+    skipping a full decode of their own payload."""
+    xf = np.ascontiguousarray(_f32(arr))
     ctx, data = scheme.wire_encode(xf, seed=seed, ratio=ratio)
     sname = scheme.name.encode()
-    dtname = np.dtype(arr.dtype).name.encode()
+    dtname = (b"bfloat16" if isinstance(arr, torch.Tensor)
+              else np.dtype(arr.dtype).name.encode())
     # blob header and scheme data stay separate buffers: the wire layer
     # scatter-gathers them, so the (potentially large) data bytes are
     # never copied into a concatenation
@@ -110,9 +123,9 @@ def encode_blob(scheme: Scheme, arr: np.ndarray, seed: int = 0,
             + struct.pack("<B", len(dtname)) + dtname
             + struct.pack("<I", len(ctx)) + ctx
             + struct.pack("<Q", len(data)))
-    deq = (scheme.wire_decode(ctx, data, xf.size).reshape(arr.shape)
+    deq = (scheme.wire_decode(ctx, data, xf.size).reshape(xf.shape)
            if with_deq else None)
-    return WireBlob(arr.shape, [head, data], arr.nbytes), deq
+    return WireBlob(tuple(arr.shape), [head, data], arr.nbytes), deq
 
 
 def decode_blob(tag: str, payload: bytes, shape) -> np.ndarray:
@@ -159,6 +172,10 @@ def maybe_compress_reply(arr: Optional[np.ndarray], scheme_name: str,
     error feedback to absorb it — anything else passes through raw."""
     if arr is None or not scheme_name or scheme_name == "none":
         return arr
+    if isinstance(arr, torch.Tensor):
+        # a bf16 store value: JAX's ``np.issubdtype(bfloat16, floating)``
+        # is False, so its replies go raw, and so do these
+        return arr
     if scheme_name not in REPLY_SAFE:
         return arr
     if arr.nbytes < min_bytes:
@@ -201,25 +218,30 @@ class WireCompressor:
         commit)``: payload is the raw array (policy pass-through) or a
         ``WireBlob``; ``commit`` publishes the EF residual and must be
         called exactly once, *after* the mutation is acknowledged."""
-        scheme = self._policy.scheme_for(name, arr.nbytes, arr.dtype)
+        nbytes = arr.nbytes
+        scheme = self._policy.scheme_for(name, nbytes, arr.dtype)
         if scheme is None:
-            self._observe(name, arr.nbytes, arr.nbytes)
+            self._observe(name, nbytes, nbytes)
             return arr, None
         if not scheme.biased:
             blob, _ = encode_blob(scheme, arr, ratio=self._policy.ratio,
                                   with_deq=False)
-            self._observe(name, arr.nbytes, blob.nbytes)
+            self._observe(name, nbytes, blob.nbytes)
             return blob, None
         with self._lock:
             residual = self._residual.get(name)
             count = self._count.get(name, 0)
-        corrected = np.asarray(arr, np.float32)
+        corrected = _f32(arr)
         if residual is not None:
             corrected = corrected + residual
         seed = derive_seed(self._policy.seed, name, count)
-        blob, deq = encode_blob(scheme, corrected.astype(arr.dtype,
-                                                        copy=False),
-                                seed=seed, ratio=self._policy.ratio)
+        if isinstance(arr, torch.Tensor):   # corrected.astype(bfloat16)
+            rounded = torch.from_numpy(np.ascontiguousarray(
+                corrected)).to(arr.dtype)
+        else:
+            rounded = corrected.astype(arr.dtype, copy=False)
+        blob, deq = encode_blob(scheme, rounded, seed=seed,
+                                ratio=self._policy.ratio)
         pending = corrected - deq.astype(np.float32)
 
         def commit() -> None:
@@ -227,7 +249,7 @@ class WireCompressor:
                 self._residual[name] = pending
                 self._count[name] = count + 1
 
-        self._observe(name, arr.nbytes, blob.nbytes)
+        self._observe(name, nbytes, blob.nbytes)
         return blob, commit
 
     def residual_norm(self, name: str) -> float:

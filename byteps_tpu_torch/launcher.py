@@ -15,10 +15,16 @@ after ``byteps_tpu/launcher.py``.
 * ``DMLC_ROLE=router`` builds the serving router from
   ``BYTEPS_ROUTER_*`` and blocks on its TCP frontend
   (``serving/router.py:router_from_env``), host code only;
+* ``DMLC_ROLE=server`` with ``BYTEPS_ENABLE_ASYNC=1`` runs one async
+  parameter-server shard (``engine/ps_server.py:serve``), host code only,
+  on ``BYTEPS_SERVER_PORT`` (default ``DMLC_PS_ROOT_PORT`` + 100 +
+  ``DMLC_SERVER_ID``), restarting it after a crash up to
+  ``BYTEPS_SERVER_MAX_RESTARTS`` times, ``BYTEPS_SERVER_RESTART_BACKOFF_MS``
+  apart (a fresh store each time: the workers' client re-seeds it);
+  without async mode it exits 0 with a notice (the synchronous path
+  needs no server tier);
 * ``DMLC_ROLE=scheduler`` exits 0 with a notice: ``torch.distributed``'s
-  TCP rendezvous replaces the DMLC scheduler;
-* ``DMLC_ROLE=server`` (the async parameter-server shard) is refused
-  until the port's PS-tier slice (queue A item 10).
+  TCP rendezvous replaces the DMLC scheduler.
 
 Usage::
 
@@ -26,6 +32,8 @@ Usage::
         DMLC_PS_ROOT_PORT=29500 python -m byteps_tpu_torch.launcher \\
         python train.py ...
     DMLC_ROLE=serve BYTEPS_SERVE_PORT=9000 python -m byteps_tpu_torch.launcher
+    DMLC_ROLE=server BYTEPS_ENABLE_ASYNC=1 DMLC_SERVER_ID=0 \\
+        DMLC_PS_ROOT_PORT=29500 python -m byteps_tpu_torch.launcher
 """
 
 from __future__ import annotations
@@ -33,6 +41,35 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import time
+
+
+def _serve_supervised(serve, port: int, env: dict) -> int:
+    """Run one PS shard, restarting on a crash up to
+    ``BYTEPS_SERVER_MAX_RESTARTS`` times (0 = die on the first crash).
+    Each restart binds the same port with a fresh store; the workers'
+    client re-seeds the tensors it finds missing."""
+    max_restarts = int(env.get("BYTEPS_SERVER_MAX_RESTARTS", "0") or "0")
+    backoff = float(env.get("BYTEPS_SERVER_RESTART_BACKOFF_MS",
+                            "1000")) / 1e3
+    attempt = 0
+    while True:
+        try:
+            serve(port)
+            return 0
+        except KeyboardInterrupt:
+            return 0
+        except Exception as e:
+            attempt += 1
+            if attempt > max_restarts:
+                print(f"byteps_tpu_torch.launcher: PS shard crashed "
+                      f"({e!r}); restart budget exhausted "
+                      f"({max_restarts})", file=sys.stderr)
+                return 1
+            print(f"byteps_tpu_torch.launcher: PS shard crashed ({e!r}); "
+                  f"restart {attempt}/{max_restarts} in {backoff:.1f}s",
+                  file=sys.stderr)
+            time.sleep(backoff)
 
 
 def _check_env(env: dict) -> None:
@@ -69,6 +106,20 @@ def main(argv=None) -> int:
     env = dict(os.environ)
     env.setdefault("DMLC_ROLE", "worker")
     role = env["DMLC_ROLE"]
+    if role == "server":
+        if env.get("BYTEPS_ENABLE_ASYNC", "0") == "1":
+            from .engine import ps_server
+
+            root = int(env.get("DMLC_PS_ROOT_PORT", "1234"))
+            server_id = int(env.get("DMLC_SERVER_ID", "0"))
+            port = int(env.get("BYTEPS_SERVER_PORT",
+                               str(root + 100 + server_id)))
+            return _serve_supervised(ps_server.serve, port, env)
+        print("byteps_tpu_torch.launcher: role 'server' is only needed for "
+              "async-PS mode (BYTEPS_ENABLE_ASYNC=1); the synchronous path "
+              "reduces over torch.distributed without a parameter-server "
+              "tier. Exiting.")
+        return 0
     if role == "serve":
         from .serving.frontend import serve_from_env
 
@@ -83,10 +134,9 @@ def main(argv=None) -> int:
               "scheduler); exiting.")
         return 0
     if role != "worker":
-        print(f"byteps_tpu_torch.launcher: role {role!r} is not ported "
-              f"yet: the parameter-server tier is queue A item 10 (use "
-              f"byteps_tpu.launcher for it); this package runs "
-              f"DMLC_ROLE=worker, serve and router", file=sys.stderr)
+        print(f"byteps_tpu_torch.launcher: unknown role {role!r}: "
+              f"DMLC_ROLE is worker, server, serve, router or scheduler",
+              file=sys.stderr)
         return 2
     if not argv:
         raise SystemExit("usage: python -m byteps_tpu_torch.launcher "

@@ -1,6 +1,7 @@
 """Resilience subsystem — the port's copy of ``byteps_tpu/resilience``:
 retry pacing, failure detection, degraded-mode routing and
-deterministic fault injection, as the serving router tier uses them.
+deterministic fault injection, as the serving router tier and the
+parameter-server client use them.
 
   * ``RetryPolicy`` (policy.py) — bounded exponential backoff + jitter
     with a per-op deadline;
@@ -17,9 +18,10 @@ deterministic fault injection, as the serving router tier uses them.
     failovers, ... in the metrics registry.
 
 The router sets its own policy, detectors and ping bound
-(``BYTEPS_ROUTER_*``, ``BYTEPS_HEARTBEAT_TIMEOUT_MS``); the JAX package's
-``BYTEPS_RETRY_*`` knobs pace its parameter-server client, which is not
-ported yet.
+(``BYTEPS_ROUTER_*``, ``BYTEPS_HEARTBEAT_TIMEOUT_MS``); the
+parameter-server client (``engine/ps_server.py:RemoteStore``) takes the
+``BYTEPS_RETRY_*`` knobs through ``RetryPolicy.from_config`` and the
+``BYTEPS_HEARTBEAT_*`` ones for its detector.
 """
 
 from .counters import ResilienceCounters, get_counters, reset_counters

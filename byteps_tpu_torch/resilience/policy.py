@@ -4,9 +4,11 @@
 The policy is pure decision logic — it owns no sockets and no threads.
 The serving router drives it (``serving/router.py``): each failed
 placement or transient leg failure asks the policy whether (and how
-long) to wait before the next attempt.  In the JAX package the
-parameter-server client drives it too, built from the ``BYTEPS_RETRY_*``
-knobs by ``from_config``; both come with that tier.
+long) to wait before the next attempt.  So does the parameter-server
+client (``engine/ps_server.py:RemoteStore._rpc``), with the policy
+``from_config`` builds from the ``BYTEPS_RETRY_*`` knobs.  Mutating-op
+idempotence is not handled here: the client version-guards retried
+pushes, since only it can ask the server for ``OP_VERSION``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,22 @@ class RetryPolicy:
     backoff_cap: float = 2.0
     jitter: float = 0.1
     deadline: float = 15.0
+
+    @staticmethod
+    def from_config(cfg=None) -> "RetryPolicy":
+        """The ``BYTEPS_RETRY_*`` knobs as a policy (JAX's mapping:
+        milliseconds to seconds, at least one attempt)."""
+        if cfg is None:
+            from ..common.config import get_config
+
+            cfg = get_config()
+        return RetryPolicy(
+            max_attempts=max(1, cfg.retry_max_attempts),
+            backoff_base=cfg.retry_backoff_ms / 1e3,
+            backoff_mult=cfg.retry_backoff_mult,
+            jitter=cfg.retry_jitter,
+            deadline=cfg.retry_deadline_ms / 1e3,
+        )
 
     def backoff(self, attempt: int, rng: Optional[random.Random] = None) -> float:
         """Sleep (seconds) before attempt ``attempt`` (1-based; attempt 1

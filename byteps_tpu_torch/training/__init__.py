@@ -16,7 +16,7 @@ from .optimizer import (DistributedOptimizer, push_pull_gradients,
                         resolve_compression)
 from .overlap import DelayedStep, OverlapState, make_delayed_grad_step
 from .step import (TrainState, TrainStep, create_train_state, lm_loss_fn,
-                   make_data_parallel_step)
+                   make_data_parallel_step, make_zero_step)
 from .trainer import Trainer
 
 __all__ = ["BroadcastGlobalVariablesCallback", "CheckpointManager",
@@ -24,6 +24,7 @@ __all__ = ["BroadcastGlobalVariablesCallback", "CheckpointManager",
            "OverlapState", "TrainState", "TrainStep", "Trainer",
            "average_metrics", "create_train_state", "lm_loss_fn",
            "make_data_parallel_step", "make_delayed_grad_step",
+           "make_zero_step",
            "multiplier_schedule",
            "push_pull_gradients", "resolve_compression",
            "restore_checkpoint", "save_checkpoint", "scaled_lr",

@@ -166,6 +166,15 @@ def make_data_parallel_step(loss_fn: Callable,
     return TrainStep(step, optimizer)
 
 
+def make_zero_step(loss_fn, zero, model_state=None, reduce_grads=None):
+    """The ZeRO step over the PS tier's span keys (JAX ``training/
+    step.py:217`` with ``training/zero.py``) — not ported yet: it comes
+    with ``zero.py`` (queue A item 10).  Refused by name."""
+    raise NotImplementedError(
+        "make_zero_step: the ZeRO step comes with the port of "
+        "training/zero.py (queue A item 10); use make_data_parallel_step")
+
+
 def _world1_compression(compression) -> tuple:
     """The one-worker rendering of a compression spec (JAX
     ``_world1_compression_tx``): ``(roundtrip, error_feedback)``.  A

@@ -20,11 +20,23 @@ training/checkpoint.py) and ``init_state`` resumes from the newest, as
 the JAX ``Trainer`` does; ``callbacks`` run after each step and may
 return a replacement state; ``overlap=True`` trains with the
 delayed-gradient step (training/overlap.py), flushed at the end of each
-``fit``.  Async-PS mode (queue A item 10) is refused.  ``device``
-defaults to ``cuda`` (no GPU: pass ``device="cpu"``); the model's
-parameters must already be there, and batches are moved there.  To share
-one card between workers, call ``api.init(device, backend="gloo")``
-before building the Trainer.
+``fit``.  ``device`` defaults to ``cuda`` (no GPU: pass
+``device="cpu"``); the model's parameters must already be there, and
+batches are moved there.  To share one card between workers, call
+``api.init(device, backend="gloo")`` before building the Trainer.
+
+Async-PS mode (``async_mode=True`` or ``BYTEPS_ENABLE_ASYNC=1``; the
+reference's torch/__init__.py:174-189): each worker steps on its own
+batches, and every ``async_interval`` steps exchanges weight deltas with
+the parameter-server tier (``async_store``, default the process store of
+``engine/async_ps.get_async_store``).  The exchange is pipelined: the
+train thread hands the exchange thread clones of the parameters and
+keeps stepping; at the next interval it adopts the finished exchange
+with the catch-up rule ``params += pulled - submitted`` (the term is
+already on the device, copied there by the exchange thread), and the
+last exchange is drained at the end of ``fit``.  The train thread waits
+on the host only in ``take_delta``.  ``close()`` stops the exchange
+thread.
 """
 
 from __future__ import annotations
@@ -55,20 +67,21 @@ class Trainer:
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 1000, checkpoint_keep: int = 3,
                  log_every: int = 100, callbacks: Sequence[Callable] = (),
-                 async_mode: Optional[bool] = None, overlap: bool = False,
-                 device=None):
-        if (get_config().enable_async if async_mode is None
-                else async_mode):
-            raise NotImplementedError(
-                "async_mode (or BYTEPS_ENABLE_ASYNC): the async parameter-"
-                "server mode belongs to the port's PS-tier slice (queue A "
-                "item 10); the port's Trainer runs the synchronous step")
+                 async_mode: Optional[bool] = None, async_store=None,
+                 async_interval: int = 1, worker_id: Optional[int] = None,
+                 overlap: bool = False, device=None):
         api.init(device)
         self.device = api.device()
         # ByteScheduler mode: cross-iteration overlap through the
         # delayed-gradient step; fit() flushes the final pending gradients
         self.overlap = bool(overlap)
+        # async-PS mode: explicit argument beats BYTEPS_ENABLE_ASYNC
+        self.async_mode = bool(get_config().enable_async
+                               if async_mode is None else async_mode)
         if self.overlap:
+            if self.async_mode:
+                raise ValueError("overlap=True is a synchronous schedule; "
+                                 "it cannot combine with async_mode")
             if backward_passes_per_step != 1:
                 raise ValueError("overlap=True does not compose with "
                                  "backward_passes_per_step > 1")
@@ -87,6 +100,16 @@ class Trainer:
         self.callbacks = list(callbacks)
         self.state: Optional[TrainState] = None
         self.metrics: dict = {}  # the last step's {"loss": tensor}
+        self.async_interval = max(1, int(async_interval))
+        self.worker_id = (get_config().worker_id if worker_id is None
+                          else worker_id)
+        self._async_worker = None
+        self.async_store = None
+        if self.async_mode:
+            from ..engine.async_ps import get_async_store
+
+            self.async_store = (async_store if async_store is not None
+                                else get_async_store())
 
     def init_state(self, model: nn.Module, model_state=None,
                    root_rank: int = 0, resume: bool = True) -> TrainState:
@@ -101,16 +124,27 @@ class Trainer:
         if wrong:
             raise ValueError(f"model parameters on {wrong}, trainer on "
                              f"{self.device}: move the model first")
+        state = None
         if self.ckpt is not None and resume:
             state = self.step_fn.init_state(model, model_state)
             restored, step = self.ckpt.restore_latest(template=state)
             if restored is not None:
                 bps_log.info("resuming from checkpoint step %d", step)
-                return restored
-        model = api.broadcast_parameters(model, root_rank)
-        if model_state:
-            model_state = api.broadcast_parameters(model_state, root_rank)
-        return self.step_fn.init_state(model, model_state)
+            state = restored
+        if state is None:
+            model = api.broadcast_parameters(model, root_rank)
+            if model_state:
+                model_state = api.broadcast_parameters(model_state,
+                                                       root_rank)
+            state = self.step_fn.init_state(model, model_state)
+        if self.async_mode and self._async_worker is None:
+            from ..engine.async_ps import AsyncWorker
+
+            # registers every parameter: the first-push-wins initial push
+            # (reference InitTensor, operations.cc:262-284)
+            self._async_worker = AsyncWorker(self.async_store, state.model,
+                                             worker_id=self.worker_id)
+        return state
 
     def fit(self, model: nn.Module, model_state, batches: Iterable,
             steps: Optional[int] = None) -> TrainState:
@@ -136,13 +170,46 @@ class Trainer:
                 maybe = cb(state)
                 if maybe is not None:
                     state = maybe
+            if self._async_worker is not None and \
+                    seen % self.async_interval == 0:
+                # adopt the previous interval's exchange, then submit this
+                # one on clones the next steps do not write
+                state = self._adopt_exchange(state)
+                with torch.no_grad():
+                    self._async_worker.begin_push_pull(
+                        [p.detach().clone()
+                         for p in state.model.parameters()])
             if self.log_every and seen % self.log_every == 0:
                 bps_log.info("step %d loss %.4f (%.2f steps/s)", state.step,
                              float(self.metrics["loss"]),
                              seen / max(time.time() - t0, 1e-9))
+        if self._async_worker is not None:
+            # drain the last exchange, so the state reflects the store
+            state = self._adopt_exchange(state)
         if self.overlap:
             state = self.step_fn.flush(state)
         self.state = state
+        return state
+
+    def close(self) -> None:
+        """Stop the async-PS exchange thread (it pins a host snapshot of
+        the parameters).  Idempotent."""
+        if self._async_worker is not None:
+            self._async_worker.close()
+            self._async_worker = None
+
+    def _adopt_exchange(self, state: TrainState) -> TrainState:
+        """Fold a finished exchange into the current parameters, in
+        place: ``params += pulled - submitted`` (the catch-up rule of
+        ``AsyncWorker.take_result``).  No-op when none is in flight."""
+        if not self._async_worker.exchange_in_flight():
+            return state
+        deltas = self._async_worker.take_delta()
+        with torch.no_grad():
+            for p, d in zip(state.model.parameters(), deltas):
+                if not isinstance(d, torch.Tensor):
+                    d = torch.from_numpy(d)
+                p.add_(d.to(p.device, p.dtype))
         return state
 
     def evaluate(self, eval_fn: Callable,

@@ -393,6 +393,30 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    of that model saved from ``--seed + 1``: the served tokens equal the
    in-process ``generate()`` on the saved weights (grouped rows, as the
    dense engine) and differ from the role's default weights'.
+13i. The async parameter-server tier (the main path of the slice that
+   adds the native reducer, the PS shard and its launcher role, the
+   pipelined ``RemoteStore`` and ``Trainer(async_mode=True)``) — phase
+   11's model, AdamW and fused head.  Two shard processes of the port's
+   launcher (``DMLC_ROLE=server BYTEPS_ENABLE_ASYNC=1``, host only) and
+   two launcher workers (``--async-worker``, ``BYTEPS_ENABLE_ASYNC=1``
+   and ``BYTEPS_SERVER_ADDRS``; one seed, so one initial state), each a
+   ``Trainer(async_mode=True, async_interval=1)`` on its 2 x 2048 rows
+   for 3 steps and the drain, over an fp32 wire; then the same for 2
+   steps with ``BYTEPS_COMPRESSION=bf16``.  Per run: losses finite; each
+   worker's launches 3 (or 2) x phase 11's a step and its first flash
+   and fused-CE calls held as in 13a (b); at three leaves (a norm, one
+   layer's wq, one MLP matrix), each partition pulled by a fresh client
+   equals the initial value plus every delta both workers pushed,
+   replayed in the order of the versions the replies carried (bf16-
+   rounded under the bf16 wire) — bit for bit — and the same fold
+   without worker 1's deltas misses; both shards log the native reducer
+   and report no CUDA context, and no shard pid is in ``nvidia-smi
+   --query-compute-apps``; the bf16 run puts at most 0.51x the fp32
+   run's bytes a push on the wire.  Printed: exchange seconds (p50), the
+   bytes each way and GB/s, the shards' summation GB/s, step ms with an
+   exchange in flight beside phase 11's, the last step's device idle
+   share (profiled), peak RSS of every process and peak device memory a
+   worker.
 
 13b. BERT reference — BERT-base (``bert_config()``: 12 x 768, 12 heads,
    3072, vocab 30522) in fp32 from ``--seed``, ``attn_impl="flash"``
@@ -567,7 +591,9 @@ and Llama's prefills and GPT-2's fused training; the fused-CE entries
 GPT-2's training launches and held call; the flash and fused-CE entries
 each worker's launches in phase 13a (b) and both workers' held calls,
 and phase 13h's launches (``training_rest_launches``: (a)'s four steps,
-and (c)'s per worker for each trainer) and its workers' held calls;
+and (c)'s per worker for each trainer) and its workers' held calls, and
+phase 13i's per worker in each run (``async_ps_launches_per_worker``)
+and its workers' held calls;
 the bf16 decode entry GPT-2's
 and Llama's launches, their held calls and the G = 1 case's times; the
 int8 product GPT-2's launches by design and held calls), and ``{"ok":
@@ -2874,19 +2900,26 @@ def router_serve_phase(torch, seed: int, serve_info, paged_results):
     addrs = [f"127.0.0.1:{s.server_address[1]}" for s, _ in srvs]
     pa_, pb_ = free_port(), free_port()
     peers = [f"127.0.0.1:{pa_}", f"127.0.0.1:{pb_}"]
-    ra = ServeRouter(addrs, **_router_kw(peers=peers, self_addr=peers[0],
-                                         epoch_timeout=0.2))
-    rb = ServeRouter(addrs, **_router_kw(peers=peers, self_addr=peers[1],
-                                         epoch_timeout=0.2))
     fronts = []
+
+    def router(i, port):
+        """A router of the HA pair, its frontend serving at once: the
+        standby's heartbeat pings the active's frontend from its
+        construction on, and two misses (0.4 s) before that frontend
+        listens would hand the standby the epoch."""
+        r = ServeRouter(addrs, **_router_kw(peers=peers, self_addr=peers[i],
+                                            epoch_timeout=0.2))
+        f = RouterFrontend(("127.0.0.1", port), r)
+        threading.Thread(target=f.serve_forever, daemon=True).start()
+        fronts.append(f)
+        return r
+
+    ra = router(0, pa_)
+    rb = router(1, pb_)
     try:
         with _ReplicaPath() as path:
             for n, e in zip(names, reps):
                 path.watch(n, e)
-            for port, r in ((pa_, ra), (pb_, rb)):
-                f = RouterFrontend(("127.0.0.1", port), r)
-                threading.Thread(target=f.serve_forever, daemon=True).start()
-                fronts.append(f)
             both = ",".join(peers)
             # (a) placement: phase 4's traffic through the routers
             torch.cuda.synchronize()
@@ -3140,6 +3173,7 @@ def _children():
             env=_child_env(env_over),
             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
             stderr=subprocess.STDOUT)
+        proc.log_path = log.name
         procs.append((name, proc, log))
         return proc
 
@@ -5062,13 +5096,14 @@ def dp_worker(torch, seed: int, out: str) -> int:
     return 0
 
 
-def _launch_workers(flag: str, seed: int, tmp: str) -> tuple:
+def _launch_workers(flag: str, seed: int, tmp: str, env_over=None,
+                    args=(), timeout: float = DP_TIMEOUT_S) -> tuple:
     """``DP_WORLD`` workers through the port's launcher (``DMLC_ROLE=
-    worker``, a free ``DMLC_PS_ROOT_PORT``), each running this script
-    with ``flag`` and tracing to ``tmp/trace{r}.json``; every one still
-    running at ``DP_TIMEOUT_S`` is killed.  Returns each worker's JSON
-    result and the wall seconds; a worker that failed fails the phase
-    with its log's tail."""
+    worker``, a free ``DMLC_PS_ROOT_PORT``, and ``env_over``), each
+    running this script with ``flag`` (and ``args``) and tracing to
+    ``tmp/trace{r}.json``; every one still running at ``timeout`` is
+    killed.  Returns each worker's JSON result and the wall seconds; a
+    worker that failed fails the phase with its log's tail."""
     import os
 
     from byteps_tpu_torch.engine.transport import free_port
@@ -5084,15 +5119,16 @@ def _launch_workers(flag: str, seed: int, tmp: str) -> tuple:
                 "DMLC_ROLE": "worker", "DMLC_NUM_WORKER": str(DP_WORLD),
                 "DMLC_WORKER_ID": str(r), "DMLC_PS_ROOT_URI": "127.0.0.1",
                 "DMLC_PS_ROOT_PORT": str(port),
-                "BYTEPS_TRACE_PATH": os.path.join(tmp, f"trace{r}.json")})
+                "BYTEPS_TRACE_PATH": os.path.join(tmp, f"trace{r}.json"),
+                **(env_over or {})})
             procs.append((subprocess.Popen(
                 [sys.executable, "-m", "byteps_tpu_torch.launcher",
                  sys.executable, os.path.join(here, "chip_smoke.py"),
                  flag, "--seed", str(seed), "--dp-out",
-                 os.path.join(tmp, f"worker{r}.json")],
+                 os.path.join(tmp, f"worker{r}.json"), *args],
                 env=env, cwd=here, stdout=log, stderr=subprocess.STDOUT),
                 log))
-        deadline = time.monotonic() + DP_TIMEOUT_S
+        deadline = time.monotonic() + timeout
         for p, _ in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
@@ -5788,6 +5824,351 @@ def serve_checkpoint_phase(torch, seed: int) -> dict:
 
 
 # ------------------------------------------------------------ generation
+
+
+ASYNC_LEAVES = ("blocks.3.ln1.scale", "blocks.5.attn.q.weight",
+                "blocks.8.mlp.down.weight")   # a norm, one wq, one MLP matrix
+ASYNC_RUNS = (("fp32", 3, {}), ("bf16", 2, {"BYTEPS_COMPRESSION": "bf16"}))
+ASYNC_SHARDS = 2
+ASYNC_TIMEOUT_S = 900.0   # both workers: start, INIT, the steps, the drain
+ASYNC_BF16_BYTES = 0.51   # bf16 wire bytes a push, of the fp32 run's
+
+
+def _interval_ms(spans) -> float:
+    return sum(b - a for a, b in _intervals(spans)) / 1e3
+
+
+def async_worker(torch, seed: int, out: str, steps_n: int) -> int:
+    """One worker of phase 13i, run by the port's launcher under
+    ``BYTEPS_ENABLE_ASYNC=1``: phase 11's fused-head Llama-3.2-1B and
+    AdamW in ``Trainer(async_mode=True, async_interval=1)`` over the two
+    shards of ``BYTEPS_SERVER_ADDRS``, ``steps_n`` steps on this rank's
+    2 x 2048 rows and the drain."""
+    import os
+    import resource
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from byteps_tpu_torch import api
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.compression import get_compression_stats
+    from byteps_tpu_torch.engine import ps_server
+    from byteps_tpu_torch.engine.async_ps import get_async_store
+    from byteps_tpu_torch.training import Trainer, lm_loss_fn
+
+    rank = get_config().worker_id
+    api.init(device="cuda")
+    assert api.size() == 1, "async workers share no process group"
+    cfg, model, opt = _fused_model(torch, seed)    # both ranks: one init
+    names = [n for n, _ in model.named_parameters()]
+    watch = {f"param_{names.index(n)}": n for n in ASYNC_LEAVES}
+    init = {n: dict(model.named_parameters())[n].detach().cpu().numpy()
+            .copy() for n in ASYNC_LEAVES}
+    per = TRAIN_B // DP_WORLD
+    batch = _train_batch(torch, seed, slice(rank * per, (rank + 1) * per))
+    store = get_async_store()
+    deltas = {n: [] for n in watch}
+    versions: dict = {}
+    push_pull, note = store.push_pull, store._note_success
+
+    def recording_push_pull(name, delta, priority=None):
+        if name in watch:
+            deltas[name].append(np.array(delta, copy=True))
+        return push_pull(name, delta, priority)
+
+    def recording_note(op, name, rname, out_, arr=None, shard=0):
+        if op == ps_server.OP_PUSH_PULL and name.split("#p")[0] in watch:
+            versions.setdefault(name, []).append(int(rname))
+        return note(op, name, rname, out_, arr, shard=shard)
+
+    store.push_pull, store._note_success = recording_push_pull, recording_note
+    steps, prof = [], {}
+    with _PathCalls() as path:     # the loss binds the fused CE here
+        trainer = Trainer(lm_loss_fn(model, fused_head=True), opt,
+                          async_mode=True, async_interval=1, log_every=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state = trainer.init_state(model)   # INIT of every leaf
+        init_s = time.perf_counter() - t0
+        aw, inner = trainer._async_worker, trainer.step_fn
+
+        class Timed:
+            """The step, timed; the last one (an exchange in flight)
+            under the profiler for the device's idle share."""
+
+            def __getattr__(self, k):
+                return getattr(inner, k)
+
+            def __call__(self, state, b):
+                inflight = aw.exchange_in_flight()
+                res = []
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                profiled = len(steps) == steps_n - 1
+                if profiled:
+                    with profile(activities=[ProfilerActivity.CUDA]) as p:
+                        res.append(inner(state, b))
+                        torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t1) * 1e3
+                    ev = [(e.time_range.start, e.time_range.end)
+                          for e in p.events()
+                          if e.device_type == DeviceType.CUDA]
+                    busy = _interval_ms(ev) if ev else None
+                    prof.update({
+                        "kernels_and_copies": len(ev), "wall_ms": wall,
+                        "device_busy_ms": busy,
+                        "device_idle_share": (1.0 - busy / wall
+                                              if busy else None)})
+                else:
+                    res.append(inner(state, b))
+                loss = res[0][1]["loss"].item()          # synchronizes
+                steps.append({"loss": loss, "exchange_in_flight": inflight,
+                              "profiled": profiled,
+                              "ms": (time.perf_counter() - t1) * 1e3})
+                return res[0]
+
+        trainer.step_fn = Timed()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer.fit(model, {}, [batch] * steps_n)   # drains at the end
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _flash_counts() + _fce_counts()
+    from byteps_tpu_torch.ops import fused_cross_entropy as fce
+
+    want, _ = _want_launches(fce)
+    want = tuple(steps_n * w for w in want)
+    if launches != want:
+        raise AssertionError(f"13i rank {rank}: launches {launches}, want "
+                             f"{want}")
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout
+    res = {"rank": rank, "pid": os.getpid(), "steps": steps,
+           "profiled_step": prof, "init_s": init_s, "fit_s": fit_s,
+           "exchange_s": list(aw.exchange_seconds),
+           "exchanges": len(aw.exchange_seconds),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "wire": get_compression_stats().summary(),
+           "launches": launches, "predicted_launches": want,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "compute_apps": smi.split()}
+    trainer.close()
+    del trainer, opt
+    torch.cuda.empty_cache()
+    res["held"] = path.hold(torch)
+    res["peak_rss_gb"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1e6
+    np.savez(out + ".deltas.npz",
+             **{f"init/{watch_n}": init[n] for watch_n, n in watch.items()},
+             **{f"delta/{k}/{i}": d for k, ds in deltas.items()
+                for i, d in enumerate(ds)})
+    res["versions"] = versions
+    res["watch"] = watch
+    store.close()
+    api.shutdown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _sum_of_deltas(torch, np, res, tmp, pulled, bf16: bool) -> dict:
+    """Each watched leaf, partition by partition: the initial value plus
+    every delta both workers pushed, replayed in the order of the
+    versions the shard's replies carried, equals the pulled value bit
+    for bit (bf16-rounded deltas under a bf16 wire); the same fold
+    without worker 1's deltas must miss."""
+    import os
+
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.common.partition import partition_offsets
+
+    cfg = get_config()
+    files = [np.load(os.path.join(tmp, f"worker{r}.json.deltas.npz"))
+             for r in range(DP_WORLD)]
+    out = {}
+    for pname, leaf in res[0]["watch"].items():
+        init = [f[f"init/{pname}"] for f in files]
+        if not all(np.array_equal(init[0], x) for x in init):
+            raise AssertionError(f"13i {leaf}: the workers' initial "
+                                 f"values differ")
+        x0 = init[0].reshape(-1)
+        got = pulled[leaf].reshape(-1)
+        parts = partition_offsets(x0.nbytes, cfg.effective_partition_bytes)
+        n_ok = misses = 0
+        for i, (off, length) in enumerate(parts):
+            key = pname if len(parts) == 1 else f"{pname}#p{i}"
+            lo, hi = off // 4, (off + length) // 4
+            entries = []
+            for r, f in enumerate(files):
+                vs = res[r]["versions"][key]
+                for e, v in enumerate(vs):
+                    d = f[f"delta/{pname}/{e}"].reshape(-1)[lo:hi]
+                    if bf16 and d.nbytes >= cfg.compression_min_bytes:
+                        d = torch.from_numpy(d.copy()).to(
+                            torch.bfloat16).float().numpy()
+                    entries.append((v, r, d))
+            entries.sort(key=lambda t: t[0])
+            if [v for v, _, _ in entries] != list(range(1,
+                                                       len(entries) + 1)):
+                raise AssertionError(f"13i {key}: versions "
+                                     f"{[v for v, _, _ in entries]}")
+            want, control = x0[lo:hi].copy(), x0[lo:hi].copy()
+            for _, r, d in entries:
+                want = want + d
+                if r != 1:
+                    control = control + d
+            if want.tobytes() != got[lo:hi].tobytes():
+                raise AssertionError(f"13i {key}: the pulled value is not "
+                                     f"the initial one plus the replayed "
+                                     f"deltas")
+            n_ok += 1
+            misses += control.tobytes() != got[lo:hi].tobytes()
+        if misses == 0:
+            raise AssertionError(f"13i {leaf}: the control without worker "
+                                 f"1's deltas did not miss")
+        out[leaf] = {"partitions": len(parts), "pushes_per_partition":
+                     len(entries), "bit_equal": n_ok,
+                     "control_misses": misses}
+    return out
+
+
+def async_ps_phase(torch, seed: int, phase11_ms) -> dict:
+    """Phase 13i (module docstring): two shards and two async workers
+    through the port's launcher, an fp32 wire run, then a bf16 one."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from byteps_tpu_torch.engine.ps_server import RemoteStore
+    from byteps_tpu_torch.engine.transport import free_port
+
+    info = {"phase": "async_ps", "model": "Llama-3.2-1B (random weights)",
+            "reduced": {"max_seq": [131072, MAX_SEQ]}, "workers": DP_WORLD,
+            "shards": ASYNC_SHARDS,
+            "batch_per_worker": [TRAIN_B // DP_WORLD, MAX_SEQ],
+            "phase11_step_ms_p50": phase11_ms, "leaves": ASYNC_LEAVES}
+    for run, steps_n, env in ASYNC_RUNS:
+        tmp = tempfile.mkdtemp(prefix=f"async-{run}-")
+        ports = [free_port() for _ in range(ASYNC_SHARDS)]
+        addrs = [f"127.0.0.1:{p}" for p in ports]
+        with _children() as spawn:
+            shards = [spawn(f"ps-shard{i}", {
+                "DMLC_ROLE": "server", "BYTEPS_ENABLE_ASYNC": "1",
+                "DMLC_SERVER_ID": str(i), "BYTEPS_SERVER_PORT": str(p),
+                "BYTEPS_LOG_LEVEL": "INFO", **env})
+                for i, p in enumerate(ports)]
+            client = RemoteStore(addrs)
+            t0 = time.perf_counter()
+            while not client.ping():
+                spawn.check()
+                if time.perf_counter() - t0 > PROC_START_S:
+                    raise AssertionError("13i: the shards never answered")
+                time.sleep(0.2)
+            res, wall_s = _launch_workers(
+                "--async-worker", seed, tmp,
+                env_over={"BYTEPS_ENABLE_ASYNC": "1",
+                          "BYTEPS_SERVER_ADDRS": ",".join(addrs), **env},
+                args=("--async-steps", str(steps_n)),
+                timeout=ASYNC_TIMEOUT_S)
+            spawn.check()
+            stats = [client.shard_stats(i) for i in range(ASYNC_SHARDS)]
+            pulled = {leaf: client.pull(pname) for pname, leaf in
+                      res[0]["watch"].items()}
+            smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                                  "--format=csv,noheader"],
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout
+            shard_pids = [s.pid for s in shards]
+            logs = []
+            for s in shards:
+                with open(s.log_path) as f:
+                    logs.append(f.read())
+            client.close()
+        for r, w in enumerate(res):
+            if not all(np.isfinite(s["loss"]) for s in w["steps"]):
+                raise AssertionError(f"13i {run} rank {r}: losses "
+                                     f"{[s['loss'] for s in w['steps']]}")
+        if not all("reducer native" in lg for lg in logs):
+            raise AssertionError(f"13i {run}: a shard does not sum with "
+                                 f"the native reducer: {logs}")
+        apps = set(smi.split()) | {a for w in res
+                                   for a in w["compute_apps"]}
+        if apps & {str(p) for p in shard_pids} or any(
+                st["cuda_initialized"] for st in stats):
+            raise AssertionError(f"13i {run}: a shard process holds a CUDA "
+                                 f"context (pids {shard_pids}, compute "
+                                 f"apps {sorted(apps)}, stats "
+                                 f"{[st['cuda_initialized'] for st in stats]})")
+        want_held = sorted([
+            ("flash_attention", [TRAIN_B // DP_WORLD, MAX_SEQ,
+                                 LLAMA_3_2_1B["num_heads"],
+                                 LLAMA_3_2_1B["head_dim"]],
+             ["dk", "dq", "dv"]),
+            ("fused_linear_cross_entropy",
+             [TRAIN_B // DP_WORLD * MAX_SEQ, LLAMA_3_2_1B["d_model"]],
+             ["dw", "dx"])])
+        for w in res:
+            got = sorted((h["kernel"], h["shapes"][0],
+                          h.get("backward_held")) for h in w["held"])
+            if got != want_held:
+                raise AssertionError(f"13i {run} rank {w['rank']} held "
+                                     f"calls {got}, want {want_held}")
+        contract = _sum_of_deltas(torch, np, res, tmp, pulled,
+                                  bf16=run == "bf16")
+        exch = [s for w in res for s in w["exchange_s"]]
+        push_b = [w["wire"]["wire_bytes_sent"] / w["exchanges"]
+                  for w in res]
+        pull_b = res[0]["param_bytes"]
+        p50 = float(np.median(exch))
+        inflight = [s["ms"] for w in res for s in w["steps"]
+                    if s["exchange_in_flight"] and not s["profiled"]]
+        info[run] = {
+            "steps": steps_n, "compression": env.get("BYTEPS_COMPRESSION",
+                                                    "none"),
+            "wall_s": wall_s,
+            "losses": [[s["loss"] for s in w["steps"]] for w in res],
+            "sum_of_deltas": contract,
+            "exchange_s_p50": p50, "exchange_s": exch,
+            "push_bytes_per_exchange": push_b,
+            "pull_bytes_per_exchange": pull_b,
+            "exchange_gb_per_s": (float(np.mean(push_b)) + pull_b)
+            / p50 / 1e9,
+            "init_s": [w["init_s"] for w in res],
+            "server_sum_gb_per_s": [st["sum_bytes"] / st["sum_seconds"]
+                                    / 1e9 for st in stats],
+            "server_sum_bytes": [st["sum_bytes"] for st in stats],
+            "server_omp_threads": [st.get("omp_threads") for st in stats],
+            "server_reducer_built_with": [st.get("built_with")
+                                          for st in stats],
+            "step_ms": [[s["ms"] for s in w["steps"]] for w in res],
+            "step_ms_exchange_in_flight_p50":
+                float(np.median(inflight)) if inflight else None,
+            "profiled_step": [w["profiled_step"] for w in res],
+            # a shard's ru_maxrss carries this process's peak across the
+            # launcher's fork and exec: its resident bytes after the run
+            # (the store only grows) stand in for its peak
+            "peak_rss_gb": {"workers": [w["peak_rss_gb"] for w in res]},
+            "shard_rss_gb_after_run": [st["rss_bytes"] / 1e9
+                                       for st in stats],
+            "shard_cuda_initialized": [st["cuda_initialized"]
+                                       for st in stats],
+            "peak_device_memory_gb": [w["peak_memory_gb"] for w in res],
+            "launches_per_worker": [list(w["launches"]) for w in res],
+            "shard_pids": shard_pids, "compute_apps": sorted(apps),
+            "held": [h for w in res for h in w["held"]]}
+    ratio = (np.mean(info["bf16"]["push_bytes_per_exchange"])
+             / np.mean(info["fp32"]["push_bytes_per_exchange"]))
+    info["bf16_push_bytes_ratio"] = float(ratio)
+    if ratio > ASYNC_BF16_BYTES:
+        raise AssertionError(f"13i: the bf16 wire puts {ratio:.3f}x the "
+                             f"fp32 run's bytes on the wire a push")
+    return info
 
 
 def _gen_counts() -> dict:
@@ -6707,9 +7088,17 @@ def main() -> int:
     ap.add_argument("--ef-worker", action="store_true",
                     help="run one worker of phase 13h (c) (the phase "
                          "starts two through the port's launcher)")
+    ap.add_argument("--async-worker", action="store_true",
+                    help="run one worker of phase 13i (the phase starts "
+                         "two through the port's launcher)")
+    ap.add_argument("--async-steps", type=int, default=3,
+                    help="--async-worker's steps")
     ap.add_argument("--dp-out", default="",
-                    help="where --dp-worker or --ef-worker writes its "
-                         "JSON result")
+                    help="where --dp-worker, --ef-worker or --async-worker "
+                         "writes its JSON result")
+    ap.add_argument("--only", choices=("13i",), default=None,
+                    help="build, then run only this phase and print no "
+                         "result line (a quick check of one phase)")
     ap.add_argument("--quant-kernel-names", action="store_true",
                     help="print only the int8-product kernels each bf16 "
                          "phase-17 case launches (phase 17 runs this in a "
@@ -6737,6 +7126,8 @@ def main() -> int:
         return dp_worker(torch, args.seed, args.dp_out)
     if args.ef_worker:
         return ef_worker(torch, args.seed, args.dp_out)
+    if args.async_worker:
+        return async_worker(torch, args.seed, args.dp_out, args.async_steps)
     smi = _smi()
     _line({"phase": "device", "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -6750,6 +7141,9 @@ def main() -> int:
                          if "registers" in ln or "spill" in ln]
                      for n, log in _build.build_logs.items()}})
     _line(ptxas_phase(_build.build_logs))
+    if args.only == "13i":
+        _line(async_ps_phase(torch, args.seed, None))
+        return 0
     _line(reference_phase(torch, args.seed))
     serve_info, paged_launches, final_pos, paged_results = serve_phase(
         torch, args.seed)
@@ -6819,6 +7213,19 @@ def main() -> int:
     ef2_info["nvidia_smi"] = _smi()
     _line(ef2_info)
     _line(serve_checkpoint_phase(torch, args.seed))
+    async_info = async_ps_phase(torch, args.seed, fused_info["step_ms_p50"])
+    async_info["nvidia_smi"] = _smi()
+    _line(async_info)
+    async_held = async_info["fp32"]["held"] + async_info["bf16"]["held"]
+
+    def async_rows(i, kernel):
+        """Phase 13i's launches of count ``i`` per worker in each run, and
+        its workers' held calls of ``kernel``."""
+        return {"async_ps_launches_per_worker": {
+                    run: [w[i] for w in async_info[run]
+                          ["launches_per_worker"]]
+                    for run, _, _ in ASYNC_RUNS},
+                "async_ps_held_on_path": held(async_held, kernel)}
     # this slice's phases run after phase 13: their profile takes CPU and
     # CUDA activities, after which phase 13's CUDA-only profiles saw no
     # kernel (seen on the H100)
@@ -6945,6 +7352,7 @@ def main() -> int:
             "dp_world2_launches_per_worker": dp_launches[i],
             "dp_held_on_path": held(dp_held, "flash_attention"),
             **training_rest(i, "flash_attention"),
+            **async_rows(i, "flash_attention"),
             "bert_finetune_launches": bert_launches[i],
             "bert_held_on_path": held(bert_held, "flash_attention"),
             "bert_case": {d: case(r) for d, r in flash_main["bert"].items()},
@@ -6988,6 +7396,8 @@ def main() -> int:
             "dp_held_on_path": held(dp_held, "fused_linear_cross_entropy"),
             **training_rest(3 + ("fwd", "dx", "dw").index(kname),
                             "fused_linear_cross_entropy"),
+            **async_rows(3 + ("fwd", "dx", "dw").index(kname),
+                         "fused_linear_cross_entropy"),
             "gpt2_train_held_on_path": held(gpt2_train_held,
                                             "fused_linear_cross_entropy"),
             "name": f"fused_cross_entropy_{kname}", "route": "cuda",

@@ -220,9 +220,24 @@ def test_launcher_builds_the_child_env_as_jax_does():
 
 
 def test_launcher_refuses_the_server_role(monkeypatch, capsys):
+    """The server role is ported: without async mode it prints JAX's
+    notice (the port's name for the launcher) and exits 0, and with it
+    serves a shard (test_torch_ps_server.py); an unknown role exits 2."""
+    from byteps_tpu import launcher as jax_launcher
+
+    monkeypatch.delenv("BYTEPS_ENABLE_ASYNC", raising=False)
     monkeypatch.setenv("DMLC_ROLE", "server")
+    assert launcher.main([]) == 0
+    mine = capsys.readouterr().out
+    assert jax_launcher.main([]) == 0
+    theirs = capsys.readouterr().out
+    assert mine.startswith("byteps_tpu_torch.launcher: role 'server' is "
+                           "only needed for async-PS mode")
+    assert theirs.startswith("byteps_tpu.launcher: role 'server' is only "
+                             "needed for async-PS mode")
+    monkeypatch.setenv("DMLC_ROLE", "bogus")
     assert launcher.main([]) == 2
-    assert "item 10" in capsys.readouterr().err
+    assert "unknown role 'bogus'" in capsys.readouterr().err
     monkeypatch.setenv("DMLC_ROLE", "scheduler")
     assert launcher.main([]) == 0
 
@@ -254,15 +269,45 @@ def test_one_worker_api_is_the_identity_on_gloo():
 @pytest.mark.parametrize("knob,value,item", [
     ("BYTEPS_METRICS_PORT", "9091", "item 10"),
     ("BYTEPS_TRACE_RPC", "1", "item 10"),
-    ("BYTEPS_ENABLE_ASYNC", "1", "item 10"),
-    ("BYTEPS_COMPRESSION", "onebit", "item 10"),
+    ("BYTEPS_HIERARCHICAL", "1", "item 10"),
+    ("BYTEPS_TRANSPORT", "shm", "item 10"),
     ("BYTEPS_MESH_SHAPE", "tp=2", "item 12")])
 def test_init_refuses_knobs_the_port_lacks(monkeypatch, knob, value, item):
     monkeypatch.setenv(knob, value)
+    if knob == "BYTEPS_HIERARCHICAL":   # refused under async mode too
+        monkeypatch.setenv("BYTEPS_ENABLE_ASYNC", "1")
     reset_config()
     with pytest.raises(NotImplementedError, match=item):
         api.init(device="cpu")
     assert not torch.distributed.is_initialized()
+
+
+def test_init_under_async_mode_joins_no_worker_group(monkeypatch):
+    """``BYTEPS_ENABLE_ASYNC``: the workers meet at the server tier only,
+    so ``init`` starts a group of one even when the launcher's variables
+    name a two-worker world (as JAX's ``_maybe_init_distributed`` returns
+    early), and the PS tier's ``BYTEPS_COMPRESSION`` is taken;
+    ``shutdown`` closes the process-default async store."""
+    from byteps_tpu_torch.engine import async_ps
+
+    for k, v in {"BYTEPS_ENABLE_ASYNC": "1", "DMLC_NUM_WORKER": "2",
+                 "DMLC_WORKER_ID": "1", "BYTEPS_NUM_PROCESSES": "2",
+                 "BYTEPS_PROCESS_ID": "1",
+                 "BYTEPS_COORDINATOR_ADDR": "127.0.0.1:1",
+                 "BYTEPS_COMPRESSION": "onebit"}.items():
+        monkeypatch.setenv(k, v)
+    reset_config()
+    api.init(device="cpu")
+    assert (api.size(), api.rank()) == (1, 0)
+    closed = []
+
+    class _Store:
+        def close(self):
+            closed.append(1)
+
+    async_ps.set_async_store(_Store())
+    api.shutdown()
+    assert closed == [1] and not torch.distributed.is_initialized()
 
 
 def test_compression_registry_names_are_refused():

@@ -225,10 +225,11 @@ def _no_jax_child(code: str, env=None) -> subprocess.CompletedProcess:
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module, the BERT models, the HF integrations, the
     disaggregated KV ship, the router tier (router, journal, autoscale,
-    resilience, transport) and the BytePS core (the common runtime, the
+    resilience, transport), the BytePS core (the common runtime, the
     mesh and collectives, the eager engine, compression, the
-    DistributedOptimizer) included; none of them imports
-    ``transformers``.  The launcher's worker child is held in
+    DistributedOptimizer) and the async parameter-server tier (the native
+    reducer, the PS wire, async_ps, ps_server) included; none of them
+    imports ``transformers``.  The launcher's worker child is held in
     test_torch_api_multi.py."""
     proc = _no_jax_child(
         "import byteps_tpu_torch, byteps_tpu_torch.serving\n"
@@ -269,6 +270,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import byteps_tpu_torch.training.callbacks\n"
         "import byteps_tpu_torch.training.checkpoint\n"
         "import byteps_tpu_torch.training.overlap\n"
+        "import byteps_tpu_torch.native, byteps_tpu_torch.native.reducer\n"
+        "import byteps_tpu_torch.engine.async_ps\n"
+        "import byteps_tpu_torch.engine.ps_server\n"
+        "import byteps_tpu_torch.resilience.policy\n"
         "assert 'transformers' not in sys.modules\n")
     assert proc.returncode == 0, proc.stderr
 
@@ -355,9 +360,12 @@ def test_serve_role_runs_on_the_gpu_unless_told_otherwise(monkeypatch):
     monkeypatch.setenv("BYTEPS_SERVE_CHECKPOINT", "/nonexistent.ckpt")
     with pytest.raises(FileNotFoundError):
         serve_from_env(device="cpu")
-    # the worker role is ported (test_torch_api_multi.py); the PS
-    # server role is not
+    # the worker role is ported (test_torch_api_multi.py), and so is the
+    # PS server role (test_torch_ps_server.py): without async mode it
+    # exits 0 with a notice, as JAX's does; an unknown role exits 2
     monkeypatch.setenv("DMLC_ROLE", "server")
+    assert launcher.main([]) == 0
+    monkeypatch.setenv("DMLC_ROLE", "bogus")
     assert launcher.main([]) == 2
     reset_config()
 

@@ -346,11 +346,23 @@ def test_trainer_fit_runs_on_cpu_and_refuses_what_is_not_ported(monkeypatch):
                         steps=2)
     assert state.step == 2 and np.isfinite(trainer.metrics["loss"].item())
     assert all(p.device.type == "cpu" for p in model.parameters())
-    # async mode alone is still refused; checkpoints, callbacks, overlap
-    # and the biased compressors are ported (test_torch_training_extras.py,
-    # test_torch_error_feedback.py)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Trainer(lm_loss_fn(model), opt, device="cpu", async_mode=True)
+    # async mode is ported (test_torch_async_ps.py): it takes the process
+    # store; checkpoints, callbacks, overlap and the biased compressors
+    # are too (test_torch_training_extras.py, test_torch_error_feedback.py)
+    from byteps_tpu_torch.engine.async_ps import (AsyncParameterServer,
+                                                  reset_async_store,
+                                                  set_async_store)
+
+    set_async_store(AsyncParameterServer(use_native=False))
+    try:
+        at = Trainer(lm_loss_fn(model), opt, device="cpu", async_mode=True)
+        assert at.async_mode and at.async_interval == 1
+        # refused by name: a synchronous schedule under async mode
+        with pytest.raises(ValueError, match="async_mode"):
+            Trainer(lm_loss_fn(model), opt, device="cpu", async_mode=True,
+                    overlap=True)
+    finally:
+        reset_async_store()
     for kw in ({"overlap": True}, {"callbacks": [print]},
                {"compression": "onebit"}):
         Trainer(lm_loss_fn(model), torch.optim.SGD(model.parameters(),
@@ -391,9 +403,14 @@ def test_trainer_fit_runs_on_cpu_and_refuses_what_is_not_ported(monkeypatch):
         api.init(device="cpu")
     monkeypatch.setenv("DMLC_NUM_WORKER", "1")
     monkeypatch.setenv("BYTEPS_ENABLE_ASYNC", "1")
+    monkeypatch.setenv("BYTEPS_HIERARCHICAL", "1")
     reset_config()
-    with pytest.raises(NotImplementedError, match="async"):
+    # async mode is ported; hierarchical push/pull under it is refused
+    with pytest.raises(NotImplementedError, match="hierarchical"):
         Trainer(lm_loss_fn(model), opt, device="cpu")
+    monkeypatch.delenv("BYTEPS_HIERARCHICAL")
+    monkeypatch.delenv("BYTEPS_ENABLE_ASYNC")
+    reset_config()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             api.init()
